@@ -1,6 +1,8 @@
 """ICP of the PyTorch port (``tpuslam_torch.algorithms.icp``) against
 the JAX package's dense arm (``icp_register(use_spatial=False)``) on the
-same clouds, one case per stop condition.
+same clouds, one case per stop condition; and the hierarchical arm
+(``use_spatial=True``) against the JAX package's, whose Morton order
+both packages share, so Procrustes sums in the same order.
 
 Tolerances, with their reasons: equal ``iterations``; R and t within
 1e-4 — float32 sums in another order and torch's unfused transform
@@ -20,7 +22,7 @@ from tests.conftest import make_cloud, random_rigid
 from tpuslam.algorithms.icp import ICPResume as JaxResume
 from tpuslam.algorithms.icp import icp_register as jax_icp_register
 from tpuslam.core.types import pad_cloud as jax_pad_cloud
-from tpuslam_torch.algorithms.icp import icp_register
+from tpuslam_torch.algorithms.icp import icp_register, resolve_use_spatial
 from tpuslam_torch.core.types import pad_cloud
 from tpuslam_torch.interop import from_numpy_state, to_numpy_state
 
@@ -220,14 +222,99 @@ def test_verbose_prints_each_iteration(rng, capsys):
     assert res.iterations == 3
 
 
-def test_spatial_arm_is_not_ported(rng):
-    cloud = pad_cloud(make_cloud(rng, 128))
-    with pytest.raises(NotImplementedError, match="slice 2"):
-        icp_register(cloud, cloud, use_spatial=True)
-
-
 def test_clouds_on_two_devices_raise(rng):
     cloud = pad_cloud(make_cloud(rng, 128))
     other = cloud._replace(points=cloud.points.to("meta"))
     with pytest.raises(ValueError, match="one device"):
         icp_register(cloud, other)
+
+
+@pytest.mark.parametrize("n", [1500, 1900])
+def test_spatial_arm_matches_jax_spatial_arm(rng, n):
+    """n = 1500 pads to 1536 and n = 1900 to 1920, neither a multiple of
+    the 1,024-row source groups: both packages re-pad internally."""
+    before, after, _, _ = _pair(rng, 0.2, 1.0, n=n)
+    kw = dict(max_iterations=25)
+    jax_res = jax_icp_register(
+        jax_pad_cloud(before), jax_pad_cloud(after), use_spatial=True, **kw)
+    port_res = icp_register(pad_cloud(before), pad_cloud(after), use_spatial=True, **kw)
+    _assert_agree(jax_res, port_res)
+    assert port_res.nn is not None and bool(port_res.nn.warm)
+    assert port_res.nn.prev_target.shape == (2048, 3)
+    dense = icp_register(pad_cloud(before), pad_cloud(after), use_spatial=False, **kw)
+    assert dense.nn is None
+    assert abs(dense.iterations - port_res.iterations) <= 2
+
+
+def test_spatial_resume_from_jax_mid_run_state(rng):
+    """A JAX spatial run stopped after 3 iterations, resumed in both
+    packages from its warm state, carried across by ``interop``."""
+    before, after, _, _ = _pair(rng, 0.3, 2.0, n=1900)
+    kw = dict(eps=1e-7, max_distance_squared=1e4)
+    first = jax_icp_register(
+        jax_pad_cloud(before), jax_pad_cloud(after), use_spatial=True,
+        max_iterations=3, **kw)
+    assert int(first.iterations) == 3 and first.nn is not None
+    resume = JaxResume(
+        rotation=first.transform.rotation,
+        translation=first.transform.translation,
+        error=first.error, nn=first.nn, done_before=3,
+    )
+    state = to_numpy_state(resume)
+    assert set(state["nn"]) == {"prev_target", "warm", "sparse"}
+    port_resume = from_numpy_state(state, "cpu")
+    np.testing.assert_array_equal(
+        port_resume.nn.prev_target.numpy(), np.asarray(first.nn.prev_target))
+    assert bool(port_resume.nn.warm) and port_resume.done_before == 3
+    jax_res = jax_icp_register(
+        jax_pad_cloud(before), jax_pad_cloud(after), use_spatial=True,
+        resume=resume, max_iterations=30, **kw)
+    port_res = icp_register(
+        pad_cloud(before), pad_cloud(after), use_spatial=True,
+        resume=port_resume, max_iterations=30, **kw)
+    _assert_agree(jax_res, port_res)
+
+
+def test_hier_state_round_trip(rng):
+    from tpuslam_torch.ops.nn_hier import HierState
+
+    state = HierState(
+        prev_target=torch.from_numpy(make_cloud(rng, 256)),
+        warm=torch.tensor(True), sparse=torch.tensor(False),
+    )
+    back = from_numpy_state(to_numpy_state(state), "cpu")
+    assert isinstance(back, HierState)
+    assert torch.equal(back.prev_target, state.prev_target)
+    assert bool(back.warm) and not bool(back.sparse)
+
+
+@pytest.mark.parametrize("use_spatial,rows,device,expected", [
+    (None, 102_400, "cpu", False),  # the CPU is the dense arm, as in JAX
+    (None, 8191, "cuda", False),  # below the crossover
+    (None, 8192, "cuda", True),
+    (None, 102_400, "cuda:0", True),
+    (None, 2**24 - 256, "cuda", True),  # the float32 index limit
+    (None, 2**24 - 255, "cuda", False),
+    (True, 128, "cpu", True),  # an explicit choice stands
+    (False, 102_400, "cuda", False),
+])
+def test_resolve_use_spatial_gate(use_spatial, rows, device, expected):
+    assert resolve_use_spatial(use_spatial, rows, torch.device(device)) is expected
+
+
+def test_spatial_arm_refuses_2_24_target_rows():
+    big = pad_cloud(np.zeros((2**24, 3), np.float32))
+    small = pad_cloud(np.zeros((1024, 3), np.float32))
+    with pytest.raises(ValueError, match="2\\^24"):
+        icp_register(small, big, use_spatial=True)
+
+
+@pytest.mark.parametrize("use_spatial,arm", [(None, "dense"), (True, "hier"), (False, "dense")])
+def test_measure_icp_use_spatial(use_spatial, arm):
+    from tpuslam_torch.harness.measure import measure_icp_100k
+
+    res = measure_icp_100k(n_points=1024, iters=2, reps=1, device="cpu",
+                           use_spatial=use_spatial)
+    assert res["nn_arm"] == arm
+    assert res["iterations_run"] == 2 and res["n_points"] == 1024
+    assert res["ms_per_iter"] > 0 and res["device"] == "cpu"

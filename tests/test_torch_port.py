@@ -90,7 +90,9 @@ def test_measure_icp_100k_runs_on_cpu():
     assert set(result) == {
         "n_points", "iters_per_call", "iterations_run", "reps",
         "iters_per_sec", "ms_per_iter", "vs_baseline", "device", "fixture",
+        "nn_arm",
     }
+    assert result["nn_arm"] == "dense"  # the CPU default, as in JAX
     assert result["n_points"] == 2048
     assert result["iterations_run"] == result["iters_per_call"] == 2
     assert result["device"] == "cpu"
@@ -141,8 +143,18 @@ def test_build_without_nvcc_raises(monkeypatch):
 def test_build_digest_follows_the_sources(tmp_path):
     src = tmp_path / "k.cu"
     src.write_text("// one\n")
-    first = build._digest([src])
-    assert build._digest([src]) == first
+    first = build._digest(tmp_path)
+    assert build._digest(tmp_path) == first
     src.write_text("// two\n")
-    assert build._digest([src]) != first
-    assert [p.name for p in build._sources()] == ["nn_dense.cu"]
+    second = build._digest(tmp_path)
+    assert second != first
+    # a header every kernel includes counts too
+    header = tmp_path / "shared.cuh"
+    header.write_text("// a\n")
+    third = build._digest(tmp_path)
+    assert third != second
+    header.write_text("// b\n")
+    assert build._digest(tmp_path) != third
+    assert [p.name for p in build._sources()] == [
+        "bound.cu", "nn_cand.cu", "nn_dense.cu"]
+    assert (build.CSRC / "nn_fold.cuh").is_file()

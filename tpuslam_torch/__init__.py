@@ -4,11 +4,13 @@ A second package beside the JAX one, which stays the reference: same
 public functions, same padded shapes, tested against it on the same
 inputs.  It imports ``torch`` and numpy, never JAX and never ``tpuslam``.
 
-This slice runs ICP on the dense nearest-neighbour arm: the search is the
-hand-written CUDA kernel K1 (``csrc/nn_dense.cu``) on an NVIDIA Hopper
-card, and its plain PyTorch version on the CPU.  NICP, CPD, the
-hierarchical search, batching and sequences are not ported yet and raise
-``NotImplementedError``.
+ICP runs on two exact nearest-neighbour arms: the dense search, kernel
+K1 (``csrc/nn_dense.cu``), and from 8,192 target rows on CUDA the
+hierarchical search, kernels K2 (``csrc/bound.cu``) and K3
+(``csrc/nn_cand.cu``) with K1 as its overflow arm.  The kernels are
+hand-written CUDA for an NVIDIA Hopper card; on the CPU their plain
+PyTorch versions run.  NICP, CPD, batching and sequences are not ported
+yet and raise ``NotImplementedError``.
 """
 
 __version__ = "0.1.0"

@@ -7,7 +7,9 @@
 CPD and the NICP-prealigned ICP raise ``NotImplementedError`` naming
 their ROADMAP item.  ICP runs in one piece: the JAX package chunks
 ICP only on the TPU (``icp_chunk_size`` is 0 elsewhere) or when asked to
-checkpoint, which is not ported yet.
+checkpoint, which is not ported yet.  Its NN arm is ``icp_register``'s
+default: the hierarchical search on CUDA from 8,192 target rows, the
+dense search otherwise.
 """
 
 from __future__ import annotations

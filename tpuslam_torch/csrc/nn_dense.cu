@@ -8,9 +8,8 @@
 // Contract, bit for bit the JAX oracle's (tpuslam.ops.nn.nearest_neighbors_ref
 // on the CPU):
 //   * d = fma(dz, dz, fma(dx, dx, dy * dy)) with d_ = t_ - s_, each step
-//     rounded once to float32.  This is the rounding XLA gives the oracle
-//     on the CPU; it is written with __fmaf_rn / __fmul_rn / __fsub_rn so
-//     that no -fmad setting can change it.
+//     rounded once to float32 (tpuslam::sq_dist in nn_fold.cuh, shared
+//     with K3).
 //   * targets are folded in ascending order with a strict '<', so the
 //     first (lowest) index wins a tie (common.cpp:416 in the reference).
 //   * no valid target gives (idx 0, dist 3.4e38f).  A distance at or
@@ -38,19 +37,19 @@
 
 #include <cstddef>
 
+#include "nn_fold.cuh"
+
 namespace {
+
+using tpuslam::kBig;
 
 constexpr int kThreads = 256;  // source rows per block, one per thread
 constexpr int kTile = kThreads;  // target rows staged per step, one per thread
-constexpr float kBig = 3.4e38f;  // the oracle's no-match distance
 
 __device__ __forceinline__ void fold(float tx, float ty, float tz, float sx,
                                      float sy, float sz, int j, float& best,
                                      int& best_j) {
-  const float dx = __fsub_rn(tx, sx);
-  const float dy = __fsub_rn(ty, sy);
-  const float dz = __fsub_rn(tz, sz);
-  const float d = __fmaf_rn(dz, dz, __fmaf_rn(dx, dx, __fmul_rn(dy, dy)));
+  const float d = tpuslam::sq_dist(tx, ty, tz, sx, sy, sz);
   if (d < best) {
     best = d;
     best_j = j;

@@ -1,12 +1,14 @@
 """Build and load the port's CUDA kernels.
 
-Every ``tpuslam_torch/csrc/*.cu`` file is compiled by ``nvcc`` for
-``sm_90a`` (Hopper) into one shared library with a plain C interface,
+Every ``tpuslam_torch/csrc/*.cu`` file is compiled by its own ``nvcc``
+for ``sm_90a`` (Hopper), all of them at once, and the objects are linked
+into one shared library with a plain C interface,
 ``build/kernels/libtpuslam_torch_kernels.so`` under the checkout's root,
-and loaded with ``ctypes``.  The sources include no PyTorch header, so a
+loaded with ``ctypes``.  The sources include no PyTorch header, so a
 build takes seconds.  It happens at first use in a process and is
-skipped when the library on disk was built from the same sources (a
-content hash is kept beside it).  Nothing here runs at import time: the
+skipped when the library on disk was built from the same sources: a
+hash of every file under ``csrc/`` (the shared ``*.cuh`` headers
+included) is kept beside it.  Nothing here runs at import time: the
 package imports where there is no ``nvcc`` and no card.
 """
 
@@ -21,6 +23,8 @@ import tempfile
 import time
 from pathlib import Path
 from typing import Optional
+
+import torch
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
@@ -56,19 +60,33 @@ def _sources() -> list[Path]:
     return sorted(CSRC.glob("*.cu"))
 
 
-def _digest(sources: list[Path]) -> str:
+def _digest(csrc: Path = CSRC) -> str:
+    """Hash of the build flags and of every file under ``csrc``."""
     h = hashlib.sha256(" ".join(ARCH_FLAGS).encode())
-    for src in sources:
-        h.update(src.name.encode())
-        h.update(src.read_bytes())
+    for f in sorted(p for p in csrc.rglob("*") if p.is_file()):
+        h.update(str(f.relative_to(csrc)).encode())
+        h.update(f.read_bytes())
     return h.hexdigest()
+
+
+def _run_all(cmds: list[list[str]]) -> list[subprocess.CompletedProcess]:
+    """Run the commands concurrently; wait for every one of them."""
+    procs = [
+        subprocess.Popen(c, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                         text=True)
+        for c in cmds
+    ]
+    done = []
+    for c, p in zip(cmds, procs):
+        out = p.communicate()[0]
+        done.append(subprocess.CompletedProcess(c, p.returncode, out, ""))
+    return done
 
 
 def build(force: bool = False) -> Path:
     """Compile ``csrc/*.cu`` into the shared library unless it is current;
     returns its path.  Raises with nvcc's output when the build fails."""
-    sources = _sources()
-    digest = _digest(sources)
+    digest = _digest()
     lib_path = BUILD_DIR / LIB_NAME
     stamp = BUILD_DIR / (LIB_NAME + ".sha256")
     if (
@@ -81,28 +99,31 @@ def build(force: bool = False) -> Path:
         return lib_path
     nvcc = _nvcc()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    # build beside the target and rename, so a concurrent loader never
-    # sees a half-written library
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    cmd = [
-        nvcc, *ARCH_FLAGS, "-std=c++17", "-O3", "-shared",
-        "-Xcompiler", "-fPIC", "-Xptxas", "-v",
-        "-o", tmp, *map(str, sources),
-    ]
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    seconds = time.perf_counter() - t0
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(
-            f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n"
-            f"{proc.stdout}{proc.stderr}"
-        )
-    os.replace(tmp, lib_path)
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp_dir:
+        objs = [Path(tmp_dir) / (src.stem + ".o") for src in _sources()]
+        compiles = [
+            [nvcc, *ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
+             "-Xptxas", "-v", "-c", str(src), "-o", str(obj)]
+            for src, obj in zip(_sources(), objs)
+        ]
+        # link beside the target and rename, so a concurrent loader never
+        # sees a half-written library
+        tmp_lib = Path(tmp_dir) / LIB_NAME
+        link = [nvcc, *ARCH_FLAGS, "-shared", "-o", str(tmp_lib),
+                *map(str, objs)]
+        log = []
+        for proc in _run_all(compiles) + _run_all([link]):
+            log.append(proc.stdout)
+            if proc.returncode != 0:
+                raise RuntimeError(
+                    f"nvcc failed ({proc.returncode}): "
+                    f"{' '.join(proc.args)}\n{proc.stdout}"
+                )
+        os.replace(tmp_lib, lib_path)
     stamp.write_text(digest + "\n")
     last_build.update(
-        seconds=seconds, log=proc.stdout + proc.stderr, path=str(lib_path)
+        seconds=time.perf_counter() - t0, log="".join(log), path=str(lib_path)
     )
     return lib_path
 
@@ -114,8 +135,29 @@ def load_library() -> ctypes.CDLL:
     if _lib is None:
         lib = ctypes.CDLL(str(build()))
         p, i = ctypes.c_void_p, ctypes.c_int
-        # tpuslam_nn_dense(src, tgt, count, batch, n, m, idx, dist, stream)
-        lib.tpuslam_nn_dense.argtypes = [p, p, p, i, i, i, p, p, p]
-        lib.tpuslam_nn_dense.restype = ctypes.c_int
+        for name, argtypes in (
+            # (src, tgt, count, batch, n, m, idx, dist, stream)
+            ("tpuslam_nn_dense", [p, p, p, i, i, i, p, p, p]),
+            # (saug, aux, caug, radii, eps, warm, batch, n, c, gsrc, adm,
+            #  stream)
+            ("tpuslam_bound_pass", [p, p, p, p, p, p, i, i, i, i, p, p]),
+            # (src, packed, cand, counts, batch, n, m, ts, width, g, gsrc,
+            #  idx, dist, stream)
+            ("tpuslam_nn_cand", [p, p, p, p, i, i, i, i, i, i, i, p, p, p]),
+        ):
+            fn = getattr(lib, name)
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
         _lib = lib
     return _lib
+
+
+def launch(name: str, device: torch.device, *args) -> None:
+    """Call the C entry point ``name`` with ``args`` and the current CUDA
+    stream of ``device``; raise if the launch was refused."""
+    lib = load_library()
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        rc = getattr(lib, name)(*args, stream)
+    if rc != 0:
+        raise RuntimeError(f"{name}: kernel launch failed, cudaError {rc}")

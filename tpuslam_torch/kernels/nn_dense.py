@@ -26,23 +26,27 @@ REF_CHUNK = 1024
 LAUNCHES = 0
 
 
-def _chunk_nn(
-    src: torch.Tensor, tgt: torch.Tensor, tgt_invalid: torch.Tensor
-) -> Tuple[torch.Tensor, torch.Tensor]:
-    """``src`` f32[c, 3] against ``tgt`` f32[M, 3].
-
-    Reproduces the oracle's rounding ``fma(dz, dz, fma(dx, dx, dy*dy))``:
-    the differences and ``dy*dy`` are single float32 operations, and each
-    fused step is computed in float64 (where the product of two float32
-    values is exact) and rounded to float32.  That double rounding can
-    differ from a true fused multiply-add with probability about 2**-29
-    per operation."""
+def fma_sq_dist(src: torch.Tensor, tgt: torch.Tensor) -> torch.Tensor:
+    """f32[c, M] squared distances of ``src`` f32[c, 3] to ``tgt``
+    f32[M, 3], rounded as the oracle rounds them:
+    ``fma(dz, dz, fma(dx, dx, dy*dy))``.  The differences and ``dy*dy``
+    are single float32 operations, and each fused step is computed in
+    float64 (where the product of two float32 values is exact) and
+    rounded to float32.  That double rounding can differ from a true
+    fused multiply-add with probability about 2**-29 per operation."""
     diff = tgt[None, :, :] - src[:, None, :]  # f32[c, M, 3]
     dx = diff[..., 0].double()
     dy2 = (diff[..., 1] * diff[..., 1]).double()
     dz = diff[..., 2].double()
     d = (dx * dx + dy2).float().double()
-    d = (dz * dz + d).float()
+    return (dz * dz + d).float()
+
+
+def _chunk_nn(
+    src: torch.Tensor, tgt: torch.Tensor, tgt_invalid: torch.Tensor
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``src`` f32[c, 3] against ``tgt`` f32[M, 3] (``fma_sq_dist``)."""
+    d = fma_sq_dist(src, tgt)
     d = torch.where(tgt_invalid[None, :], torch.full_like(d, BIG), d)
     # argmin returns the first minimal index, as the oracle's strict '<'
     idx = torch.argmin(d, dim=1)
@@ -117,19 +121,15 @@ def nearest_neighbors_dense_batch(
     if max(n, m) >= 2**31:
         raise ValueError(f"row counts {n}, {m} exceed the kernel's int32 indices")
 
-    from tpuslam_torch.kernels.build import load_library
+    from tpuslam_torch.kernels.build import launch
 
-    lib = load_library()
     idx = torch.empty((b, n), dtype=torch.int32, device=src.device)
     dist = torch.empty((b, n), dtype=torch.float32, device=src.device)
-    with torch.cuda.device(src.device):
-        stream = torch.cuda.current_stream(src.device).cuda_stream
-        rc = lib.tpuslam_nn_dense(
-            src.data_ptr(), tgt.data_ptr(), tgt_count.data_ptr(),
-            b, n, m, idx.data_ptr(), dist.data_ptr(), stream,
-        )
-    if rc != 0:
-        raise RuntimeError(f"nn_dense kernel launch failed: cudaError {rc}")
+    launch(
+        "tpuslam_nn_dense", src.device,
+        src.data_ptr(), tgt.data_ptr(), tgt_count.data_ptr(),
+        b, n, m, idx.data_ptr(), dist.data_ptr(),
+    )
     LAUNCHES += 1
     return idx, dist
 

@@ -21,8 +21,8 @@ from typing import Tuple
 
 import torch
 
-# nearest_neighbors, the front, is K1's B=1 wrapper itself while the
-# dense arm is the only one ported
+# nearest_neighbors, the front of the dense arm, is K1's B=1 wrapper
+# itself; the hierarchical arm lives in ops/nn_hier.py
 from tpuslam_torch.kernels.nn_dense import (  # noqa: F401  (re-exports)
     BIG,
     REF_CHUNK,
