@@ -9,8 +9,9 @@ Phases, each printed as it ends; the first failure raises and the script
 exits non-zero without printing a result:
 
 1. device — the card's name and power limit (nvidia-smi) and torch's view;
-2. build — kernels K1 (``csrc/nn_dense.cu``), K2 (``csrc/bound.cu``) and
-   K3 (``csrc/nn_cand.cu``) from source, one nvcc per source, started
+2. build — kernels K1 (``csrc/nn_dense.cu``), K2 (``csrc/bound.cu``),
+   K3 (``csrc/nn_cand.cu``), K4 (``csrc/cpd_dense.cu``) and K5
+   (``csrc/cpd_cand.cu``) from source, one nvcc per source, started
    together; ptxas's registers and spills per kernel;
 3. K1 against its plain PyTorch version on the card, bit for bit (idx and
    dist equal; tolerance 0): the 102,400 x 102,400 headline pair, a
@@ -36,7 +37,48 @@ exits non-zero without printing a result:
    each; then at its final warm state the hierarchical search against K1
    (tolerance 0);
 7. headline — ``measure_icp_100k()`` on the hierarchical arm (the default
-   on CUDA) and on the dense arm; both arms again at 8,192 points.
+   on CUDA) and on the dense arm; both arms again at 8,192 points;
+8. K4 against its plain version at 20,480 x 20,480 (the JAX records'
+   E-step row): exact, truncated, ragged masks (20,000 and 17,000 valid
+   rows) and a batch of two; each statistic within 1e-5 of the largest
+   plain value, the log-likelihood within 1e-5 relative; the count of
+   differing Gaussians on one 1024 x 1024 tile against ``torch.exp``;
+   K4's and the plain passes' times;
+9. K5 against K4, bit for bit (tolerance 0), on Morton-sorted uniform
+   boxes of 20,480 and 376,401 points at a wide, a Hybrid-window, a tight
+   and an exact sigma^2 (route, admitted fraction and fat blocks of
+   each; the checked form against the unchecked one; at 376,401^2 the
+   window and tight settings must run K5, not its route to K4), and on
+   20 separate clusters of 1,024 points, one per block, with one block a
+   side refilled from every cluster (heavy skipping with fat blocks),
+   where K5's passes are also held to their plain versions (tolerance as
+   K4's) and timed; at 376,401^2, the main path's size, K4's passes (at
+   the initial sigma^2 without truncation, and at the Hybrid-window
+   sigma^2 with it) and K5's passes (at the window, under its admission)
+   against the plain running totals over all 368 blocks of the other
+   cloud on the valid rows of the first, middle and last 1,024-row
+   block (K5: of the blocks it serves), within 1e-5 of the largest
+   plain value; these
+   errors are the ``max_abs_err`` of the kernels line; K4's exact E-step
+   and K5's tight E-step timed at 376,401^2;
+10. the CPD slice — ``tpuslam_torch.register`` with CPD, Hybrid, on a
+   376,401-point uniform box moved by (0.1 rad, 0.5), weight 0.1, const
+   scale (the JAX records' protocol), for 30 iterations: tolerance 0
+   instead of the protocol's 1e-4, and 30 iterations instead of 15,
+   because the box reaches the Hybrid switch only at iteration 18 or 19
+   and its log-likelihood can stall there (the relative change fell to
+   1.7e-5 at the switch in one run), which would end the run before the
+   slow phase.  Printed: the E-step of each iteration (both phases must
+   run, the slow one on K5), wall, s/iter, rotation error, a finite
+   result; then the same pair in the exact mode for 3 iterations, whose
+   full admission routes every E-step to K4; the K4 and K5 launches of
+   the two runs together must all be > 0; then 8,192 points on
+   the CPU (plain versions, ``use_kernels=True``) and on the card in None
+   and in Hybrid without the FGT, 100 iterations at most: equal
+   iterations, R and t within 1e-4, rotation within 1 degree;
+11. E-step rows at 376,401^2: exact K4 against the FGT E-step (with and
+   without the loop's cached clusterings), and the FGT prediction at
+   three chunk sizes.
 
 The last lines are the card's name and power limit, one JSON object
 describing each kernel, and ``{"ok": true, "device": {...}}``.
@@ -53,7 +95,8 @@ import numpy as np
 
 # cloud sizes of the phases
 FULL = dict(headline=102_400, small=8192, large=1_048_576, large_iters=20,
-            mid_iters=12)
+            mid_iters=12, cpd_small=20_480, cpd_large=376_401, cpd_iters=30,
+            cpd_exact_iters=3, cpd_cpu=8192)
 
 
 def log(msg: str) -> None:
@@ -63,6 +106,428 @@ def log(msg: str) -> None:
 def check(cond: bool, what: str) -> None:
     if not cond:
         raise RuntimeError(f"chip_smoke: {what}")
+
+
+def cpd_phases(dev, smi, kind, sizes, time_ms) -> list:
+    """Phases 8-11 (module docstring); returns the kernels' JSON entries."""
+    import torch
+
+    import tpuslam_torch
+    from tpuslam_torch.algorithms import cpd
+    from tpuslam_torch.config.configuration import ApproximationType, ComputationMethod
+    from tpuslam_torch.core.types import pad_cloud
+    from tpuslam_torch.data.synthesis import (
+        get_random_rotation_matrix,
+        get_random_translation_vector,
+    )
+    from tpuslam_torch.kernels import cpd_cand, cpd_dense
+    from tpuslam_torch.ops import fgt
+    from tpuslam_torch.ops.spatial import morton_permutation
+
+    rng = np.random.Generator(np.random.PCG64(376))
+    stats = ("p1", "pt1", "px", "error")
+
+    def f32(*v):
+        return torch.tensor(v, dtype=torch.float32, device=dev)
+
+    def sort_rows(p):
+        return p[morton_permutation(p, torch.ones(len(p), device=dev)).long()].contiguous()
+
+    def box(n):
+        return sort_rows(torch.from_numpy((rng.random((n, 3)) * 10).astype(np.float32)).to(dev))
+
+    def k4_launches():
+        return cpd_dense.DENOM_LAUNCHES, cpd_dense.MOMENTS_LAUNCHES
+
+    def plain_estep(transformed, moving_mask, target, target_mask, sigma2, constant, trunc):
+        """``cpd_estep_dense_batch`` spelled out with the plain passes
+        (``denom_pass_ref``, ``moments_pass_ref``) on the card's tensors;
+        no kernel may launch."""
+        before = k4_launches()
+        b, m0, _ = transformed.shape
+        n0 = target.shape[1]
+        m, n = (-(-r // cpd_dense.TILE) * cpd_dense.TILE for r in (m0, n0))
+        moving_mask = cpd_dense.pad_rows(moving_mask, m)
+        target = cpd_dense.pad_rows(target, n).contiguous()
+        target_mask = cpd_dense.pad_rows(target_mask, n)
+        transformed = cpd_dense.pad_rows(transformed, m)
+        ty = torch.where(moving_mask[:, :, None] > 0, transformed,
+                         torch.full_like(transformed, cpd_dense.SENTINEL)).contiguous()
+        scal = cpd_dense.estep_scalars(sigma2, constant, trunc, 1e-3)
+        denom = cpd_dense.denom_pass_ref(scal, ty, target).reshape(b, n)
+        pt1, w4 = cpd_dense.moment_weights(denom, target, target_mask, constant)
+        acc = cpd_dense.moments_pass_ref(scal, ty, target, w4)
+        out = cpd_dense.sufficient_from(acc, denom, pt1, moving_mask, target_mask,
+                                        sigma2, m0, n0)
+        check(k4_launches() == before, "the plain E-step launched K4")
+        return out
+
+    def rel_errs(got, want):
+        """Per statistic: max |got - want| / max |want| (the error's own
+        relative error)."""
+        out = {}
+        for f in stats:
+            g, w = getattr(got, f).double(), getattr(want, f).double()
+            out[f] = float((g - w).abs().max() / w.abs().max().clamp_min(1e-30))
+        return out
+
+    # 8. K4 against its plain version ------------------------------------------
+    n = sizes["cpd_small"]
+    a, b = box(n), box(n)
+    ones = torch.ones(n, device=dev)
+    rows = torch.arange(n, device=dev)
+    # 20,000 moving and 17,000 target rows valid at 20,480
+    ragged_m = (rows < n * 20_000 // 20_480).float()
+    ragged_t = (rows < n * 17_000 // 20_480).float()
+    cases = {
+        "exact": ((a[None], ones[None], b[None], ones[None]), (1.0,), (0.3,), (False,)),
+        "truncated": ((a[None], ones[None], b[None], ones[None]), (0.05,), (0.01,), (True,)),
+        "ragged": ((a[None], ragged_m[None], b[None], ragged_t[None]), (0.2,), (0.1,), (True,)),
+        "batch of 2": ((torch.stack([a, b]), torch.stack([ones, ragged_m]),
+                        torch.stack([b, a]), torch.stack([ones, ragged_t])),
+                       (1.0, 0.05), (0.3, 0.01), (False, True)),
+    }
+    for name, (clouds, s2, c, tr) in cases.items():
+        args = (*clouds, f32(*s2), f32(*c), torch.tensor(tr, device=dev))
+        got, want = cpd_dense.cpd_estep_dense_batch(*args), plain_estep(*args)
+        torch.cuda.synchronize()
+        errs = rel_errs(got, want)
+        abs_err = max(float((getattr(got, f) - getattr(want, f)).abs().max())
+                      for f in ("p1", "pt1", "px"))
+        log(f"[k4] {name} at {n} x {n}: relative errors against plain "
+            + ", ".join(f"{f} {e:.3e}" for f, e in errs.items())
+            + f" (tolerance 1e-5); max abs {abs_err:.3e}")
+        check(max(errs.values()) <= 1e-5, f"K4 differs from plain ({name})")
+    # the Gaussian term by term: pair i of a batch of 1024 keeps moving row i
+    # alone (the rest at the sentinel) and c = 0, so its denominators are
+    # that row's Gaussians against the 1024 targets
+    ty = torch.full((1024, 1024, 3), cpd_dense.SENTINEL, device=dev)
+    idx = torch.arange(1024, device=dev)
+    ty[idx, idx] = a[:1024]
+    sc = cpd_dense.estep_scalars(torch.ones(1024, device=dev), torch.zeros(1024, device=dev),
+                                 torch.zeros(1024, dtype=torch.bool, device=dev), 1e-3)
+    g_k = cpd_dense.denom_pass_batch(sc, ty, b[:1024].expand(1024, 1024, 3).contiguous())[:, 0]
+    g_p = cpd_dense.gauss_tile(b[:1024], a[:1024], sc[0]).T
+    torch.cuda.synchronize()
+    g_diff = int((g_k != g_p).sum())
+    log(f"[k4] Gaussians on one 1024 x 1024 tile differing from torch.exp: {g_diff} of "
+        f"{1024 * 1024}, max relative {float(((g_k - g_p).abs() / g_p).max()):.3e}")
+    args = cases["exact"]
+    args = (*args[0], f32(*args[1]), f32(*args[2]), torch.tensor(args[3], device=dev))
+    y_pad = a[None].contiguous()
+    scal = cpd_dense.estep_scalars(f32(1.0), f32(0.3), torch.tensor([False], device=dev), 1e-3)
+    dn = cpd_dense.denom_pass_ref(scal, y_pad, b[None])
+    _, w4 = cpd_dense.moment_weights(dn[:, 0], b[None], ones[None], f32(0.3))
+    times = {
+        "denom": time_ms(lambda: cpd_dense.denom_pass_batch(scal, y_pad, b[None]), 20),
+        "denom_plain": time_ms(lambda: cpd_dense.denom_pass_ref(scal, y_pad, b[None]), 2),
+        "moments": time_ms(lambda: cpd_dense.moments_pass_batch(scal, y_pad, b[None], w4), 20),
+        "moments_plain": time_ms(
+            lambda: cpd_dense.moments_pass_ref(scal, y_pad, b[None], w4), 2),
+        "estep": time_ms(lambda: cpd_dense.cpd_estep_dense_batch(*args), 20),
+        "estep_plain": time_ms(lambda: plain_estep(*args), 2),
+    }
+    log(f"[k4] times at {n} x {n} on {smi}: denom {times['denom']:.4f} ms (plain "
+        f"{times['denom_plain']:.3f}), moments {times['moments']:.4f} ms (plain "
+        f"{times['moments_plain']:.3f}), whole E-step {times['estep']:.4f} ms (plain "
+        f"{times['estep_plain']:.3f})")
+
+    # 9. K5 against K4, bit for bit ------------------------------------------------
+    def k5_against_k4(name, mov, tgt, s2, trunc, c=0.3):
+        m1 = torch.ones(len(mov), device=dev)
+        t1 = torch.ones(len(tgt), device=dev)
+        args = (mov, m1, tgt, t1, s2, c)
+        pad = [cpd_dense.pad_rows(x[None], -(-len(x) // 1024) * 1024)[0]
+               for x in (mov, m1, tgt, t1)]
+        adm = cpd_cand.block_admission(*pad, f32(s2)[0], torch.tensor(trunc, device=dev))
+        dense = cpd_dense.cpd_estep_dense(*args, trunc)
+        cand = cpd_cand.cpd_estep_cand(*args, torch.tensor(trunc, device=dev))
+        route = cpd_cand.ROUTE_TRACE[-1]
+        checked, ovf = cpd_cand.cpd_estep_cand(*args, torch.tensor(trunc, device=dev),
+                                               checked=True)
+        torch.cuda.synchronize()
+        bad = sum(int((getattr(dense, f) != getattr(cand, f)).sum()) for f in stats)
+        bad_checked = sum(int((getattr(checked, f) != getattr(cand, f)).sum()) for f in stats)
+        frac = float(adm.adm.float().mean())
+        # on overflow the checked form's statistics are invalid by contract
+        checked_note = ("discarded on overflow" if bool(ovf)
+                        else f"differing {bad_checked} (tolerance 0)")
+        log(f"[k5] {name}: sigma^2 {s2:.4g}, truncation {trunc}, route {route}, admitted "
+            f"{frac:.4f} of {adm.adm.numel()} block pairs, fat {int(adm.fat_n.sum())} target / "
+            f"{int(adm.fat_m.sum())} moving blocks, overflow {bool(ovf)}; elements differing "
+            f"from K4 {bad} (tolerance 0); checked form {checked_note}")
+        check(bad == 0, f"K5 differs from K4 ({name})")
+        check(bool(ovf) or bad_checked == 0, f"the checked form differs ({name})")
+        return route, adm
+
+    from tpuslam_torch.ops.nn_hier import _build_cand_table
+
+    tile = cpd_dense.TILE
+
+    def block_ids(n_blocks, skip=None):
+        """The first, middle and last block, of those not flagged in
+        ``skip``."""
+        ids = torch.arange(n_blocks, device=dev)
+        ids = (ids if skip is None else ids[~skip]).tolist()
+        return sorted({ids[0], ids[len(ids) // 2], ids[-1]})
+
+    def blocks_err(got, plain, ids, valid):
+        """Max abs and relative error of ``got`` [..., rows] on the valid
+        rows (``valid`` bool[rows]) of the blocks ``ids`` against
+        ``plain(block rows)``."""
+        err = top = 0.0
+        for i in ids:
+            sl = slice(i * tile, (i + 1) * tile)
+            want = plain(sl).double()[..., valid[sl]]
+            err = max(err, float((got[..., sl].double()[..., valid[sl]] - want).abs().max()))
+            top = max(top, float(want.abs().max()))
+        return err, err / top
+
+    def passes_at_scale(label, mov, tgt, s2, trunc, c=0.3):
+        """The main path's passes at its size: K4's, and under truncation
+        K5's under its admission, against the plain running totals over
+        every block of the other cloud, on the first, middle and last
+        block (K5: of those it serves, not fat).  Padded rows are not
+        compared: the statistics mask them out, and K5's bounds leave the
+        padded target rows out, so their denominators may differ."""
+        m1 = torch.ones(len(mov), device=dev)
+        mov_p, mm, tgt_p, tm_ = (cpd_dense.pad_rows(x[None], -(-len(x) // tile) * tile)[0]
+                                 for x in (mov, m1, tgt, m1))
+        ty = torch.where(mm[:, None] > 0, mov_p,
+                         torch.full_like(mov_p, cpd_dense.SENTINEL)).contiguous()
+        tgt_p = tgt_p.contiguous()
+        nb = len(tgt_p) // tile
+        every = range(nb)
+        scal = cpd_dense.estep_scalars(f32(s2), f32(c), torch.tensor([trunc], device=dev), 1e-3)
+        dn = cpd_dense.denom_pass_batch(scal, ty[None], tgt_p[None])[0, 0]
+        _, w4 = cpd_dense.moment_weights(dn[None], tgt_p[None], tm_[None], f32(c))
+        acc = cpd_dense.moments_pass_batch(scal, ty[None], tgt_p[None], w4)[0]
+        w4 = w4[0]
+
+        def plain_denom(sl):
+            return cpd_dense.denom_rows(scal[0], ty, tgt_p[sl], every)
+
+        def plain_moments(sl):
+            return cpd_dense.moments_rows(scal[0], ty[sl], tgt_p, w4, every)
+
+        t_valid, m_valid = tm_ > 0, mm > 0
+        errs = {"K4 denom": blocks_err(dn, plain_denom, block_ids(nb), t_valid),
+                "K4 moments": blocks_err(acc, plain_moments, block_ids(nb), m_valid)}
+        if trunc:
+            adm = cpd_cand.block_admission(mov_p, mm, tgt_p, tm_, f32(s2)[0],
+                                           torch.tensor(True, device=dev))
+            check(not bool(adm.overflow), f"{label}: the admission overflows")
+            counts_n = torch.where(adm.fat_n, 0, adm.counts_n)
+            counts_m = torch.where(adm.fat_m, 0, adm.counts_m)
+            cand_m = _build_cand_table(adm.adm, counts_n, adm.width_m)
+            cand_n = _build_cand_table(adm.adm.T, counts_m, adm.width_n)
+            d5 = cpd_cand.denom_cand(scal[0], ty, tgt_p, cand_m, counts_n)
+            a5 = cpd_cand.moments_cand(scal[0], ty, tgt_p, w4, cand_n, counts_m)
+            errs["K5 denom"] = blocks_err(d5, plain_denom, block_ids(nb, adm.fat_n), t_valid)
+            errs["K5 moments"] = blocks_err(a5, plain_moments, block_ids(nb, adm.fat_m),
+                                            m_valid)
+        torch.cuda.synchronize()
+        log(f"[k4/k5] passes at {len(mov)}^2, {label} (sigma^2 {s2:.4g}, truncation {trunc}) "
+            f"against the plain running totals over all {nb} blocks, on the first, middle "
+            f"and last block: max abs, relative "
+            + ", ".join(f"{k} {a:.3e}, {r:.3e}" for k, (a, r) in errs.items())
+            + " (tolerance 1e-5 relative)")
+        for k, (_, r) in errs.items():
+            check(r <= 1e-5, f"{k} differs from its plain version at {len(mov)}^2 ({label})")
+        return {k: a for k, (a, _) in errs.items()}
+
+    routes = {}
+    main_errs = {}
+    for n in (sizes["cpd_small"], sizes["cpd_large"]):
+        mov, tgt = box(n), box(n)
+        m1 = torch.ones(n, device=dev)
+        s0 = float(cpd.sigma_squared_init(mov, m1, tgt, m1))
+        for label, s2, trunc in (("wide", s0, True), ("window", 0.015 * s0, True),
+                                 ("tight", 0.002, True), ("exact", 0.05, False)):
+            routes[(n, label)] = k5_against_k4(f"{label} at {n}^2", mov, tgt, s2, trunc)[0]
+        if n == sizes["cpd_large"]:
+            # the main path's K5 settings must run K5, not its route to K4
+            check(routes[(n, "window")] == "k5" and routes[(n, "tight")] == "k5",
+                  f"the window and tight settings at {n}^2 did not run K5")
+            for label, s2, trunc in (("exact at the initial sigma^2", s0, False),
+                                     ("Hybrid window", 0.015 * s0, True)):
+                for k, e in passes_at_scale(label, mov, tgt, s2, trunc).items():
+                    main_errs[k] = max(main_errs.get(k, 0.0), e)
+            ex = (mov, m1, tgt, m1, 0.05, 0.3, False)
+            tight = (mov, m1, tgt, m1, 0.002, 0.3, torch.tensor(True, device=dev))
+            large = {"k4_exact_s": time_ms(lambda: cpd_dense.cpd_estep_dense(*ex), 3) / 1e3,
+                     "k5_tight_s": time_ms(lambda: cpd_cand.cpd_estep_cand(*tight), 3) / 1e3}
+            log(f"[k5] times at {n}^2 on {smi}: K4 exact E-step {large['k4_exact_s']:.4f} s, "
+                f"K5 tight E-step {large['k5_tight_s']:.4f} s (route "
+                f"{cpd_cand.ROUTE_TRACE[-1]})")
+    # 20 clusters of 1,024 on a grid 100 apart, one cluster per block, then
+    # one block a side refilled with points drawn from every cluster:
+    # heavy skipping, with one fat block a side
+    grid = np.array([[i, j, k] for i in range(3) for j in range(3) for k in range(3)][:20],
+                    np.float32) * 100.0
+    pts = np.concatenate([(rng.random((1024, 3)) * 3).astype(np.float32) + g for g in grid])
+    mov_c, tgt_c = pts.copy(), (pts + 0.01).astype(np.float32)
+    mov_c[3 * 1024:4 * 1024] = pts[rng.permutation(len(pts))[:1024]]
+    tgt_c[7 * 1024:8 * 1024] = tgt_c[rng.permutation(len(pts))[:1024]]
+    mov_c = torch.from_numpy(mov_c).to(dev)
+    tgt_c = torch.from_numpy(tgt_c).to(dev)
+    route, adm = k5_against_k4("clusters at 20,480^2", mov_c, tgt_c, 0.05, True)
+    check(route == "k5" and bool(adm.fat_n.any()), "the cluster case must run K5 with fat blocks")
+    # K5's passes against their plain versions on that case
+    m1 = torch.ones(len(mov_c), device=dev)
+    ty5 = mov_c.contiguous()
+    sc5 = cpd_dense.estep_scalars(f32(0.05), f32(0.3), torch.tensor([True], device=dev), 1e-3)[0]
+    counts_n = torch.where(adm.fat_n, 0, adm.counts_n)
+    counts_m = torch.where(adm.fat_m, 0, adm.counts_m)
+    cand_m = _build_cand_table(adm.adm, counts_n, adm.width_m)
+    cand_n = _build_cand_table(adm.adm.T, counts_m, adm.width_n)
+    d5 = cpd_cand.denom_cand(sc5, ty5, tgt_c, cand_m, counts_n)
+    d5_ref = cpd_cand.denom_cand_ref(sc5, ty5, tgt_c, cand_m, counts_n)
+    _, w5 = cpd_dense.moment_weights(d5_ref[None], tgt_c[None], m1[None], f32(0.3))
+    w5 = w5[0]
+    a5 = cpd_cand.moments_cand(sc5, ty5, tgt_c, w5, cand_n, counts_m)
+    a5_ref = cpd_cand.moments_cand_ref(sc5, ty5, tgt_c, w5, cand_n, counts_m)
+    torch.cuda.synchronize()
+    k5_err = {"denom": float((d5 - d5_ref).abs().max()),
+              "moments": float((a5 - a5_ref).abs().max())}
+    k5_rel = {"denom": k5_err["denom"] / float(d5_ref.abs().max()),
+              "moments": k5_err["moments"] / float(a5_ref.abs().max())}
+    log(f"[k5] passes against their plain versions on the cluster case: max abs "
+        f"{k5_err}, relative {k5_rel} (tolerance 1e-5)")
+    check(max(k5_rel.values()) <= 1e-5, "K5 differs from its plain version")
+    k5_times = {
+        "denom": time_ms(lambda: cpd_cand.denom_cand(sc5, ty5, tgt_c, cand_m, counts_n), 20),
+        "denom_plain": time_ms(
+            lambda: cpd_cand.denom_cand_ref(sc5, ty5, tgt_c, cand_m, counts_n), 2),
+        "moments": time_ms(
+            lambda: cpd_cand.moments_cand(sc5, ty5, tgt_c, w5, cand_n, counts_m), 20),
+        "moments_plain": time_ms(
+            lambda: cpd_cand.moments_cand_ref(sc5, ty5, tgt_c, w5, cand_n, counts_m), 2),
+    }
+    log(f"[k5] times on the cluster case on {smi}: denom {k5_times['denom']:.4f} ms (plain "
+        f"{k5_times['denom_plain']:.3f}), moments {k5_times['moments']:.4f} ms (plain "
+        f"{k5_times['moments_plain']:.3f})")
+
+    # 10. the CPD slice -------------------------------------------------------------
+    n = sizes["cpd_large"]
+    before = (rng.random((n, 3)) * 10).astype(np.float32)
+    r_true = get_random_rotation_matrix(rng, 0.1)
+    t_true = get_random_translation_vector(rng, 0.5)
+    after = (before @ r_true.T + t_true).astype(np.float32)[rng.permutation(n)]
+
+    def launch_counts():
+        return {"K4 denom": cpd_dense.DENOM_LAUNCHES,
+                "K4 moments": cpd_dense.MOMENTS_LAUNCHES,
+                "K5 denom": cpd_cand.DENOM_LAUNCHES,
+                "K5 moments": cpd_cand.MOMENTS_LAUNCHES}
+
+    def register_cpd(mode, max_iterations):
+        """One CPD registration through the entry point; returns its result,
+        wall time, E-step phases and K5 routes."""
+        cpd.PHASE_TRACE.clear()
+        cpd_cand.ROUTE_TRACE.clear()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = tpuslam_torch.register(
+            before, after, device=dev, computation_method=ComputationMethod.Cpd,
+            approximation_type=mode, cpd_weight=0.1, cpd_const_scale=True,
+            cpd_tolerance=0.0, max_iterations=max_iterations)
+        wall = time.perf_counter() - t0
+        rot, trans, iters, err = out
+        cos = (np.trace(rot.astype(np.float64).T @ r_true.astype(np.float64)) - 1) / 2
+        angle = float(np.degrees(np.arccos(np.clip(cos, -1.0, 1.0))))
+        log(f"[cpd] register CPD {mode.value} on a {n}-point uniform box on {kind} "
+            f"({smi}): {iters} iterations, E-steps {list(cpd.PHASE_TRACE)}, K5 routes "
+            f"{list(cpd_cand.ROUTE_TRACE)}, launches so far {launch_counts()}, "
+            f"{wall:.3f} s, {wall / max(iters, 1):.4f} s/iter, sigma^2 {err}, rotation "
+            f"off by {angle} deg, translation off by {float(np.abs(trans - t_true).max())}")
+        check(bool(np.isfinite(rot).all() and np.isfinite(trans).all()
+                   and np.isfinite(err)), f"non-finite CPD result ({mode.value})")
+        return out, wall, list(cpd.PHASE_TRACE), list(cpd_cand.ROUTE_TRACE)
+
+    # the main path, counted: Hybrid (FGT fast phase, K5 slow phase), then
+    # the exact mode, whose full admission overflows K5's table and routes
+    # every E-step to K4
+    cpd_dense.DENOM_LAUNCHES = cpd_dense.MOMENTS_LAUNCHES = 0
+    cpd_cand.DENOM_LAUNCHES = cpd_cand.MOMENTS_LAUNCHES = 0
+    _, _, phases, _ = register_cpd(ApproximationType.Hybrid, sizes["cpd_iters"])
+    check("fgt" in phases and "trunc" in phases, "the run must take both Hybrid phases")
+    check(cpd_cand.DENOM_LAUNCHES > 0 and cpd_cand.MOMENTS_LAUNCHES > 0,
+          "the Hybrid slow phase did not launch K5")
+    _, _, phases, _ = register_cpd(ApproximationType.NONE, sizes["cpd_exact_iters"])
+    check(set(phases) == {"exact"}, "the exact mode ran another E-step")
+    launches = launch_counts()
+    for name, k in launches.items():
+        check(k > 0, f"the CPD registrations did not launch {name}")
+
+    n_small = sizes["cpd_cpu"]
+    small_b = (rng.random((n_small, 3)) * 10).astype(np.float32)
+    r_small = get_random_rotation_matrix(rng, 0.1)
+    t_small = get_random_translation_vector(rng, 0.5)
+    small_a = (small_b @ r_small.T + t_small).astype(np.float32)[rng.permutation(n_small)]
+    for mode in (ApproximationType.NONE, ApproximationType.Hybrid):
+        kw = dict(weight=0.1, max_iterations=100, tolerance=1e-4, approximation_type=mode,
+                  use_fgt=False, use_kernels=True)
+        t0 = time.perf_counter()
+        on_cpu = cpd.cpd_register(pad_cloud(small_b), pad_cloud(small_a), **kw)
+        cpu_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        on_card = cpd.cpd_register(pad_cloud(small_b, device=dev),
+                                   pad_cloud(small_a, device=dev), **kw)
+        card_s = time.perf_counter() - t0
+        d_rot = float((on_cpu.transform.rotation - on_card.transform.rotation.cpu()).abs().max())
+        d_t = float((on_cpu.transform.translation
+                     - on_card.transform.translation.cpu()).abs().max())
+        rc = on_card.transform.rotation.cpu().numpy().astype(np.float64)
+        ang = float(np.degrees(np.arccos(np.clip(
+            (np.trace(rc.T @ r_small.astype(np.float64)) - 1) / 2, -1.0, 1.0))))
+        log(f"[cpd] {n_small} points, {mode.value}: CPU (plain) vs card (K4/K5) iterations "
+            f"{on_cpu.iterations} / {on_card.iterations}, |dR| {d_rot}, |dt| {d_t}, "
+            f"rotation off by {ang} deg, {cpu_s:.1f} s / {card_s:.3f} s")
+        check(on_cpu.iterations == on_card.iterations, f"CPD iterations differ ({mode.value})")
+        check(d_rot <= 1e-4 and d_t <= 1e-4, f"CPD CPU and card disagree ({mode.value})")
+        check(ang < 1.0, f"CPD rotation {ang} deg from the truth ({mode.value})")
+
+    # 11. E-step rows at 376k -----------------------------------------------------
+    n = sizes["cpd_large"]
+    mov, tgt = box(n), box(n)
+    m1 = torch.ones(n, device=dev)
+    s2 = cpd.sigma_squared_init(mov, m1, tgt, m1)
+    cnt = torch.sum(m1)
+    w = f32(0.1)[0]
+    exact_ms = time_ms(lambda: cpd_dense.cpd_estep_dense(mov, m1, tgt, m1, s2, 0.3, False), 3)
+    clusters = (*fgt.k_center(mov, m1, 128), *fgt.k_center(tgt, m1, 128))
+    fgt_cached_ms = time_ms(lambda: cpd.cpd_estep_fgt(
+        mov, m1, tgt, m1, s2, w, cnt, cnt, 128, 8, 10.0, sigma2_init=s2,
+        clusters=clusters), 5)
+    fgt_ms = time_ms(lambda: cpd.cpd_estep_fgt(
+        mov, m1, tgt, m1, s2, w, cnt, cnt, 128, 8, 10.0, sigma2_init=s2), 3)
+    hs = torch.sqrt(2.0 * s2)
+    model = fgt.compute_fgt_model_multi(tgt, torch.ones(n, 4, device=dev), m1, hs, 128, 8,
+                                        clustering=clusters[2:])
+    chunks = {c: time_ms(lambda c=c: fgt.fgt_predict_multi(mov, model, hs, 10.0, 8, chunk=c), 3)
+              for c in (2048, fgt.predict_chunk(dev, 128, 8), 16384)}
+    log(f"[estep] {n}^2 on {smi}: exact K4 E-step {exact_ms:.3f} ms; FGT E-step "
+        f"{fgt_cached_ms:.3f} ms with the loop's cached clusterings, {fgt_ms:.3f} ms with "
+        f"its own; FGT predict (W=4) by chunk {chunks} ms")
+
+    return [
+        {"name": "cpd_denom (K4)", "route": "cuda", "source": "tpuslam_torch/csrc/cpd_dense.cu",
+         "replaces": "tpuslam/kernels/pallas_cpd.py:209", "launches": launches["K4 denom"],
+         "max_abs_err": main_errs["K4 denom"], "ms": times["denom"], "plain_ms": times["denom_plain"]},
+        {"name": "cpd_moments (K4)", "route": "cuda", "source": "tpuslam_torch/csrc/cpd_dense.cu",
+         "replaces": "tpuslam/kernels/pallas_cpd.py:241", "launches": launches["K4 moments"],
+         "max_abs_err": main_errs["K4 moments"], "ms": times["moments"], "plain_ms": times["moments_plain"]},
+        {"name": "cpd_denom_cand (K5)", "route": "cuda", "source": "tpuslam_torch/csrc/cpd_cand.cu",
+         "replaces": "tpuslam/kernels/pallas_cpd_cand.py:181", "launches": launches["K5 denom"],
+         "max_abs_err": main_errs["K5 denom"], "ms": k5_times["denom"],
+         "plain_ms": k5_times["denom_plain"]},
+        {"name": "cpd_moments_cand (K5)", "route": "cuda",
+         "source": "tpuslam_torch/csrc/cpd_cand.cu",
+         "replaces": "tpuslam/kernels/pallas_cpd_cand.py:181", "launches": launches["K5 moments"],
+         "max_abs_err": main_errs["K5 moments"], "ms": k5_times["moments"],
+         "plain_ms": k5_times["moments_plain"]},
+    ]
 
 
 def main(dev=None, sizes=FULL) -> int:
@@ -430,6 +895,8 @@ def main(dev=None, sizes=FULL) -> int:
               f"the headline run stopped early ({name})")
     check(heads["hier"]["nn_arm"] == "hier", "the default headline is not hier")
 
+    cpd_kernels = cpd_phases(dev, smi, kind, sizes, time_ms)
+
     log(smi)
     log(json.dumps({"kernels": [
         {
@@ -462,6 +929,7 @@ def main(dev=None, sizes=FULL) -> int:
             "ms": k3_ms,
             "plain_ms": k3_plain_ms,
         },
+        *cpd_kernels,
     ]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count(),

@@ -1,5 +1,5 @@
-"""Kernels K1, K2 and K3 and the ICP slice of the PyTorch port on a
-CUDA card.
+"""Kernels K1 to K5, the ICP slice and the CPD slice of the PyTorch port
+on a CUDA card.
 
 Every test here needs a card and nvcc; without them each one skips (the
 ``cuda`` fixture decides, at run time).  The file imports neither JAX
@@ -12,7 +12,10 @@ On the card, K1 and K3 must be bit-identical (idx and dist) to their
 plain versions, K2 must admit exactly what its plain version admits, the
 hierarchical search must be bit-identical to K1, and a registration must
 agree with the CPU run within 1e-4 in R and t (cuSOLVER against LAPACK,
-sums in another order).
+sums in another order).  K4 must agree with its plain version within
+1e-5 relative (the sums inside a block run in another order; the
+Gaussian's distance and truncation are the same), and K5 must equal K4
+bit for bit.
 """
 
 import numpy as np
@@ -26,7 +29,9 @@ from tpuslam_torch.data.synthesis import (
 )
 from tpuslam_torch.algorithms.icp import icp_register
 from tpuslam_torch.core.types import pad_cloud
-from tpuslam_torch.kernels import bound, nn_cand, nn_dense
+from tpuslam_torch.algorithms.cpd import cpd_register
+from tpuslam_torch.config.configuration import ApproximationType
+from tpuslam_torch.kernels import bound, cpd_cand, cpd_dense, nn_cand, nn_dense
 from tpuslam_torch.ops import nn_hier
 from tpuslam_torch.ops.nn import nearest_neighbors, nearest_neighbors_ref
 from tpuslam_torch.ops.spatial import morton_permutation
@@ -209,6 +214,100 @@ def test_register_on_card_launches_hier_kernels_and_matches_cpu(rng, cuda):
                            pad_cloud(after, device=cuda), **kw)
     assert bound.LAUNCHES > k[0] and nn_cand.LAUNCHES > k[1]
     on_cpu = icp_register(pad_cloud(before), pad_cloud(after), use_spatial=True, **kw)
+    assert on_card.iterations == on_cpu.iterations
+    for a, b in ((on_card.transform.rotation, on_cpu.transform.rotation),
+                 (on_card.transform.translation, on_cpu.transform.translation)):
+        np.testing.assert_allclose(a.cpu().numpy(), b.numpy(), rtol=0, atol=1e-4)
+    np.testing.assert_allclose(on_card.transform.rotation.cpu().numpy(), r, atol=1e-3)
+
+
+def _sorted_cloud(rng, n, device, spread=10.0):
+    p = torch.from_numpy((rng.random((n, 3)) * spread).astype(np.float32))
+    return p[morton_permutation(p, torch.ones(n)).long()].contiguous().to(device)
+
+
+def test_cpd_dense_kernel_matches_plain(rng, cuda):
+    """K4's two passes against their plain versions: a batch of two with
+    ragged masks, one pair truncated."""
+    mov = torch.stack([_sorted_cloud(rng, 3072, cuda) for _ in range(2)])
+    tgt = torch.stack([_sorted_cloud(rng, 2048, cuda) for _ in range(2)])
+    mm = torch.ones(2, 3072, device=cuda)
+    mm[1, 2500:] = 0
+    tm = torch.ones(2, 2048, device=cuda)
+    tm[0, 1700:] = 0
+    ty = torch.where(mm[:, :, None] > 0, mov, cpd_dense.SENTINEL).contiguous()
+    scalars = cpd_dense.estep_scalars(torch.tensor([0.5, 0.05], device=cuda),
+                                      torch.tensor([0.3, 0.01], device=cuda),
+                                      torch.tensor([False, True], device=cuda), 1e-3)
+    k = (cpd_dense.DENOM_LAUNCHES, cpd_dense.MOMENTS_LAUNCHES)
+    denom = cpd_dense.denom_pass_batch(scalars, ty, tgt)
+    ref = cpd_dense.denom_pass_ref(scalars, ty, tgt)
+    torch.testing.assert_close(denom, ref, rtol=1e-5, atol=0)
+    _, w4 = cpd_dense.moment_weights(ref[:, 0], tgt, tm, scalars[:, 1])
+    acc = cpd_dense.moments_pass_batch(scalars, ty, tgt, w4)
+    acc_ref = cpd_dense.moments_pass_ref(scalars, ty, tgt, w4)
+    torch.cuda.synchronize()
+    assert (cpd_dense.DENOM_LAUNCHES, cpd_dense.MOMENTS_LAUNCHES) == (k[0] + 1, k[1] + 1)
+    torch.testing.assert_close(acc, acc_ref, rtol=1e-5, atol=1e-6)
+    assert torch.all(acc[1, :, 2500:] == 0)  # sentinel rows gather nothing
+
+
+def _cluster_cloud(rng, device):
+    centers = np.array([[0, 0, 0], [100, 0, 0], [0, 100, 0], [0, 0, 100]], np.float32)
+    pts = np.concatenate([(rng.random((1024, 3)) * 3).astype(np.float32) + c
+                          for c in centers])
+    p = torch.from_numpy(pts)
+    return p[morton_permutation(p, torch.ones(4096)).long()].contiguous().to(device)
+
+
+@pytest.mark.parametrize("fixture,s2,trunc", [
+    ("uniform", 4.0, False),  # wide: full admission (the table still fits)
+    ("uniform", 0.05, True),  # the Hybrid window
+    ("clusters", 0.05, True),  # tight: only each cluster's own block
+    ("clusters", 0.05, False),  # exact mode
+])
+def test_cpd_cand_kernel_bit_identical_to_dense(rng, cuda, fixture, s2, trunc):
+    if fixture == "uniform":
+        mov, tgt = _sorted_cloud(rng, 4096, cuda), _sorted_cloud(rng, 4096, cuda)
+    else:
+        mov = _cluster_cloud(rng, cuda)
+        tgt = (mov + 0.01)[torch.randperm(4096, device=cuda)]
+        tgt = tgt[morton_permutation(tgt, torch.ones(4096, device=cuda)).long()].contiguous()
+    ones = torch.ones(4096, device=cuda)
+    args = (mov, ones, tgt, ones, s2, 0.3)
+    k = cpd_cand.DENOM_LAUNCHES
+    cand, ovf = cpd_cand.cpd_estep_cand(*args, torch.tensor(trunc, device=cuda),
+                                        checked=True)
+    dense = cpd_dense.cpd_estep_dense(*args, trunc)
+    torch.cuda.synchronize()
+    assert not bool(ovf) and cpd_cand.DENOM_LAUNCHES == k + 1
+    for f in ("p1", "pt1", "px", "error"):
+        assert torch.equal(getattr(cand, f), getattr(dense, f)), f
+
+
+def test_cpd_wrappers_reject_mixed_devices(cuda):
+    ty = torch.zeros(1, 1024, 3, device=cuda)
+    with pytest.raises(ValueError, match="one device"):
+        cpd_dense.denom_pass_batch(torch.zeros(1, 4), ty, ty)
+    cand = torch.zeros(1, 8, dtype=torch.int32, device=cuda)
+    counts = torch.zeros(1, dtype=torch.int32)
+    with pytest.raises(ValueError, match="one device"):
+        cpd_cand.denom_cand(torch.zeros(4, device=cuda), ty[0], ty[0], cand, counts)
+
+
+@pytest.mark.parametrize("mode", [ApproximationType.NONE, ApproximationType.Hybrid])
+def test_cpd_register_on_card_matches_cpu(rng, cuda, mode):
+    n = 3000
+    before = (rng.random((n, 3)) * 10).astype(np.float32)
+    r = get_random_rotation_matrix(rng, 0.1)
+    t = get_random_translation_vector(rng, 0.5)
+    after = (before @ r.T + t).astype(np.float32)[rng.permutation(n)]
+    kw = dict(weight=0.1, max_iterations=100, tolerance=1e-5, use_fgt=False,
+              approximation_type=mode, use_kernels=True)
+    k = cpd_dense.DENOM_LAUNCHES + cpd_cand.DENOM_LAUNCHES
+    on_card = cpd_register(pad_cloud(before, device=cuda), pad_cloud(after, device=cuda), **kw)
+    assert cpd_dense.DENOM_LAUNCHES + cpd_cand.DENOM_LAUNCHES > k
+    on_cpu = cpd_register(pad_cloud(before), pad_cloud(after), **kw)
     assert on_card.iterations == on_cpu.iterations
     for a, b in ((on_card.transform.rotation, on_cpu.transform.rotation),
                  (on_card.transform.translation, on_cpu.transform.translation)):

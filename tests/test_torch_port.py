@@ -71,7 +71,9 @@ def test_run_with_configuration_defaults_match_jax(rng):
     (dict(computation_method=ComputationMethod.Cpd), "CPD"),
     (dict(icp_prealign=True), "NICP"),
 ])
-def test_unported_methods_raise(rng, what, match):
+def test_unported_methods_raise(rng, monkeypatch, tmp_path, what, match):
+    # CPD is ported; its checkpointed, chunked form is not (ROADMAP Queue 1 item 7)
+    monkeypatch.setenv("TPUSLAM_CPD_CKPT", str(tmp_path / "cpd.ckpt"))
     cloud = make_cloud(rng, 64)
     with pytest.raises(NotImplementedError, match=match):
         tpuslam_torch.register(cloud, cloud, device="cpu", **what)
@@ -156,5 +158,6 @@ def test_build_digest_follows_the_sources(tmp_path):
     header.write_text("// b\n")
     assert build._digest(tmp_path) != third
     assert [p.name for p in build._sources()] == [
-        "bound.cu", "nn_cand.cu", "nn_dense.cu"]
+        "bound.cu", "cpd_cand.cu", "cpd_dense.cu", "nn_cand.cu", "nn_dense.cu"]
     assert (build.CSRC / "nn_fold.cuh").is_file()
+    assert (build.CSRC / "cpd_gauss.cuh").is_file()

@@ -7,10 +7,14 @@ inputs.  It imports ``torch`` and numpy, never JAX and never ``tpuslam``.
 ICP runs on two exact nearest-neighbour arms: the dense search, kernel
 K1 (``csrc/nn_dense.cu``), and from 8,192 target rows on CUDA the
 hierarchical search, kernels K2 (``csrc/bound.cu``) and K3
-(``csrc/nn_cand.cu``) with K1 as its overflow arm.  The kernels are
-hand-written CUDA for an NVIDIA Hopper card; on the CPU their plain
-PyTorch versions run.  NICP, CPD, batching and sequences are not ported
-yet and raise ``NotImplementedError``.
+(``csrc/nn_cand.cu``) with K1 as its overflow arm.  CPD runs its exact
+E-step on kernel K5 (``csrc/cpd_cand.cu``, the block-skipping E-step)
+with K4 (``csrc/cpd_dense.cu``, the dense two-pass E-step) as its
+overflow arm, and its Full/Hybrid fast phase on the Fast Gauss
+Transform from 74,018 rows.  The kernels are hand-written CUDA for an
+NVIDIA Hopper card; on the CPU their plain PyTorch versions run.  NICP
+is not ported yet and raises ``NotImplementedError``; batching and
+sequences are absent.
 """
 
 __version__ = "0.1.0"

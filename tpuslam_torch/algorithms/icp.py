@@ -79,6 +79,11 @@ class RegistrationResult(NamedTuple):
     error: torch.Tensor  # f32[]
     # final hierarchical-NN warm state (spatial arm only)
     nn: Optional[HierState] = None
+    # CPD only: the per-iteration ring f32[H, 4] of (sigma^2, ntol,
+    # log-likelihood, scale) when asked for, and the final EM loop state
+    # (algorithms.cpd.CPDState; typed loosely to avoid an import cycle)
+    history: Optional[torch.Tensor] = None
+    em: Optional[tuple] = None
 
 
 class ICPResume(NamedTuple):

@@ -79,6 +79,19 @@ class Cloud(NamedTuple):
         return (idx < self.count).to(dtype)
 
 
+class Sufficient(NamedTuple):
+    """CPD E-step sufficient statistics (the reference's ``Probabilities``,
+    ``cudaprobabilities.h:7-31``).  Defined here, beside the other core
+    types, so the kernel wrappers need no algorithm module; the JAX
+    package defines it in ``algorithms/cpd.py``, which re-exports it in
+    the port too."""
+
+    p1: torch.Tensor  # f32[M]   P @ 1
+    pt1: torch.Tensor  # f32[N]  P^T @ 1
+    px: torch.Tensor  # f32[M,3] P @ X
+    error: torch.Tensor  # f32[]  negative log-likelihood
+
+
 def round_up(n: int, multiple: int = LANE) -> int:
     return ((n + multiple - 1) // multiple) * multiple
 

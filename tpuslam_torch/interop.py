@@ -1,8 +1,10 @@
 """State carried between the JAX package and the port, as numpy arrays.
 
 ``to_numpy_state(obj)`` turns a ``Cloud``, ``RigidTransform``,
-``HierState`` or ``ICPResume`` of either package into a dict of numpy
-arrays (it reads the NamedTuple's fields and never imports JAX).
+``HierState``, ``ICPResume``, ``Sufficient``, ``FGTModel``, ``CPDState``
+(a CPD ``RegistrationResult.em``) or ``CPDResume`` of either package
+into a dict of numpy arrays (it reads the NamedTuple's fields and never
+imports JAX).
 ``from_numpy_state(d, device)`` turns such a dict into the port's object
 on ``device``:
 
@@ -11,9 +13,15 @@ on ``device``:
 * ``{"prev_target", "warm", "sparse"}`` -> ``HierState``;
 * ``{"rotation", "translation", "error"}`` plus optional ``prev_error``,
   ``done_before`` and ``nn`` (a nested ``HierState`` dict) ->
-  ``ICPResume``.
+  ``ICPResume``;
+* ``{"p1", "pt1", "px", "error"}`` -> ``Sufficient``;
+* ``{"centers", "ak"}`` -> ``FGTModel``;
+* ``{"rotation", ..., "log_likelihood", "ntol", "iterations"}`` ->
+  ``CPDState``; with ``done_before`` instead of ``iterations`` ->
+  ``CPDResume``.
 
-The tests use these to start both ICP loops from the same mid-run state.
+The tests use these to start both ICP or CPD loops from the same
+mid-run state.
 """
 
 from __future__ import annotations
@@ -23,9 +31,11 @@ from typing import Optional, Union
 import numpy as np
 import torch
 
+from tpuslam_torch.algorithms.cpd import CPDResume, CPDState
 from tpuslam_torch.algorithms.icp import ICPResume
 from tpuslam_torch.core.device import resolve_device
-from tpuslam_torch.core.types import Cloud, RigidTransform
+from tpuslam_torch.core.types import Cloud, RigidTransform, Sufficient
+from tpuslam_torch.ops.fgt import FGTModel
 from tpuslam_torch.ops.nn_hier import HierState
 
 _KINDS = {
@@ -36,9 +46,21 @@ _KINDS = {
         "rotation", "translation", "error", "prev_error", "done_before",
         "nn",
     ),
+    "Sufficient": ("p1", "pt1", "px", "error"),
+    "FGTModel": ("centers", "ak"),
+    "CPDState": (
+        "rotation", "translation", "scale", "sigma2", "log_likelihood",
+        "ntol", "iterations",
+    ),
+    "CPDResume": (
+        "rotation", "translation", "scale", "sigma2", "log_likelihood",
+        "ntol", "done_before",
+    ),
 }
+_EM = ("rotation", "translation", "scale", "sigma2", "log_likelihood", "ntol")
 
-PortState = Union[Cloud, RigidTransform, HierState, ICPResume]
+PortState = Union[Cloud, RigidTransform, HierState, ICPResume, Sufficient,
+                  FGTModel, CPDState, CPDResume]
 
 
 def _to_numpy(value):
@@ -72,6 +94,15 @@ def from_numpy_state(
     def f32(k):
         return torch.tensor(np.asarray(d[k], np.float32), device=device)
 
+    if "log_likelihood" in d:
+        em = {k: f32(k) for k in _EM}
+        if "iterations" in d:
+            return CPDState(**em, iterations=int(d["iterations"]))
+        return CPDResume(**em, done_before=int(d.get("done_before", 0)))
+    if "p1" in d:
+        return Sufficient(*(f32(k) for k in ("p1", "pt1", "px", "error")))
+    if "ak" in d:
+        return FGTModel(centers=f32("centers"), ak=f32("ak"))
     if "points" in d:
         return Cloud(
             points=f32("points"),

@@ -144,6 +144,15 @@ def load_library() -> ctypes.CDLL:
             # (src, packed, cand, counts, batch, n, m, ts, width, g, gsrc,
             #  idx, dist, stream)
             ("tpuslam_nn_cand", [p, p, p, p, i, i, i, i, i, i, i, p, p, p]),
+            # (scalars, ty, target, batch, n, m, denom, stream)
+            ("tpuslam_cpd_denom", [p, p, p, i, i, i, p, p]),
+            # (scalars, ty, target, weights4, batch, n, m, acc, stream)
+            ("tpuslam_cpd_moments", [p, p, p, p, i, i, i, p, p]),
+            # (scalars, ty, target, cand, counts, n, m, width, denom, stream)
+            ("tpuslam_cpd_denom_cand", [p, p, p, p, p, i, i, i, p, p]),
+            # (scalars, ty, target, weights4, cand, counts, n, m, width,
+            #  acc, stream)
+            ("tpuslam_cpd_moments_cand", [p, p, p, p, p, p, i, i, i, p, p]),
         ):
             fn = getattr(lib, name)
             fn.argtypes = argtypes

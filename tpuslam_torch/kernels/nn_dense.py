@@ -34,12 +34,11 @@ def fma_sq_dist(src: torch.Tensor, tgt: torch.Tensor) -> torch.Tensor:
     float64 (where the product of two float32 values is exact) and
     rounded to float32.  That double rounding can differ from a true
     fused multiply-add with probability about 2**-29 per operation."""
-    diff = tgt[None, :, :] - src[:, None, :]  # f32[c, M, 3]
-    dx = diff[..., 0].double()
-    dy2 = (diff[..., 1] * diff[..., 1]).double()
-    dz = diff[..., 2].double()
-    d = (dx * dx + dy2).float().double()
-    return (dz * dz + d).float()
+    dx = (tgt[None, :, 0] - src[:, None, 0]).double()
+    dy = tgt[None, :, 1] - src[:, None, 1]
+    dz = (tgt[None, :, 2] - src[:, None, 2]).double()
+    d = dx.mul_(dx).add_((dy * dy).double()).float().double()
+    return dz.mul_(dz).add_(d).float()
 
 
 def _chunk_nn(

@@ -37,6 +37,15 @@ def svd_rotation(h: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     does (the ICP loop then stops on its non-finite error):
     ``torch.linalg.svd`` would raise instead, so it is given zeros and its
     result replaced, without a read back to the host."""
+    r, s, _ = svd_rotation_det(h)
+    return r, s
+
+
+def svd_rotation_det(
+    h: torch.Tensor,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """``svd_rotation`` plus ``det(U V^T)``, the sign the CPD M-step folds
+    into its scale (``coherentpointdrift.cpp:258-260``)."""
     finite = torch.isfinite(h).all()
     u, s, vt = torch.linalg.svd(
         torch.where(finite, h, torch.zeros_like(h)), full_matrices=False
@@ -47,7 +56,8 @@ def svd_rotation(h: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     )
     r = torch.matmul(u * d[None, :], vt)
     nan = torch.full_like(r, float("nan"))
-    return torch.where(finite, r, nan), torch.where(finite, s, nan[0])
+    return (torch.where(finite, r, nan), torch.where(finite, s, nan[0]),
+            torch.where(finite, det, nan[0, 0]))
 
 
 def weighted_procrustes(

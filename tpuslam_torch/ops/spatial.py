@@ -33,6 +33,15 @@ def sqrt_rn(x: torch.Tensor) -> torch.Tensor:
     return torch.sqrt(x.double()).float()
 
 
+def sq_norm_xla(v: torch.Tensor) -> torch.Tensor:
+    """``sum(v * v, -1)`` over the 3 coordinates of ``v`` f32[..., 3],
+    rounded as XLA contracts that reduction on the CPU:
+    ``fma(z, z, fma(y, y, x*x))``, emulated in float64 (exact products,
+    one rounding per step)."""
+    x, y, z = (v[..., k].double() for k in range(3))
+    return (z * z + (y * y + (x * x).float().double()).float().double()).float()
+
+
 def _part1by2(x: torch.Tensor) -> torch.Tensor:
     """Spread the low 10 bits of int32 ``x`` so consecutive bits land 3
     apart (the Morton magic-number sequence)."""
