@@ -24,7 +24,8 @@ exits non-zero without printing a result:
    tile); K3 on the fine (g = 128) and coarse (g2 = 512) tables and a
    batch of two (idx and dist identical); the whole hierarchical search
    against K1 (tolerance 0); then K2's, K3's and the plain versions'
-   times;
+   times, with each kernel's bound (the pairs these inputs need: all
+   sources x tiles for K2, each group's live rows x its sources for K3);
 5. the slice — ``tpuslam_torch.register`` on a 102,400-point uniform box
    moved by (0.1 rad, 0.5), which takes the hierarchical arm; K1, K2 and
    K3 must each have been launched, the error finite and the rotation
@@ -35,9 +36,11 @@ exits non-zero without printing a result:
 6. large cloud — one 1,048,576-point uniform-box registration, at most
    20 iterations, on the hierarchical arm: ms per iteration and the arm of
    each; then at its final warm state the hierarchical search against K1
-   (tolerance 0);
+   (tolerance 0), K2 against its plain version (admitted sets identical,
+   every true tile admitted), and K2's and K3's times there (fine table);
 7. headline — ``measure_icp_100k()`` on the hierarchical arm (the default
-   on CUDA) and on the dense arm; both arms again at 8,192 points;
+   on CUDA) and on the dense arm; both arms again at 8,192 points; the
+   launches of K1, K2 and K3 per headline call on each arm;
 8. K4 against its plain version at 20,480 x 20,480 (the JAX records'
    E-step row): exact, truncated, ragged masks (20,000 and 17,000 valid
    rows) and a batch of two; each statistic within 1e-5 of the largest
@@ -81,7 +84,11 @@ exits non-zero without printing a result:
    three chunk sizes.
 
 The last lines are the card's name and power limit, one JSON object
-describing each kernel, and ``{"ok": true, "device": {...}}``.
+describing each kernel (with its bound: the larger of its float32
+operations, or for K4 and K5 the exponentials on the special-function
+units, over the card's peak rate and its bytes over the memory rate; and
+for K1, K2 and K3 the launches per warm headline iteration), and
+``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -97,6 +104,29 @@ import numpy as np
 FULL = dict(headline=102_400, small=8192, large=1_048_576, large_iters=20,
             mid_iters=12, cpd_small=20_480, cpd_large=376_401, cpd_iters=30,
             cpd_exact_iters=3, cpd_cpu=8192)
+
+# the H100 SXM's published peaks (NVIDIA's data sheet, at 700 W): float32
+# outside the tensor cores and HBM3; and the special-function units' exp2,
+# 16 a clock on each of 132 SMs at the 1.98 GHz boost clock
+PEAK_FP32 = 67e12
+PEAK_BYTES = 3.35e12
+PEAK_EXP = 16 * 132 * 1.98e9
+# float32 operations per (source, target) pair, an FMA counted as two:
+# the NN distance (3 subtractions, a product, 2 FMAs); K2's 12-term
+# centre distance (a product, 11 FMAs, + s2) with its bound term (+ eps,
+# sqrt, + r) and admission test ((ub + r)^2 + eps); the CPD Gaussian's
+# distance and scale, then + the denominator or 4 weighted FMAs
+FLOPS_NN, FLOPS_BOUND = 8, 30
+FLOPS_DENOM, FLOPS_MOMENTS = 10, 17
+
+
+def bound_of(flops: float, nbytes: float, exps: float = 0.0) -> dict:
+    """The least time the card could take: the larger of the operations
+    over their peak rate and the bytes over the memory rate."""
+    ops_ms = max(flops / PEAK_FP32, exps / PEAK_EXP) * 1e3
+    bytes_ms = nbytes / PEAK_BYTES * 1e3
+    return {"bound_ms": max(ops_ms, bytes_ms),
+            "bound_by": "operations" if ops_ms >= bytes_ms else "bytes"}
 
 
 def log(msg: str) -> None:
@@ -511,22 +541,41 @@ def cpd_phases(dev, smi, kind, sizes, time_ms) -> list:
         f"{fgt_cached_ms:.3f} ms with the loop's cached clusterings, {fgt_ms:.3f} ms with "
         f"its own; FGT predict (W=4) by chunk {chunks} ms")
 
+    # bounds of the timed work: K4's passes at cpd_small^2, K5's on the
+    # cluster case's admitted block pairs (1024 x 1024 pairs each)
+    k4_pairs = float(sizes["cpd_small"]) ** 2
+    k5_denom_pairs = float(counts_n.sum()) * tile * tile
+    k5_moments_pairs = float(counts_m.sum()) * tile * tile
+    n_c = float(sizes["cpd_small"])
+    io = 2 * n_c * 12 + 16
+    bounds = {
+        "K4 denom": bound_of(FLOPS_DENOM * k4_pairs, io + n_c * 4, k4_pairs),
+        "K4 moments": bound_of(FLOPS_MOMENTS * k4_pairs, io + n_c * 16 + n_c * 16, k4_pairs),
+        "K5 denom": bound_of(FLOPS_DENOM * k5_denom_pairs,
+                             io + n_c * 4 + cand_m.numel() * 4, k5_denom_pairs),
+        "K5 moments": bound_of(FLOPS_MOMENTS * k5_moments_pairs,
+                               io + n_c * 32 + cand_n.numel() * 4, k5_moments_pairs),
+    }
+    log(f"[bounds] K4 at {sizes['cpd_small']}^2, K5 on the cluster case ({k5_denom_pairs:.4g} / "
+        f"{k5_moments_pairs:.4g} admitted pairs): {bounds}")
     return [
         {"name": "cpd_denom (K4)", "route": "cuda", "source": "tpuslam_torch/csrc/cpd_dense.cu",
          "replaces": "tpuslam/kernels/pallas_cpd.py:209", "launches": launches["K4 denom"],
-         "max_abs_err": main_errs["K4 denom"], "ms": times["denom"], "plain_ms": times["denom_plain"]},
+         "max_abs_err": main_errs["K4 denom"], "ms": times["denom"], "plain_ms": times["denom_plain"],
+         **bounds["K4 denom"], "library_ms": None},
         {"name": "cpd_moments (K4)", "route": "cuda", "source": "tpuslam_torch/csrc/cpd_dense.cu",
          "replaces": "tpuslam/kernels/pallas_cpd.py:241", "launches": launches["K4 moments"],
-         "max_abs_err": main_errs["K4 moments"], "ms": times["moments"], "plain_ms": times["moments_plain"]},
+         "max_abs_err": main_errs["K4 moments"], "ms": times["moments"], "plain_ms": times["moments_plain"],
+         **bounds["K4 moments"], "library_ms": None},
         {"name": "cpd_denom_cand (K5)", "route": "cuda", "source": "tpuslam_torch/csrc/cpd_cand.cu",
          "replaces": "tpuslam/kernels/pallas_cpd_cand.py:181", "launches": launches["K5 denom"],
          "max_abs_err": main_errs["K5 denom"], "ms": k5_times["denom"],
-         "plain_ms": k5_times["denom_plain"]},
+         "plain_ms": k5_times["denom_plain"], **bounds["K5 denom"], "library_ms": None},
         {"name": "cpd_moments_cand (K5)", "route": "cuda",
          "source": "tpuslam_torch/csrc/cpd_cand.cu",
          "replaces": "tpuslam/kernels/pallas_cpd_cand.py:181", "launches": launches["K5 moments"],
          "max_abs_err": main_errs["K5 moments"], "ms": k5_times["moments"],
-         "plain_ms": k5_times["moments_plain"]},
+         "plain_ms": k5_times["moments_plain"], **bounds["K5 moments"], "library_ms": None},
     ]
 
 
@@ -705,8 +754,11 @@ def main(dev=None, sizes=FULL) -> int:
     k2_ms = time_ms(lambda: bound.bound_pass(*k2_args, gsrc), 20)
     k2_plain_ms = time_ms(lambda: bound.bound_pass_ref(
         *[a[None] for a in k2_args], gsrc), 3)
+    k2_bound = bound_of(FLOPS_BOUND * float(n_src) * (m // g),
+                        n_src * (24 + 16) + (m // g) * (24 + 4) + 8
+                        + (n_src // gsrc) * (m // g))
     log(f"[k2] time at {n_src} sources x {m // g} tiles on {smi}: K2 "
-        f"{k2_ms:.4f} ms, plain {k2_plain_ms:.3f} ms")
+        f"{k2_ms:.4f} ms, plain {k2_plain_ms:.3f} ms; bound {k2_bound}")
 
     counts = adm.sum(1, dtype=torch.int32)
     l_eff = min(l_budget, m // g)
@@ -761,6 +813,10 @@ def main(dev=None, sizes=FULL) -> int:
     check(bad_h == 0, "the hierarchical search differs from K1")
 
     cand, cnt, _ = fine
+    # the pairs this table needs: each group's live rows x its sources
+    k3_pairs = float(cnt.sum()) * g * gsrc
+    k3_bound = bound_of(FLOPS_NN * k3_pairs, n_src * (12 + 8) + m * 16 + cand.numel() * 4
+                        + cnt.numel() * 4)
     k3_ms = time_ms(lambda: nn_cand.nearest_neighbors_cand(
         pos, target.packed, cand, cnt, g=g, gsrc=gsrc), 20)
     k3_plain_ms = time_ms(lambda: nn_cand.nearest_neighbors_cand_ref(
@@ -768,7 +824,8 @@ def main(dev=None, sizes=FULL) -> int:
     hier_ms = time_ms(lambda: nn_hier.nearest_neighbors_hier(
         pos, setup.src_mask, target, mid.nn, l_budget=l_budget, g=g, gsrc=gsrc), 20)
     log(f"[k3] time on the fine table on {smi}: K3 {k3_ms:.4f} ms, plain "
-        f"{k3_plain_ms:.3f} ms; whole hierarchical search {hier_ms:.4f} ms "
+        f"{k3_plain_ms:.3f} ms ({k3_pairs:.4g} pairs, {k3_pairs / k3_ms / 1e9:.4g}e12 "
+        f"pairs/s; bound {k3_bound}); whole hierarchical search {hier_ms:.4f} ms "
         f"(arm {nn_hier.ARM_TRACE[-1]}; host clock, one read-back per call)")
 
     # 5. the slice --------------------------------------------------------------
@@ -876,7 +933,42 @@ def main(dev=None, sizes=FULL) -> int:
         f"{int(big_valid.sum())} valid sources: rows differing {bad} "
         f"(tolerance 0)")
     check(bad == 0, "large: the hierarchical search differs from K1")
-    del lb, la, big, big_setup, pos, h_idx, h_dist, k1_idx, k1_dist
+    # K2 against its plain version at this warm state, every true tile
+    # admitted; then K2's and K3's times there (K3 on the fine table)
+    bt = big_setup.target
+    bm, bg, bgsrc = bt.packed.shape[0], big_setup.g, big_setup.gsrc
+    ops = nn_hier.bound_operands(pos, big_setup.src_mask, bt, big.nn)
+    b_args = (ops[0], ops[1], bt.caug, bt.radii, ops[2], big.nn.warm)
+    adm = bound.bound_pass(*b_args, bgsrc)
+    ref = bound.bound_pass_ref(*[a[None] for a in b_args], bgsrc)[0]
+    b_tile = torch.empty(bm, dtype=torch.long, device=dev)
+    b_real = bt.packed[:, 3] < 1e30
+    b_tile[bt.packed[b_real, 3].long()] = torch.arange(bm, device=dev)[b_real] // bg
+    b_group = torch.arange(pos.shape[0], device=dev) // bgsrc
+    missed = int((~adm[b_group[big_valid], b_tile[k1_idx.long()][big_valid]]).sum())
+    torch.cuda.synchronize()
+    bad = int((adm != ref).sum())
+    counts = adm.sum(1, dtype=torch.int32)
+    log(f"[large] K2 at the warm state: adm {tuple(adm.shape)}, admitted per group mean "
+        f"{float(counts.float().mean()):.1f} max {int(counts.max())}, mismatches against "
+        f"plain {bad} (tolerance 0), true tiles not admitted {missed} (must be 0)")
+    check(bad == 0, "large: K2 differs from plain")
+    check(missed == 0, "large: K2 admission misses a true tile")
+    k2_errs.append(float(bad > 0))
+    l_eff = min(big_setup.l_budget, bm // bg)
+    b_cand = nn_hier._build_cand_table(adm, counts, nn_hier.table_width(bm, bg, big_setup.l_budget))
+    b_cnt = torch.clamp_max(counts, l_eff)
+    large_ms = {
+        "K2": time_ms(lambda: bound.bound_pass(*b_args, bgsrc), 10),
+        "K3": time_ms(lambda: nn_cand.nearest_neighbors_cand(
+            pos, bt.packed, b_cand, b_cnt, g=bg, gsrc=bgsrc), 10),
+    }
+    b_pairs = float(b_cnt.sum()) * bg * bgsrc
+    log(f"[large] times at the warm state on {smi}: K2 {large_ms['K2']:.4f} ms "
+        f"({pos.shape[0]} sources x {bm // bg} tiles), K3 {large_ms['K3']:.4f} ms on the fine "
+        f"table (g {bg}, live slots mean {float(b_cnt.float().mean()):.1f}, {b_pairs:.4g} pairs, "
+        f"{b_pairs / large_ms['K3'] / 1e9:.4g}e12 pairs/s)")
+    del lb, la, big, big_setup, bt, pos, h_idx, h_dist, k1_idx, k1_dist, ops, b_args, adm, ref
 
     # 7. headline -----------------------------------------------------------------
     heads = {}
@@ -884,8 +976,15 @@ def main(dev=None, sizes=FULL) -> int:
                              ("hier_8192", sizes["small"], True),
                              ("dense_8192", sizes["small"], False)):
         nn_hier.ARM_TRACE.clear()
+        before = (nn_dense.LAUNCHES, bound.LAUNCHES, nn_cand.LAUNCHES)
         h = measure_icp_100k(n_points=n_pts, device=dev, use_spatial=arm)
         h["nvidia_smi"] = smi
+        # the warm-up call and the timed ones, each of iters_per_call
+        calls = h["reps"] + 1
+        h["launches_per_call"] = {
+            k: (after - b) / calls for k, after, b in zip(
+                ("K1", "K2", "K3"), (nn_dense.LAUNCHES, bound.LAUNCHES, nn_cand.LAUNCHES),
+                before)}
         arms = list(nn_hier.ARM_TRACE)
         if arms:
             h["arms"] = {a: arms.count(a) for a in ("fine", "coarse", "dense")}
@@ -894,6 +993,11 @@ def main(dev=None, sizes=FULL) -> int:
         check(h["iterations_run"] == h["iters_per_call"],
               f"the headline run stopped early ({name})")
     check(heads["hier"]["nn_arm"] == "hier", "the default headline is not hier")
+    per_call = heads["hier"]["launches_per_call"]
+    check(per_call["K2"] > 0 and per_call["K3"] > 0, "the hier headline did not launch K2, K3")
+    iters = heads["hier"]["iterations_run"]
+    per_iter = {k: v / iters for k, v in per_call.items()}
+    k1_bound = bound_of(FLOPS_NN * float(n_head) * n_head, n_head * (12 + 12 + 8))
 
     cpd_kernels = cpd_phases(dev, smi, kind, sizes, time_ms)
 
@@ -908,6 +1012,9 @@ def main(dev=None, sizes=FULL) -> int:
             "max_abs_err": max(errs),
             "ms": k1_ms,
             "plain_ms": plain_ms,
+            **k1_bound,
+            "library_ms": None,
+            "launches_per_iter": per_iter["K1"],
         },
         {
             "name": "bound_pass (K2)",
@@ -918,6 +1025,9 @@ def main(dev=None, sizes=FULL) -> int:
             "max_abs_err": max(k2_errs),
             "ms": k2_ms,
             "plain_ms": k2_plain_ms,
+            **k2_bound,
+            "library_ms": None,
+            "launches_per_iter": per_iter["K2"],
         },
         {
             "name": "nn_cand (K3)",
@@ -928,6 +1038,9 @@ def main(dev=None, sizes=FULL) -> int:
             "max_abs_err": max(k3_errs),
             "ms": k3_ms,
             "plain_ms": k3_plain_ms,
+            **k3_bound,
+            "library_ms": None,
+            "launches_per_iter": per_iter["K3"],
         },
         *cpd_kernels,
     ]}))

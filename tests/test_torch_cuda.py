@@ -9,7 +9,9 @@ JAX-loading ``conftest.py``:
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py
 
 On the card, K1 and K3 must be bit-identical (idx and dist) to their
-plain versions, K2 must admit exactly what its plain version admits, the
+plain versions (K3 at every tile size, whatever the order of a group's
+slots, with ties planted across the blocks that split a group), K2 must
+admit exactly what its plain version admits at every group size, the
 hierarchical search must be bit-identical to K1, and a registration must
 agree with the CPU run within 1e-4 in R and t (cuSOLVER against LAPACK,
 sums in another order).  K4 must agree with its plain version within
@@ -186,6 +188,142 @@ def test_cand_kernel_bit_identical_to_plain(rng, cuda, arm):
         pair(moved), pair(target.packed), pair(cand),
         torch.stack([counts, ragged]), g, 1024)
     assert torch.equal(b_idx, r_idx) and torch.equal(b_dist, r_dist)
+
+
+def _bound_problem(rng, cuda, n, m, count, warm):
+    """K2's operands on the card for ``n`` sorted sources against a
+    prepared target of ``m`` rows (``count`` valid), cold or warm, and
+    the sorted-target tile of each valid source's true nearest
+    neighbour."""
+    src = torch.from_numpy((rng.random((n, 3)) * 10).astype(np.float32))
+    src = src[morton_permutation(src, torch.ones(n)).long()].contiguous()
+    mask = torch.ones(n)
+    mask[-(n // 50):] = 0.0
+    cloud = pad_cloud((rng.random((count, 3)) * 10).astype(np.float32), multiple=m)
+    target = nn_hier.prepare_hier_target(cloud.points, cloud.mask(), cloud.count)
+    idx, _ = nearest_neighbors_ref(src, cloud.points, cloud.count)
+    state = nn_hier.HierState(cloud.points[idx.long()], torch.tensor(warm),
+                              torch.tensor(False))
+    moved = src + torch.from_numpy((rng.standard_normal(src.shape) * 0.02).astype(np.float32))
+    t_idx, _ = nearest_neighbors_ref(moved, cloud.points, cloud.count)
+    inv = torch.empty(m, dtype=torch.long)
+    real = target.packed[:, 3] < 1e30
+    inv[target.packed[real, 3].long()] = torch.arange(m)[real]
+    true_tile = inv[t_idx.long()] // 128
+    to = lambda x: x.to(cuda)  # noqa: E731
+    target = nn_hier.HierTarget(*map(to, target))
+    state = nn_hier.HierState(*map(to, state))
+    return to(moved), to(mask), target, state, to(true_tile)
+
+
+@pytest.mark.parametrize("n,gsrc,m,count", [
+    (4096, 256, 8192, 8000),
+    (4096, 512, 8192, 8000),
+    (4096, 1024, 8192, 8000),
+    (3000, 3000, 8192, 8000),  # one ragged group (n < the default gsrc)
+    (4096, 1024, 41_088, 40_000),  # C = 321 tiles: no multiple of a stage
+    (4096, 4096, 41_088, 40_000),  # one cluster of 8 chunks: two stages
+])
+@pytest.mark.parametrize("warm", [False, True])
+def test_bound_kernel_group_sizes(rng, cuda, n, gsrc, m, count, warm):
+    """K2 admits exactly what its plain version admits, and every valid
+    source's true tile, at every group size and tile count."""
+    moved, mask, target, state, true_tile = _bound_problem(rng, cuda, n, m, count, warm)
+    saug, aux, eps = nn_hier.bound_operands(moved, mask, target, state)
+    adm = bound.bound_pass(saug, aux, target.caug, target.radii, eps, state.warm, gsrc)
+    ref = bound.bound_pass_ref(saug[None], aux[None], target.caug[None],
+                               target.radii[None], eps[None], state.warm[None], gsrc)[0]
+    torch.cuda.synchronize()
+    assert torch.equal(adm, ref)
+    valid = mask > 0
+    groups = torch.arange(n, device=cuda) // gsrc
+    assert bool(adm[groups[valid], true_tile[valid]].all())
+    if warm:
+        assert int(adm.sum(1).max()) < m // 128  # the warm bound prunes
+
+
+def _cand_case(rng, cuda, g, n=4096, gsrc=1024, m=8192):
+    """A packed target of ``m`` random rows (the last 200 sentinels) and a
+    table of random tile ids per group, with ragged counts (one group
+    empty) and one id out of range."""
+    pts = (rng.random((m, 3)) * 10).astype(np.float32)
+    w = rng.permutation(m).astype(np.float32)
+    pts[-200:], w[-200:] = 1e19, nn_cand.BIG
+    packed = torch.from_numpy(np.concatenate([pts, w[:, None]], 1)).to(cuda)
+    src = torch.from_numpy((rng.random((n, 3)) * 10).astype(np.float32)).to(cuda)
+    ts, tiles = n // gsrc, m // g
+    width = min(tiles, 24)
+    cand = torch.from_numpy(np.stack([rng.permutation(tiles)[:width] for _ in range(ts)])
+                            .astype(np.int32)).to(cuda)
+    cand[-1, 0] = tiles + 5  # skipped
+    counts = torch.from_numpy(rng.integers(1, width + 1, size=ts).astype(np.int32)).to(cuda)
+    counts[0] = 0
+    return src, packed, cand, counts
+
+
+@pytest.mark.parametrize("g", [128, 256, 512, 1024])
+def test_cand_kernel_tile_sizes_and_slot_order(rng, cuda, g):
+    """K3 bit-identical to its plain version at every tile size; a group's
+    live slots permuted give the same bits; an empty group gives
+    (0, 3.4e38); a batch of two equals its pairs."""
+    src, packed, cand, counts = _cand_case(rng, cuda, g)
+    idx, dist = nn_cand.nearest_neighbors_cand(src, packed, cand, counts, g=g, gsrc=1024)
+    r_idx, r_dist = nn_cand.nearest_neighbors_cand_ref(
+        src[None], packed[None], cand[None], counts[None], g, 1024)
+    torch.cuda.synchronize()
+    assert torch.equal(idx, r_idx[0]) and torch.equal(dist, r_dist[0])
+    assert bool((idx[:1024] == 0).all()) and bool((dist[:1024] == nn_cand.BIG).all())
+    perm = cand.clone()
+    for grp, c in enumerate(counts.tolist()):
+        perm[grp, :c] = cand[grp, torch.randperm(c, device=cuda)]
+    p_idx, p_dist = nn_cand.nearest_neighbors_cand(src, packed, perm, counts, g=g, gsrc=1024)
+    torch.cuda.synchronize()
+    assert torch.equal(p_idx, idx) and torch.equal(p_dist, dist)
+    pair = lambda x, y: torch.stack([x, y])  # noqa: E731
+    b_idx, b_dist = nn_cand.nearest_neighbors_cand_batch(
+        pair(src, src), pair(packed, packed), pair(cand, perm),
+        pair(counts, counts.flip(0)), g, 1024)
+    r_idx, r_dist = nn_cand.nearest_neighbors_cand_ref(
+        pair(src, src), pair(packed, packed), pair(cand, perm),
+        pair(counts, counts.flip(0)), g, 1024)
+    assert torch.equal(b_idx, r_idx) and torch.equal(b_dist, r_dist)
+    assert torch.equal(b_idx[0], idx) and torch.equal(b_dist[0], dist)
+
+
+def test_cand_kernel_planted_ties_across_blocks(rng, cuda):
+    """Every target point twice, once in the first half of the tiles with
+    the higher original index and once in the second half with the lower:
+    the split hands the two copies to different blocks of the cluster, and
+    the lower index must win."""
+    g, m, n = 128, 8192, 2048
+    pts = (rng.integers(-40, 40, size=(m // 2, 3)) * 4).astype(np.float32)
+    low = rng.permutation(m // 2).astype(np.float32)
+    rows = np.concatenate([np.concatenate([pts, (low + m // 2)[:, None]], 1),
+                           np.concatenate([pts, low[:, None]], 1)])
+    packed = torch.from_numpy(rows.astype(np.float32)).to(cuda)
+    src = torch.from_numpy(pts[rng.integers(0, m // 2, size=n)] + 1.0).to(cuda)
+    tiles = m // g
+    cand = torch.arange(tiles, dtype=torch.int32, device=cuda).repeat(2, 1)
+    counts = torch.full((2,), tiles, dtype=torch.int32, device=cuda)
+    assert nn_cand.cand_geometry(1, 2, tiles, 1024).splits > 1
+    idx, dist = nn_cand.nearest_neighbors_cand(src, packed, cand, counts, g=g, gsrc=1024)
+    r_idx, r_dist = nn_cand.nearest_neighbors_cand_ref(
+        src[None], packed[None], cand[None], counts[None], g, 1024)
+    torch.cuda.synchronize()
+    assert torch.equal(idx, r_idx[0]) and torch.equal(dist, r_dist[0])
+    assert bool((idx < m // 2).all())
+
+
+@pytest.mark.parametrize("n", [700, 1500])
+def test_cand_kernel_ragged_group(rng, cuda, n):
+    """One group of ``n`` sources (n < 1,024, and past one block of 512)."""
+    src, packed, cand, counts = _cand_case(rng, cuda, 128, n=n, gsrc=n)
+    counts[0] = 17
+    idx, dist = nn_cand.nearest_neighbors_cand(src, packed, cand, counts, g=128, gsrc=n)
+    r_idx, r_dist = nn_cand.nearest_neighbors_cand_ref(
+        src[None], packed[None], cand[None], counts[None], 128, n)
+    torch.cuda.synchronize()
+    assert torch.equal(idx, r_idx[0]) and torch.equal(dist, r_dist[0])
 
 
 def test_hier_search_bit_identical_to_k1(rng, cuda):

@@ -17,11 +17,16 @@ fixed order (k ascending, then ``+ s2``), so on finite inputs they admit
 identical sets.  (On a NaN input ``torch.amin`` propagates the NaN where
 the kernel's ``fminf`` skips it.)
 
+The kernel's launch geometry is chosen here (``bound_geometry``), where
+the CPU tests reach it, and checked again by the C entry point.
+
 Dispatch: a tensor on the CPU takes the plain version; a CUDA tensor
 launches the kernel, or raises.  There is no other path.
 """
 
 from __future__ import annotations
+
+from typing import NamedTuple
 
 import torch
 
@@ -37,6 +42,55 @@ REF_ELEMS = 1 << 24
 
 # kernel launches made by the wrappers below (CPU calls do not count)
 LAUNCHES = 0
+
+# launch geometry of csrc/bound.cu (its kThreads, kR and kMaxCluster)
+THREADS = 128
+SOURCES_PER_THREAD = 4
+CHUNK = THREADS * SOURCES_PER_THREAD  # sources per block
+MAX_CLUSTER = 8  # blocks of one group: a portable thread-block cluster
+STAGE_TILES = 256  # tiles staged in shared memory at a time
+MIN_SPAN = 32  # fewest tiles a block is given when splitting for the grid
+BLOCKS_TARGET = 4 * 132  # four blocks on each of the H100's 132 SMs
+SMEM_LIMIT = 227 * 1024  # dynamic shared memory a block may have
+
+
+class BoundGeometry(NamedTuple):
+    """How K2 is launched: a group's ``chunks`` x ``splits`` blocks form
+    one cluster; block (chunk, split) serves ``CHUNK`` sources against
+    ``span`` tiles, ``stage`` of them in shared memory at a time."""
+
+    chunks: int
+    splits: int
+    span: int
+    stage: int
+    smem_bytes: int
+
+
+def bound_geometry(batch: int, n: int, c: int, gsrc: int) -> BoundGeometry:
+    """K2's geometry for ``batch`` pairs of ``n`` sources in groups of
+    ``gsrc`` against ``c`` tiles.  Splits the tiles until a block's range
+    fits one stage, then, while the grid has fewer than ``BLOCKS_TARGET``
+    blocks, until a range would drop below ``MIN_SPAN`` tiles; a cluster
+    holds at most ``MAX_CLUSTER`` blocks.  Raises where a group's sources
+    need more than one cluster or the shared memory would not fit."""
+    chunks = -(-gsrc // CHUNK)
+    if chunks > MAX_CLUSTER:
+        raise ValueError(
+            f"gsrc {gsrc} exceeds {MAX_CLUSTER * CHUNK}: K2 serves a group "
+            "from one thread-block cluster")
+    splits = 1
+    while chunks * splits * 2 <= MAX_CLUSTER and -(-c // splits) > STAGE_TILES:
+        splits *= 2
+    blocks = batch * (n // gsrc) * chunks
+    while (chunks * splits * 2 <= MAX_CLUSTER and blocks * splits < BLOCKS_TARGET
+           and -(-c // (2 * splits)) >= MIN_SPAN):
+        splits *= 2
+    span = -(-c // splits)
+    stage = min(span, STAGE_TILES)
+    smem = 4 * stage * (K + 1) + 4 * CHUNK + 4 * span
+    if smem > SMEM_LIMIT:
+        raise ValueError(f"K2 needs {smem} bytes of shared memory for C = {c}")
+    return BoundGeometry(chunks, splits, span, stage, smem)
 
 
 def center_dist2(a: torch.Tensor, caug: torch.Tensor, s2: torch.Tensor) -> torch.Tensor:
@@ -132,7 +186,8 @@ def bound_pass_batch(
 
     On the CPU this is the plain version.  On CUDA it launches the kernel
     on the current stream (``eps`` and ``warm`` stay on the device) and
-    raises if the launch is refused."""
+    raises if the launch is refused, or for a ``gsrc`` or ``C`` that
+    ``bound_geometry`` cannot serve."""
     global LAUNCHES
     _check(saug, aux, caug, radii, eps, warm, gsrc)
     if saug.device.type == "cpu":
@@ -150,11 +205,13 @@ def bound_pass_batch(
 
     from tpuslam_torch.kernels.build import launch
 
-    adm = torch.zeros((b, n // gsrc, c), dtype=torch.bool, device=saug.device)
+    geo = bound_geometry(b, n, c, gsrc)
+    # every byte is stored by the kernel
+    adm = torch.empty((b, n // gsrc, c), dtype=torch.bool, device=saug.device)
     launch(
         "tpuslam_bound_pass", saug.device,
         saug.data_ptr(), aux.data_ptr(), caug.data_ptr(), radii.data_ptr(),
-        eps.data_ptr(), warm.data_ptr(), b, n, c, gsrc, adm.data_ptr(),
+        eps.data_ptr(), warm.data_ptr(), b, n, c, gsrc, *geo, adm.data_ptr(),
     )
     LAUNCHES += 1
     return adm

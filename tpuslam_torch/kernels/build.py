@@ -138,12 +138,13 @@ def load_library() -> ctypes.CDLL:
         for name, argtypes in (
             # (src, tgt, count, batch, n, m, idx, dist, stream)
             ("tpuslam_nn_dense", [p, p, p, i, i, i, p, p, p]),
-            # (saug, aux, caug, radii, eps, warm, batch, n, c, gsrc, adm,
-            #  stream)
-            ("tpuslam_bound_pass", [p, p, p, p, p, p, i, i, i, i, p, p]),
+            # (saug, aux, caug, radii, eps, warm, batch, n, c, gsrc,
+            #  chunks, splits, span, stage, smem_bytes, adm, stream)
+            ("tpuslam_bound_pass", [p, p, p, p, p, p, *[i] * 9, p, p]),
             # (src, packed, cand, counts, batch, n, m, ts, width, g, gsrc,
-            #  idx, dist, stream)
-            ("tpuslam_nn_cand", [p, p, p, p, i, i, i, i, i, i, i, p, p, p]),
+            #  chunks, splits, stage_rows, depth, smem_bytes, idx, dist,
+            #  stream)
+            ("tpuslam_nn_cand", [p, p, p, p, *[i] * 12, p, p, p]),
             # (scalars, ty, target, batch, n, m, denom, stream)
             ("tpuslam_cpd_denom", [p, p, p, i, i, i, p, p]),
             # (scalars, ty, target, weights4, batch, n, m, acc, stream)

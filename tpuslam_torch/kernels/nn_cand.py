@@ -13,12 +13,14 @@ sentinel rows (past the target count) sit at 1e19 with index 3.4e38.
 A distance >= 1e37, or no live slot, gives ``(0, 3.4e38)``.
 
 Dispatch: a tensor on the CPU takes the plain version; a CUDA tensor
-launches the kernel, or raises.  There is no other path.
+launches the kernel, or raises.  There is no other path.  The kernel's
+launch geometry is chosen here (``cand_geometry``), where the CPU tests
+reach it, and checked again by the C entry point.
 """
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import NamedTuple, Tuple
 
 import torch
 
@@ -30,6 +32,44 @@ REF_ELEMS = 1 << 24
 
 # kernel launches made by the wrappers below (CPU calls do not count)
 LAUNCHES = 0
+
+# launch geometry of csrc/nn_cand.cu (its kThreads, kR, kMaxSplits)
+SOURCES_PER_THREAD = 4
+CHUNK = 128 * SOURCES_PER_THREAD  # sources per block
+MAX_SPLITS = 8  # blocks sharing a group's slots: a portable cluster
+STAGE_ROWS = 512  # target rows per stage of the shared-memory ring
+RING_DEPTH = 3  # stages in flight
+BLOCKS_TARGET = 16 * 132  # two waves of eight blocks on each of 132 SMs
+
+
+class CandGeometry(NamedTuple):
+    """How K3 is launched: each ``CHUNK`` sources of a group are served by
+    a cluster of ``splits`` blocks, each folding a contiguous share of the
+    group's live slots, staged ``stage_rows`` rows at a time through a
+    ring of ``depth`` stages in ``smem_bytes`` of dynamic shared memory."""
+
+    chunks: int
+    splits: int
+    stage_rows: int
+    depth: int
+    smem_bytes: int
+
+
+def cand_geometry(batch: int, ts: int, width: int, gsrc: int) -> CandGeometry:
+    """K3's geometry for ``batch`` pairs of ``ts`` groups of ``gsrc``
+    sources and tables ``width`` slots wide.  The slots are split (in
+    powers of two, at most ``MAX_SPLITS``, never more than the width)
+    until the grid reaches ``BLOCKS_TARGET`` blocks.  The tile size ``g``
+    does not enter: the live rows are staged as one flat list, so the
+    ring has the same size for every ``g``."""
+    chunks = -(-gsrc // CHUNK)
+    units = batch * ts * chunks
+    splits = 1
+    while splits < MAX_SPLITS and splits < width and units * splits < BLOCKS_TARGET:
+        splits *= 2
+    # ring (16-byte rows), partial (distance, index) per source, slot ids
+    smem = 16 * RING_DEPTH * STAGE_ROWS + 8 * CHUNK + 4 * width
+    return CandGeometry(chunks, splits, STAGE_ROWS, RING_DEPTH, smem)
 
 
 def nearest_neighbors_cand_ref(
@@ -150,7 +190,7 @@ def nearest_neighbors_cand_batch(
         "tpuslam_nn_cand", src.device,
         src.data_ptr(), tgt_packed.data_ptr(), candidates.data_ptr(),
         counts.data_ptr(), b, n, m, ts, width, g, gsrc,
-        idx.data_ptr(), dist.data_ptr(),
+        *cand_geometry(b, ts, width, gsrc), idx.data_ptr(), dist.data_ptr(),
     )
     LAUNCHES += 1
     return idx, dist
