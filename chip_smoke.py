@@ -49,7 +49,8 @@ exits non-zero without printing a result:
    K4's and the plain passes' times;
 9. K5 against K4, bit for bit (tolerance 0), on Morton-sorted uniform
    boxes of 20,480 and 376,401 points at a wide, a Hybrid-window, a tight
-   and an exact sigma^2 (route, admitted fraction and fat blocks of
+   and an exact sigma^2 (route, admitted fraction of block pairs and of
+   sub-tile pairs, the share of pairs K5's passes visit, fat blocks of
    each; the checked form against the unchecked one; at 376,401^2 the
    window and tight settings must run K5, not its route to K4), and on
    20 separate clusters of 1,024 points, one per block, with one block a
@@ -63,7 +64,10 @@ exits non-zero without printing a result:
    block (K5: of the blocks it serves), within 1e-5 of the largest
    plain value; these
    errors are the ``max_abs_err`` of the kernels line; K4's exact E-step
-   and K5's tight E-step timed at 376,401^2;
+   and K5's tight E-step timed at 376,401^2, then each pass alone there
+   (K4 at the initial sigma^2 without truncation, K5's kernels at the
+   window and at sigma^2 0.002 under their tables), with the admitted
+   fractions and each time's bound on the pairs it visits;
 10. the CPD slice — ``tpuslam_torch.register`` with CPD, Hybrid, on a
    376,401-point uniform box moved by (0.1 rad, 0.5), weight 0.1, const
    scale (the JAX records' protocol), for 30 iterations: tolerance 0
@@ -263,6 +267,30 @@ def cpd_phases(dev, smi, kind, sizes, time_ms) -> list:
         f"{times['estep_plain']:.3f})")
 
     # 9. K5 against K4, bit for bit ------------------------------------------------
+    def k5_tables(adm):
+        """K5's per-CTA tables under an admission, as ``cpd_estep_cand``
+        builds them (fat blocks served by K4)."""
+        n_rows, m_rows = (len(x) * cpd_dense.TILE for x in (adm.fat_n, adm.fat_m))
+        table_m, counts_n = cpd_cand.cta_tables(
+            adm.sub_adm, adm.f_sub, cpd_dense.cpd_geometry(n_rows).cta_rows, ~adm.fat_n,
+            adm.width_m)
+        table_n, counts_m = cpd_cand.cta_tables(
+            adm.sub_adm.T, adm.f_sub, cpd_dense.cpd_geometry(m_rows).cta_rows, ~adm.fat_m,
+            adm.width_n)
+        return table_m, counts_n, table_n, counts_m
+
+    def fractions(adm):
+        """Admitted share of block pairs and of sub-tile pairs, and the
+        share of (row, row) pairs K5's two passes visit, with those pairs."""
+        table_m, counts_n, table_n, counts_m = k5_tables(adm)
+        n_rows, m_rows = (len(x) * cpd_dense.TILE for x in (adm.fat_n, adm.fat_m))
+        visited = (cpd_cand.visited_pairs(table_m, counts_n, n_rows // len(counts_n)),
+                   cpd_cand.visited_pairs(table_n, counts_m, m_rows // len(counts_m)))
+        return {"block": float(adm.adm.float().mean()),
+                "sub_tile": float(adm.sub_adm.float().mean()),
+                "visited_denom": visited[0] / (n_rows * m_rows),
+                "visited_moments": visited[1] / (n_rows * m_rows)}, visited
+
     def k5_against_k4(name, mov, tgt, s2, trunc, c=0.3):
         m1 = torch.ones(len(mov), device=dev)
         t1 = torch.ones(len(tgt), device=dev)
@@ -278,19 +306,20 @@ def cpd_phases(dev, smi, kind, sizes, time_ms) -> list:
         torch.cuda.synchronize()
         bad = sum(int((getattr(dense, f) != getattr(cand, f)).sum()) for f in stats)
         bad_checked = sum(int((getattr(checked, f) != getattr(cand, f)).sum()) for f in stats)
-        frac = float(adm.adm.float().mean())
+        frac, _ = fractions(adm)
         # on overflow the checked form's statistics are invalid by contract
         checked_note = ("discarded on overflow" if bool(ovf)
                         else f"differing {bad_checked} (tolerance 0)")
         log(f"[k5] {name}: sigma^2 {s2:.4g}, truncation {trunc}, route {route}, admitted "
-            f"{frac:.4f} of {adm.adm.numel()} block pairs, fat {int(adm.fat_n.sum())} target / "
-            f"{int(adm.fat_m.sum())} moving blocks, overflow {bool(ovf)}; elements differing "
-            f"from K4 {bad} (tolerance 0); checked form {checked_note}")
+            f"{frac['block']:.4f} of {adm.adm.numel()} block pairs, {frac['sub_tile']:.4f} of "
+            f"{adm.sub_adm.numel()} sub-tile pairs (f_sub {adm.f_sub}), visited (denom, "
+            f"moments) {frac['visited_denom']:.4f}, {frac['visited_moments']:.4f} of the pairs; "
+            f"fat {int(adm.fat_n.sum())} target / {int(adm.fat_m.sum())} moving blocks, overflow "
+            f"{bool(ovf)}; elements differing from K4 {bad} (tolerance 0); checked form "
+            f"{checked_note}")
         check(bad == 0, f"K5 differs from K4 ({name})")
         check(bool(ovf) or bad_checked == 0, f"the checked form differs ({name})")
         return route, adm
-
-    from tpuslam_torch.ops.nn_hier import _build_cand_table
 
     tile = cpd_dense.TILE
 
@@ -347,12 +376,9 @@ def cpd_phases(dev, smi, kind, sizes, time_ms) -> list:
             adm = cpd_cand.block_admission(mov_p, mm, tgt_p, tm_, f32(s2)[0],
                                            torch.tensor(True, device=dev))
             check(not bool(adm.overflow), f"{label}: the admission overflows")
-            counts_n = torch.where(adm.fat_n, 0, adm.counts_n)
-            counts_m = torch.where(adm.fat_m, 0, adm.counts_m)
-            cand_m = _build_cand_table(adm.adm, counts_n, adm.width_m)
-            cand_n = _build_cand_table(adm.adm.T, counts_m, adm.width_n)
-            d5 = cpd_cand.denom_cand(scal[0], ty, tgt_p, cand_m, counts_n)
-            a5 = cpd_cand.moments_cand(scal[0], ty, tgt_p, w4, cand_n, counts_m)
+            table_m, counts_n, table_n, counts_m = k5_tables(adm)
+            d5 = cpd_cand.denom_cand(scal[0], ty, tgt_p, table_m, counts_n)
+            a5 = cpd_cand.moments_cand(scal[0], ty, tgt_p, w4, table_n, counts_m)
             errs["K5 denom"] = blocks_err(d5, plain_denom, block_ids(nb, adm.fat_n), t_valid)
             errs["K5 moments"] = blocks_err(a5, plain_moments, block_ids(nb, adm.fat_m),
                                             m_valid)
@@ -365,6 +391,51 @@ def cpd_phases(dev, smi, kind, sizes, time_ms) -> list:
         for k, (_, r) in errs.items():
             check(r <= 1e-5, f"{k} differs from its plain version at {len(mov)}^2 ({label})")
         return {k: a for k, (a, _) in errs.items()}
+
+    def passes_timed(mov, tgt, s0, c=0.3):
+        """The main path's passes at its size, by CUDA events: K4's at the
+        initial sigma^2 without truncation, K5's (its kernels alone, fat
+        blocks left to K4) at the Hybrid window and at sigma^2 0.002, with
+        the admitted fractions and each time's bound on the pairs it
+        visits."""
+        m1 = torch.ones(len(mov), device=dev)
+        mov_p, mm, tgt_p, tm_ = (cpd_dense.pad_rows(x[None], -(-len(x) // tile) * tile)[0]
+                                 for x in (mov, m1, tgt, m1))
+        ty = torch.where(mm[:, None] > 0, mov_p,
+                         torch.full_like(mov_p, cpd_dense.SENTINEL)).contiguous()
+        tgt_p = tgt_p.contiguous()
+        rows = float(len(tgt_p))
+        io = 2 * rows * 12 + 16
+        out = {}
+        for label, s2, trunc in (("K4 exact, initial sigma^2", s0, False),
+                                 ("K5 window", 0.015 * s0, True), ("K5 tight", 0.002, True)):
+            scal = cpd_dense.estep_scalars(f32(s2), f32(c), torch.tensor([trunc], device=dev),
+                                           1e-3)
+            dn = cpd_dense.denom_pass_batch(scal, ty[None], tgt_p[None])
+            _, w4 = cpd_dense.moment_weights(dn[:, 0], tgt_p[None], tm_[None], f32(c))
+            row = {"sigma2": s2}
+            if not trunc:
+                pairs = (rows * rows, rows * rows)
+                row["denom_ms"] = time_ms(
+                    lambda: cpd_dense.denom_pass_batch(scal, ty[None], tgt_p[None]), 3)
+                row["moments_ms"] = time_ms(
+                    lambda: cpd_dense.moments_pass_batch(scal, ty[None], tgt_p[None], w4), 3)
+            else:
+                adm = cpd_cand.block_admission(mov_p, mm, tgt_p, tm_, f32(s2)[0],
+                                               torch.tensor(True, device=dev))
+                frac, pairs = fractions(adm)
+                table_m, counts_n, table_n, counts_m = k5_tables(adm)
+                row.update(frac, fat=(int(adm.fat_n.sum()), int(adm.fat_m.sum())))
+                row["denom_ms"] = time_ms(lambda: cpd_cand.denom_cand(
+                    scal[0], ty, tgt_p, table_m, counts_n), 5)
+                row["moments_ms"] = time_ms(lambda: cpd_cand.moments_cand(
+                    scal[0], ty, tgt_p, w4[0], table_n, counts_m), 5)
+                pairs = tuple(float(p) for p in pairs)
+            row["pairs"] = pairs
+            row["denom_bound"] = bound_of(FLOPS_DENOM * pairs[0], io + rows * 4, pairs[0])
+            row["moments_bound"] = bound_of(FLOPS_MOMENTS * pairs[1], io + rows * 32, pairs[1])
+            out[label] = row
+        return out
 
     routes = {}
     main_errs = {}
@@ -390,6 +461,8 @@ def cpd_phases(dev, smi, kind, sizes, time_ms) -> list:
             log(f"[k5] times at {n}^2 on {smi}: K4 exact E-step {large['k4_exact_s']:.4f} s, "
                 f"K5 tight E-step {large['k5_tight_s']:.4f} s (route "
                 f"{cpd_cand.ROUTE_TRACE[-1]})")
+            log(f"[k4/k5] passes at {n}^2 on {smi}: "
+                + json.dumps(passes_timed(mov, tgt, s0)))
     # 20 clusters of 1,024 on a grid 100 apart, one cluster per block, then
     # one block a side refilled with points drawn from every cluster:
     # heavy skipping, with one fat block a side
@@ -407,10 +480,8 @@ def cpd_phases(dev, smi, kind, sizes, time_ms) -> list:
     m1 = torch.ones(len(mov_c), device=dev)
     ty5 = mov_c.contiguous()
     sc5 = cpd_dense.estep_scalars(f32(0.05), f32(0.3), torch.tensor([True], device=dev), 1e-3)[0]
-    counts_n = torch.where(adm.fat_n, 0, adm.counts_n)
-    counts_m = torch.where(adm.fat_m, 0, adm.counts_m)
-    cand_m = _build_cand_table(adm.adm, counts_n, adm.width_m)
-    cand_n = _build_cand_table(adm.adm.T, counts_m, adm.width_n)
+    cand_m, counts_n, cand_n, counts_m = k5_tables(adm)
+    _, (k5_denom_pairs, k5_moments_pairs) = fractions(adm)
     d5 = cpd_cand.denom_cand(sc5, ty5, tgt_c, cand_m, counts_n)
     d5_ref = cpd_cand.denom_cand_ref(sc5, ty5, tgt_c, cand_m, counts_n)
     _, w5 = cpd_dense.moment_weights(d5_ref[None], tgt_c[None], m1[None], f32(0.3))
@@ -542,10 +613,8 @@ def cpd_phases(dev, smi, kind, sizes, time_ms) -> list:
         f"its own; FGT predict (W=4) by chunk {chunks} ms")
 
     # bounds of the timed work: K4's passes at cpd_small^2, K5's on the
-    # cluster case's admitted block pairs (1024 x 1024 pairs each)
+    # pairs its tables visit in the cluster case
     k4_pairs = float(sizes["cpd_small"]) ** 2
-    k5_denom_pairs = float(counts_n.sum()) * tile * tile
-    k5_moments_pairs = float(counts_m.sum()) * tile * tile
     n_c = float(sizes["cpd_small"])
     io = 2 * n_c * 12 + 16
     bounds = {
@@ -557,7 +626,7 @@ def cpd_phases(dev, smi, kind, sizes, time_ms) -> list:
                                io + n_c * 32 + cand_n.numel() * 4, k5_moments_pairs),
     }
     log(f"[bounds] K4 at {sizes['cpd_small']}^2, K5 on the cluster case ({k5_denom_pairs:.4g} / "
-        f"{k5_moments_pairs:.4g} admitted pairs): {bounds}")
+        f"{k5_moments_pairs:.4g} visited pairs): {bounds}")
     return [
         {"name": "cpd_denom (K4)", "route": "cuda", "source": "tpuslam_torch/csrc/cpd_dense.cu",
          "replaces": "tpuslam/kernels/pallas_cpd.py:209", "launches": launches["K4 denom"],

@@ -153,7 +153,8 @@ def test_register_kernel_path_matches_jax_pallas(rng, mode):
     """``use_kernels=True`` (Morton-sorted clouds, K5 routing to K4, their
     plain versions) against ``use_pallas=True`` (interpret mode), resumed
     near the truth with a sigma^2 below the Hybrid switch, so the Hybrid
-    run's slow phase runs truncated through K5."""
+    run's slow phase runs truncated through K5; the exact mode goes
+    straight to K4 (no admission, route "k4")."""
     before, after, r, t = _pair(rng, n=2500, spread=10.0)
     assert 0.02 < 0.015 * _sigma2_0(before, after)
     resume = jcpd.CPDResume(jnp.asarray(r, jnp.float32), jnp.asarray(t + 0.01, jnp.float32),
@@ -161,10 +162,15 @@ def test_register_kernel_path_matches_jax_pallas(rng, mode):
                             jnp.float32(11.0), done_before=0)
     kw = dict(weight=0.1, max_iterations=3, tolerance=1e-9, use_fgt=False)
     launches, calls = cpd_cand.DENOM_LAUNCHES, len(_CAND_CALLS)
+    cpd_cand.ROUTE_TRACE.clear()
     port, ref = _run_both(before, after, mode, use_kernels=True, resume=resume, **kw)
     _assert_agree(port, ref, _sigma2_0(before, after))
     assert cpd_cand.DENOM_LAUNCHES == launches  # the CPU launches nothing
-    assert len(_CAND_CALLS) > calls  # K5's plain version ran
+    if mode == "hybrid":
+        assert len(_CAND_CALLS) > calls  # K5's plain version ran
+        assert "k5" in cpd_cand.ROUTE_TRACE
+    else:
+        assert len(_CAND_CALLS) == calls and set(cpd_cand.ROUTE_TRACE) == {"k4"}
 
 
 _CAND_CALLS = []

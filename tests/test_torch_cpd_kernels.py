@@ -242,11 +242,12 @@ def test_cand_checked_form(rng):
 def test_cand_checked_overflow_zeroes_counts(rng, monkeypatch):
     """Over the fat budget the checked form flags overflow and its
     statistics carry no block sum (every count zeroed); the unchecked
-    form routes to K4."""
+    form routes to K4.  The flag is a tensor: a host ``False`` would skip
+    the admission altogether."""
     monkeypatch.setattr(cpd_cand, "FAT_MAX", 0)
     monkeypatch.setattr(cpd_cand, "SLOTS", 1)
     mov, mm, tgt, tm = _sorted_pair(rng, 4096, 4096, 4096, 4096)
-    args = (_t(mov), _t(mm), _t(tgt), _t(tm), 4.0, 0.3, False)
+    args = (_t(mov), _t(mm), _t(tgt), _t(tm), 4.0, 0.3, torch.tensor(False))
     out, ovf = cpd_cand.cpd_estep_cand(*args, checked=True)
     assert bool(ovf)
     assert torch.all(out.p1 == 0)  # no moment was accumulated
@@ -365,3 +366,140 @@ def test_table_width_and_budget_match_jax():
         assert cpd_cand.table_width(t) == want
         assert cpd_cand.fat_budget(t) == jax_cand_mod._fat_budget(t)
     assert cpd_cand.table_width(368) == 232
+
+
+def _bits(masks):
+    """bool[..., SEGS] of an i32 segment mask."""
+    return ((masks[..., None] >> torch.arange(cpd_cand.SEGS)) & 1).bool()
+
+
+def _admission_at(rng, monkeypatch, f_sub, n=4096):
+    """A uniform, Morton-sorted pair of ``n`` rows a side and its
+    admission, with the sub-tile bound cap patched so that ``f_sub`` is
+    the factor taken (4 is the 1.3M rung's)."""
+    blocks = n // 1024
+    monkeypatch.setattr(cpd_cand, "SUB_BOUND_MAX", (blocks * f_sub) ** 2)
+    assert cpd_cand.sub_factor(blocks, blocks) == f_sub
+    mov, mm, tgt, tm = _sorted_pair(rng, n, n, n, n)
+    return _t(mov), _t(mm), _t(tgt), _t(tm)
+
+
+@pytest.mark.parametrize("f_sub,rows_per_thread", [(8, 1), (4, 1), (4, 2)])
+@pytest.mark.parametrize("s2", [0.05, 0.01, 0.002])
+def test_segment_masks_are_sound(rng, monkeypatch, f_sub, rows_per_thread, s2):
+    """For every (CTA rows, 128-row segment of the other cloud) that the
+    masks drop, on both passes, every Gaussian of the pair is +0.0; and
+    some are dropped.  At 4096 rows a side, f_sub 8 and 4, CTAs of 64 and
+    128 rows (the 1.3M rung: two CTAs a 256-row sub-tile)."""
+    if rows_per_thread == 2:
+        monkeypatch.setattr(cpd_dense, "FILL_THREADS", 0)
+    mov, mm, tgt, tm = _admission_at(rng, monkeypatch, f_sub)
+    a = cpd_cand.block_admission(mov, mm, tgt, tm, torch.tensor(s2), torch.tensor(True))
+    assert a.f_sub == f_sub
+    cta = cpd_dense.cpd_geometry(4096).cta_rows
+    assert cta == 64 * rows_per_thread
+    sc = cpd_dense.estep_scalars(torch.tensor([s2]), torch.tensor([0.3]),
+                                 torch.tensor([True]), 1e-3)[0]
+    for rows, other, sub_adm in ((tgt, mov, a.sub_adm), (mov, tgt, a.sub_adm.T)):
+        masks = cpd_cand.segment_masks(sub_adm, f_sub, cta)
+        assert masks.shape == (4096 // cta, 4)
+        keep = _bits(masks).reshape(masks.shape[0], -1)
+        keep = keep.repeat_interleave(cta, 0).repeat_interleave(cpd_cand.SEG_ROWS, 1)
+        g = cpd_dense.gauss_tile(rows, other, sc)
+        dropped = g[~keep]
+        assert dropped.numel() > 0
+        assert bool((dropped == 0).all()) and not bool(torch.signbit(dropped).any())
+        # pooled over a block's CTAs and segments: today's block admission
+        per_block = (masks != 0).reshape(4, 1024 // cta, 4).any(1)
+        want = a.adm if sub_adm is a.sub_adm else a.adm.T
+        assert torch.equal(per_block, want)
+
+
+@pytest.mark.parametrize("f_sub", [8, 4])
+def test_cta_tables_list_the_nonzero_masks_ascending(rng, monkeypatch, f_sub):
+    """Each CTA's table lists, ascending and packed as (block << 8) |
+    mask, exactly the blocks whose segment mask is nonzero; CTAs of an
+    unserved (fat) block list nothing; dead slots are 0."""
+    mov, mm, tgt, tm = _admission_at(rng, monkeypatch, f_sub)
+    a = cpd_cand.block_admission(mov, mm, tgt, tm, torch.tensor(0.004), torch.tensor(True))
+    cta = cpd_dense.cpd_geometry(4096).cta_rows
+    masks = cpd_cand.segment_masks(a.sub_adm, f_sub, cta)
+    serve = torch.tensor([True, False, True, True])
+    table, counts = cpd_cand.cta_tables(a.sub_adm, f_sub, cta, serve, 4)
+    assert table.dtype == torch.int32 and table.shape == (4096 // cta, 4)
+    per = 1024 // cta
+    for c in range(table.shape[0]):
+        want = [(j << 8) | int(masks[c, j]) for j in range(4) if masks[c, j] != 0]
+        if not serve[c // per]:
+            want = []
+        assert int(counts[c]) == len(want)
+        assert table[c].tolist() == want + [0] * (4 - len(want))
+    assert int(counts.max()) > int(counts[per:2 * per].max()) == 0
+    pairs = cpd_cand.visited_pairs(table, counts, cta)
+    assert pairs == int(_bits(masks)[torch.cat([torch.arange(per), torch.arange(2 * per, 4 * per)])]
+                        .sum()) * cta * cpd_cand.SEG_ROWS
+
+
+def _fold(g, w=None):
+    """The header's fold of one block in plain torch: four accumulators
+    over the columns in order (k % 4), each a float32 add (moments: g * w
+    + a, the product exact in float64, rounded once to float32), then
+    (a0 + a1) + (a2 + a3)."""
+    acc = torch.zeros((g.shape[0], 4), dtype=torch.float32)
+    for k in range(g.shape[1]):
+        if w is None:
+            acc[:, k % 4] = acc[:, k % 4] + g[:, k]
+        else:
+            acc[:, k % 4] = (g[:, k].double() * float(w[k]) + acc[:, k % 4].double()).float()
+    return (acc[:, 0] + acc[:, 1]) + (acc[:, 2] + acc[:, 3]), acc
+
+
+@pytest.mark.parametrize("moments", [False, True])
+def test_fold_skipping_zero_segments_keeps_every_bit(rng, moments):
+    """Segments whose terms are all +0.0 skipped (their columns dropped
+    from the fold) leave every accumulator, and so the partial, equal bit
+    for bit; weights of both signs and zero weights included."""
+    g = torch.from_numpy(np.exp(-rng.random((64, 1024)) * 8).astype(np.float32))
+    zero = [1, 4, 5, 7]
+    for s in zero:
+        g[:, s * 128:(s + 1) * 128] = 0.0
+    w = torch.from_numpy((rng.standard_normal(1024) * 3).astype(np.float32))
+    w[::7] = 0.0
+    w[3::11] = -0.0
+    kept = torch.cat([torch.arange(s * 128, (s + 1) * 128) for s in range(8) if s not in zero])
+    full, acc_full = _fold(g, w if moments else None)
+    skip, acc_skip = _fold(g[:, kept], w[kept] if moments else None)
+    assert torch.equal(acc_full, acc_skip) and torch.equal(full, skip)
+    assert not bool(torch.signbit(acc_full[acc_full == 0]).any())
+
+
+def test_exact_mode_goes_to_k4_without_admission(rng, monkeypatch):
+    """A host False for the truncation flag (what the CPD loop's exact
+    mode passes) runs K4 at once: no admission, route "k4", K4's bits; the
+    checked form says no overflow."""
+    def no_admission(*args, **kwargs):
+        raise AssertionError("the exact mode ran the admission")
+
+    monkeypatch.setattr(cpd_cand, "block_admission", no_admission)
+    mov, mm, tgt, tm = _sorted_pair(rng, 2500, 3000, 3072, 3072)
+    args = (_t(mov), _t(mm), _t(tgt), _t(tm), 0.05, 0.3)
+    cpd_cand.ROUTE_TRACE.clear()
+    out = cpd_cand.cpd_estep_cand(*args, False)
+    checked, ovf = cpd_cand.cpd_estep_cand(*args, False, checked=True)
+    assert list(cpd_cand.ROUTE_TRACE) == ["k4", "k4"] and not bool(ovf)
+    dense = cpd_dense.cpd_estep_dense(*args, False)
+    _assert_bitwise(out, dense)
+    _assert_bitwise(checked, dense)
+
+
+@pytest.mark.parametrize("s2", [0.05, 0.004])
+def test_cand_plain_bit_identical_at_coarser_sub_tiles(rng, monkeypatch, s2):
+    """K5's plain version under 256-row sub-tiles (f_sub 4) and 128-row
+    CTAs, the 1.3M rung's geometry, equals K4's bit for bit."""
+    monkeypatch.setattr(cpd_dense, "FILL_THREADS", 0)
+    mov, mm, tgt, tm = _admission_at(rng, monkeypatch, 4)
+    args = (mov, mm, tgt, tm, s2, 0.7)
+    cpd_cand.ROUTE_TRACE.clear()
+    cand = cpd_cand.cpd_estep_cand(*args, torch.tensor(True))
+    assert list(cpd_cand.ROUTE_TRACE) == ["k5"]
+    _assert_bitwise(cpd_dense.cpd_estep_dense(*args, True), cand)

@@ -427,10 +427,144 @@ def test_cpd_wrappers_reject_mixed_devices(cuda):
     ty = torch.zeros(1, 1024, 3, device=cuda)
     with pytest.raises(ValueError, match="one device"):
         cpd_dense.denom_pass_batch(torch.zeros(1, 4), ty, ty)
-    cand = torch.zeros(1, 8, dtype=torch.int32, device=cuda)
-    counts = torch.zeros(1, dtype=torch.int32)
+    ctas = 1024 // cpd_dense.cpd_geometry(1024).cta_rows
+    table = torch.zeros(ctas, 8, dtype=torch.int32, device=cuda)
+    counts = torch.zeros(ctas, dtype=torch.int32)
     with pytest.raises(ValueError, match="one device"):
-        cpd_cand.denom_cand(torch.zeros(4, device=cuda), ty[0], ty[0], cand, counts)
+        cpd_cand.denom_cand(torch.zeros(4, device=cuda), ty[0], ty[0], table, counts)
+
+
+def _k5_against_k4(mov, tgt, s2, trunc, c=0.3):
+    """K5's E-step (checked, must not overflow) against K4's, bit for bit;
+    returns the admission and the share of pairs K5's passes visit."""
+    dev = mov.device
+    ones_m = torch.ones(len(mov), device=dev)
+    ones_t = torch.ones(len(tgt), device=dev)
+    args = (mov, ones_m, tgt, ones_t, s2, c)
+    cand, ovf = cpd_cand.cpd_estep_cand(*args, torch.tensor(trunc, device=dev), checked=True)
+    dense = cpd_dense.cpd_estep_dense(*args, trunc)
+    torch.cuda.synchronize()
+    assert not bool(ovf)
+    for f in ("p1", "pt1", "px", "error"):
+        assert torch.equal(getattr(cand, f), getattr(dense, f)), f
+    adm = cpd_cand.block_admission(mov, ones_m, tgt, ones_t, torch.tensor(s2, device=dev),
+                                   torch.tensor(trunc, device=dev))
+    geo = cpd_dense.cpd_geometry(len(tgt))
+    table, counts = cpd_cand.cta_tables(adm.sub_adm, adm.f_sub, geo.cta_rows, ~adm.fat_n,
+                                        adm.width_m)
+    visited = cpd_cand.visited_pairs(table, counts, geo.cta_rows) / (len(mov) * len(tgt))
+    return adm, visited
+
+
+@pytest.mark.parametrize("rows_per_thread", [1, 2])
+@pytest.mark.parametrize("s2,trunc", [(1.0, True), (0.05, True), (0.01, True), (0.002, True)])
+def test_cpd_cand_segments_bit_identical_to_dense(rng, cuda, monkeypatch, s2, trunc,
+                                                  rows_per_thread):
+    """Uniform boxes of 8 blocks a side at four sigma^2: K5 skipping 128-row
+    segments inside admitted blocks equals K4 bit for bit, at either
+    number of rows a thread; at the tight settings it visits fewer pairs
+    than it admits block pairs."""
+    if rows_per_thread == 2:
+        monkeypatch.setattr(cpd_dense, "FILL_THREADS", 0)
+    assert cpd_dense.cpd_geometry(8192).rows_per_thread == rows_per_thread
+    mov, tgt = _sorted_cloud(rng, 8192, cuda), _sorted_cloud(rng, 8192, cuda)
+    adm, visited = _k5_against_k4(mov, tgt, s2, trunc)
+    if s2 <= 0.01:
+        assert visited < float(adm.adm.float().mean())
+
+
+def test_cpd_cand_segments_clusters_with_fat_blocks(rng, cuda, monkeypatch):
+    """20 clusters of 1,024 points 100 apart, one a block, with one block a
+    side refilled from every cluster: fat blocks served by K4's passes,
+    everything else by K5's segment walk."""
+    monkeypatch.setattr(cpd_cand, "SLOTS", 1)
+    grid = np.array([[i, j, k] for i in range(3) for j in range(3) for k in range(3)][:20],
+                    np.float32) * 100.0
+    pts = np.concatenate([(rng.random((1024, 3)) * 3).astype(np.float32) + g for g in grid])
+    mov, tgt = pts.copy(), (pts + 0.01).astype(np.float32)
+    mov[3 * 1024:4 * 1024] = pts[rng.permutation(len(pts))[:1024]]
+    tgt[7 * 1024:8 * 1024] = tgt[rng.permutation(len(pts))[:1024]]
+    adm, _ = _k5_against_k4(torch.from_numpy(mov).to(cuda), torch.from_numpy(tgt).to(cuda),
+                            0.05, True)
+    assert bool(adm.fat_n.any()) and bool(adm.fat_m.any())
+
+
+@pytest.mark.parametrize("s2", [0.05, 0.002])
+def test_cpd_cand_segments_planted_at_the_cutoff(rng, cuda, s2):
+    """Pairs planted just inside and just outside the truncation distance
+    across segment boundaries: the admission margins keep every kept term,
+    and K5 equals K4 bit for bit."""
+    mov = _sorted_cloud(rng, 8192, cuda)
+    cut = float(np.sqrt(-2.0 * np.log(1e-3) * s2))
+    tgt = mov.clone()
+    step = torch.zeros(3, device=cuda)
+    step[0] = 1.0
+    # every 37th target point sits at the cutoff distance from its moving
+    # twin, alternately 1e-6 inside and outside it; the rest 0.3 of it away
+    idx = torch.arange(0, 8192, 37, device=cuda)
+    sign = (torch.arange(len(idx), device=cuda) % 2) * 2 - 1
+    tgt = tgt + 0.3 * cut
+    tgt[idx] = mov[idx] + step * (cut * (1 + 1e-6 * sign))[:, None]
+    tgt = tgt[morton_permutation(tgt, torch.ones(8192, device=cuda)).long()].contiguous()
+    _k5_against_k4(mov, tgt, s2, True)
+
+
+@pytest.mark.parametrize("rows_per_thread", [1, 2])
+def test_cpd_dense_register_tiled_matches_plain(rng, cuda, monkeypatch, rows_per_thread):
+    """K4 at 1 and 2 rows a thread against its plain version: a batch of
+    two with ragged masks, one pair truncated and one not; both geometries
+    give the same bits (the order does not depend on them)."""
+    mov = torch.stack([_sorted_cloud(rng, 4096, cuda) for _ in range(2)])
+    tgt = torch.stack([_sorted_cloud(rng, 5120, cuda) for _ in range(2)])
+    mm = torch.ones(2, 4096, device=cuda)
+    mm[1, 3000:] = 0
+    tm = torch.ones(2, 5120, device=cuda)
+    tm[0, 4500:] = 0
+    ty = torch.where(mm[:, :, None] > 0, mov, cpd_dense.SENTINEL).contiguous()
+    scalars = cpd_dense.estep_scalars(torch.tensor([0.3, 0.02], device=cuda),
+                                      torch.tensor([0.3, 0.01], device=cuda),
+                                      torch.tensor([False, True], device=cuda), 1e-3)
+    denom1 = cpd_dense.denom_pass_batch(scalars, ty, tgt)
+    ref = cpd_dense.denom_pass_ref(scalars, ty, tgt)
+    _, w4 = cpd_dense.moment_weights(ref[:, 0], tgt, tm, scalars[:, 1])
+    acc1 = cpd_dense.moments_pass_batch(scalars, ty, tgt, w4)
+    if rows_per_thread == 2:
+        monkeypatch.setattr(cpd_dense, "FILL_THREADS", 0)
+    assert cpd_dense.cpd_geometry(4096, 2).rows_per_thread == rows_per_thread
+    denom = cpd_dense.denom_pass_batch(scalars, ty, tgt)
+    acc = cpd_dense.moments_pass_batch(scalars, ty, tgt, w4)
+    acc_ref = cpd_dense.moments_pass_ref(scalars, ty, tgt, w4)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(denom, ref, rtol=1e-5, atol=0)
+    torch.testing.assert_close(acc, acc_ref, rtol=1e-5, atol=1e-6)
+    assert torch.equal(denom, denom1) and torch.equal(acc, acc1)
+    assert torch.all(acc[1, :, 3000:] == 0)  # sentinel rows gather nothing
+
+
+@pytest.mark.parametrize("c,shift", [(1e-20, 7.5), (0.0, 9.0)])
+def test_cpd_dense_all_underflow_row(cuda, c, shift):
+    """A target row whose every term underflows: at distance 7.5 (sigma^2
+    = 0.3) every exponent lies in (-103, -87), where expf gives a
+    subnormal and the kernel's ex2.approx.ftz gives +0: with c = 1e-20 the
+    denominators agree (both c); at 9.0 every term is below e^-104 and
+    zero on both sides, so with c = 0 both denominators are exactly 0."""
+    rng = np.random.default_rng(5)
+    mov = torch.from_numpy((rng.random((1024, 3)) * 0.01).astype(np.float32)).to(cuda)
+    tgt = torch.from_numpy((rng.random((1024, 3)) * 0.01).astype(np.float32)).to(cuda)
+    tgt[100:200, 0] += shift  # the far rows
+    scalars = cpd_dense.estep_scalars(torch.tensor([0.3], device=cuda),
+                                      torch.tensor([c], device=cuda),
+                                      torch.tensor([False], device=cuda), 1e-3)
+    denom = cpd_dense.denom_pass_batch(scalars, mov[None], tgt[None])[0, 0]
+    ref = cpd_dense.denom_pass_ref(scalars, mov[None], tgt[None])[0, 0]
+    torch.cuda.synchronize()
+    far = slice(100, 200)
+    assert bool((denom[far] == c).all())
+    if c == 0.0:
+        assert bool((ref[far] == 0).all())
+    else:
+        torch.testing.assert_close(denom[far], ref[far], rtol=1e-5, atol=0)
+    torch.testing.assert_close(denom[:100], ref[:100], rtol=1e-5, atol=0)
 
 
 @pytest.mark.parametrize("mode", [ApproximationType.NONE, ApproximationType.Hybrid])

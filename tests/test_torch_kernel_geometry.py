@@ -1,6 +1,8 @@
-"""The launch geometry of kernels K2 (``csrc/bound.cu``) and K3
-(``csrc/nn_cand.cu``), and plain-torch models of how each kernel cuts a
-group's work across the blocks of a cluster.
+"""The launch geometry of kernels K2 (``csrc/bound.cu``), K3
+(``csrc/nn_cand.cu``), K4 and K5 (``csrc/cpd_dense.cu``,
+``csrc/cpd_cand.cu``), and plain-torch models of how K2 and K3 cut a
+group's work across the blocks of a cluster and how K4 cuts the other
+cloud's blocks across CTAs.
 
 The kernels run only on the card (``test_torch_cuda.py``); what decides
 their shape is Python and is tested here: sources per thread, splits per
@@ -205,3 +207,50 @@ def test_running_bound_marks_cover_the_admitted_tiles(rng, warm, splits):
     assert not bool((adm & ~marks).any())
     if warm:
         assert int(marks.sum()) < marks.numel()  # pass 2 skips tiles
+
+
+@pytest.mark.parametrize("rows,batch,other,want", [
+    (20_480, 1, 20, (1, 7)),  # the JAX records' E-step row: 320 CTAs x 7 splits
+    (20_480, 2, 20, (1, 4)),
+    (40_960, 2, 40, (2, 1)),  # a pair of them fills the card
+    (376_832, 1, 368, (2, 1)),  # 376,401 padded: 2,944 CTAs of 128 rows
+    (3072, 1, 368, (1, 44)),  # K5's three fat blocks at 376k
+    (2048, 1, 2, (1, 2)),  # no more splits than blocks
+    (1_300_480, 1, 1270, (2, 1)),  # 1.3M
+])
+def test_cpd_geometry(rows, batch, other, want):
+    """K4's and K5's launch geometry: 64 threads a CTA (the kernels' only
+    block size), two rows a thread wherever the grid keeps 8 warps on
+    each SM, else one and the other cloud's blocks split over CTAs; a
+    CTA's rows divide a block and the sub-tile K5 masks by."""
+    from tpuslam_torch.kernels import cpd_cand, cpd_dense
+
+    geo = cpd_dense.cpd_geometry(rows, batch, other)
+    assert (geo.threads, geo.rows_per_thread, geo.splits) == (64, *want)
+    assert geo.cta_rows == 64 * geo.rows_per_thread and cpd_dense.TILE % geo.cta_rows == 0
+    ctas = rows // geo.cta_rows
+    assert ctas * geo.cta_rows == rows
+    if geo.rows_per_thread == 2:
+        assert batch * ctas * geo.threads >= cpd_dense.FILL_THREADS
+    assert 1 <= geo.splits <= other
+    # K5 takes the same rows a CTA and never splits
+    assert cpd_dense.cpd_geometry(rows, batch).cta_rows == geo.cta_rows
+    assert cpd_dense.cpd_geometry(rows, batch).splits == 1
+    blocks = rows // cpd_dense.TILE
+    f_sub = cpd_cand.sub_factor(blocks, blocks)
+    assert f_sub == (4 if rows > 1_000_000 else 8)
+    sub = cpd_dense.TILE // f_sub
+    assert sub % geo.cta_rows == 0  # a CTA never straddles two sub-tiles
+    assert cpd_cand.SEGS % f_sub == 0  # a sub-tile bit covers whole segments
+    assert cpd_cand.table_width(blocks) <= 8192  # kMaxWidth of csrc/cpd_cand.cu
+
+
+@pytest.mark.parametrize("splits", [1, 3, 7, 20])
+def test_cpd_split_ranges_partition_the_blocks(splits):
+    """Split z walks blocks [z B / S, (z + 1) B / S): every block of the
+    other cloud exactly once, in ascending order across the splits, so the
+    combine's ordered sum of the stored partials is the unsplit total."""
+    blocks = 20
+    walked = [j for z in range(splits)
+              for j in range(z * blocks // splits, (z + 1) * blocks // splits)]
+    assert walked == list(range(blocks))

@@ -1,9 +1,10 @@
 """Time kernels K2 (bound pass) and K3 (candidate rescore), the
 hierarchical query and the 100k headline of two checkouts of the port,
-in turns, on one CUDA card.
+in turns, on one CUDA card; with ``--cpd``, kernels K4 and K5 and the
+376k CPD Hybrid registration instead.
 
     python3 tpuslam_torch/harness/ab_kernels.py OLD NEW [--out DIR]
-        [--skip-1m] [--sweep]
+        [--skip-1m] [--sweep] [--cpd]
 
 OLD and NEW are directories that each hold a ``tpuslam_torch`` package:
 for example the parent commit's, unpacked with ``git archive HEAD
@@ -28,6 +29,17 @@ beside it, and prints one JSON line.  A run measures:
 * with ``--sweep``, for a checkout that has the launch geometry
   (``cand_geometry``, ``bound_geometry``): K3's and K2's times over a
   few geometries.
+
+With ``--cpd`` a run measures instead (``cpd_worker``), on Morton-sorted
+uniform boxes of side 10 made from one seed: at 20,480^2 and 376,401^2
+K4's two passes without truncation at the initial sigma^2 and K4's
+whole exact E-step; at 376,401^2 K5's two passes (its kernels alone,
+under the tables the checkout builds; fat blocks left out) and its
+whole E-step at the Hybrid window (0.015 sigma^2_0) and at sigma^2
+0.002, with the admitted fraction of block pairs and the pairs each
+pass visits; one 376,401-point Hybrid registration (30 iterations,
+tolerance 0: ``chip_smoke.py`` phase 10's protocol); last, the device
+time by kernel of one of each 376k E-step (``torch.profiler``).
 
 Needs a CUDA card; exits non-zero without one.
 """
@@ -87,17 +99,7 @@ def worker(tree: str, label: str, out_dir: str, skip_1m: bool, sweep: bool) -> d
     res["nvidia_smi"] = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60).stdout.strip()
-    build.build(force=True)
-    res["build_s"] = build.last_build["seconds"]
-    res["ptxas"] = [line.strip() for line in build.last_build["log"].splitlines()
-                    if "registers" in line or "spill" in line or "entry function" in line]
-    build.load_library()
-    os.makedirs(out_dir, exist_ok=True)
-    cuobjdump = os.path.join(os.path.dirname(build._nvcc()), "cuobjdump")
-    if os.path.exists(cuobjdump):
-        with open(os.path.join(out_dir, f"ab_{label}.sass"), "w") as f:
-            f.write(subprocess.run([cuobjdump, "-sass", build.last_build["path"]],
-                                   capture_output=True, text=True).stdout)
+    _build_and_dump(build, res, out_dir, label)
     dev = torch.device("cuda", 0)
 
     def tables(adm, m, g, gsrc, l_budget):
@@ -259,6 +261,180 @@ def worker(tree: str, label: str, out_dir: str, skip_1m: bool, sweep: bool) -> d
     return res
 
 
+def cpd_worker(tree: str, label: str, out_dir: str) -> dict:
+    """One ``--cpd`` run on the package under ``tree`` (module docstring);
+    works on checkouts with block tables (K5 before its sub-tile masks)
+    and with per-CTA tables (``cpd_cand.cta_tables``)."""
+    sys.path.insert(0, os.path.abspath(tree))
+    import numpy as np
+    import torch
+
+    import tpuslam_torch
+    from tpuslam_torch.algorithms import cpd
+    from tpuslam_torch.config.configuration import ApproximationType, ComputationMethod
+    from tpuslam_torch.data.synthesis import (
+        get_random_rotation_matrix,
+        get_random_translation_vector,
+    )
+    from tpuslam_torch.kernels import build, cpd_cand, cpd_dense
+    from tpuslam_torch.ops.spatial import morton_permutation
+
+    if not torch.cuda.is_available():
+        raise SystemExit("ab_kernels: no CUDA device")
+    package = os.path.dirname(os.path.abspath(tpuslam_torch.__file__))
+    if os.path.dirname(package) != os.path.abspath(tree):
+        raise SystemExit(f"ab_kernels: imported {package}, not the one under {tree}")
+    time_ms = lambda fn, reps: _time_ms(torch, fn, reps)  # noqa: E731
+    res = {"label": label, "tree": os.path.abspath(tree), "mode": "cpd"}
+    res["nvidia_smi"] = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60).stdout.strip()
+    _build_and_dump(build, res, out_dir, label)
+    dev = torch.device("cuda", 0)
+    tile = cpd_dense.TILE
+    rng = np.random.Generator(np.random.PCG64(376))
+
+    def f32(*v):
+        return torch.tensor(v, dtype=torch.float32, device=dev)
+
+    def box(n):
+        p = torch.from_numpy((rng.random((n, 3)) * 10).astype(np.float32)).to(dev)
+        return p[morton_permutation(p, torch.ones(n, device=dev)).long()].contiguous()
+
+    def tables(adm, n_rows, m_rows):
+        """The checkout's K5 tables (fat blocks served elsewhere) and the
+        pairs each pass visits."""
+        if hasattr(cpd_cand, "cta_tables"):
+            geo = cpd_dense.cpd_geometry
+            tm, cn = cpd_cand.cta_tables(adm.sub_adm, adm.f_sub, geo(n_rows).cta_rows,
+                                         ~adm.fat_n, adm.width_m)
+            tn, cm = cpd_cand.cta_tables(adm.sub_adm.T, adm.f_sub, geo(m_rows).cta_rows,
+                                         ~adm.fat_m, adm.width_n)
+            pairs = (cpd_cand.visited_pairs(tm, cn, n_rows // len(cn)),
+                     cpd_cand.visited_pairs(tn, cm, m_rows // len(cm)))
+            # segments each CTA of the denominator pass folds: the spread
+            # behind the pass's tail
+            segs = cpd_cand.segments_per_cta(tm, cn).float()
+            spread = {"mean": float(segs.mean()), "max": float(segs.max()),
+                      "p99": float(torch.quantile(segs, 0.99))}
+            return (tm, cn, tn, cm), pairs, spread
+        from tpuslam_torch.ops.nn_hier import _build_cand_table
+
+        cn = torch.where(adm.fat_n, 0, adm.counts_n)
+        cm = torch.where(adm.fat_m, 0, adm.counts_m)
+        tm = _build_cand_table(adm.adm, cn, adm.width_m)
+        tn = _build_cand_table(adm.adm.T, cm, adm.width_n)
+        return ((tm, cn, tn, cm), (int(cn.sum()) * tile * tile, int(cm.sum()) * tile * tile),
+                None)
+
+    def profiled(fn):
+        """Device ms by kernel (the top 8) and in all, over one call."""
+        from torch.profiler import ProfilerActivity, profile
+
+        fn()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        kernels = {}
+        for e in prof.events():
+            if e.device_type.name == "CUDA":
+                kernels[e.name[:60]] = kernels.get(e.name[:60], 0.0) + e.device_time_total / 1e3
+        top = sorted(kernels.items(), key=lambda kv: -kv[1])[:8]
+        return {"device_ms": sum(kernels.values()), "events": len(kernels), "top": top}
+
+    profiles = {}
+    for n in (20_480, 376_401):
+        mov, tgt = box(n), box(n)
+        m1 = torch.ones(n, device=dev)
+        s0 = float(cpd.sigma_squared_init(mov, m1, tgt, m1))
+        mov_p, mm, tgt_p, tm_ = (cpd_dense.pad_rows(x[None], -(-n // tile) * tile)[0]
+                                 for x in (mov, m1, tgt, m1))
+        ty = torch.where(mm[:, None] > 0, mov_p,
+                         torch.full_like(mov_p, cpd_dense.SENTINEL)).contiguous()
+        tgt_p = tgt_p.contiguous()
+        reps = 20 if n < 100_000 else 3
+        out = {"sigma2_0": s0, "rows": len(tgt_p)}
+        for key, s2, trunc in (("k4_exact", s0, False), ("k5_window", 0.015 * s0, True),
+                               ("k5_tight", 0.002, True)):
+            if trunc and n < 100_000:
+                continue
+            scal = cpd_dense.estep_scalars(f32(s2), f32(0.3),
+                                           torch.tensor([trunc], device=dev), 1e-3)
+            dn = cpd_dense.denom_pass_batch(scal, ty[None], tgt_p[None])
+            _, w4 = cpd_dense.moment_weights(dn[:, 0], tgt_p[None], tm_[None], f32(0.3))
+            row = {"sigma2": s2}
+            if not trunc:
+                row["denom_ms"] = [time_ms(lambda: cpd_dense.denom_pass_batch(
+                    scal, ty[None], tgt_p[None]), reps) for _ in range(2)]
+                row["moments_ms"] = [time_ms(lambda: cpd_dense.moments_pass_batch(
+                    scal, ty[None], tgt_p[None], w4), reps) for _ in range(2)]
+                args = (mov, m1, tgt, m1, s2, 0.3, False)
+                row["estep_ms"] = [time_ms(lambda: cpd_dense.cpd_estep_dense(*args), reps)
+                                   for _ in range(2)]
+                if n > 100_000:
+                    profiles[key] = lambda a=args: cpd_dense.cpd_estep_dense(*a)
+            else:
+                adm = cpd_cand.block_admission(mov_p, mm, tgt_p, tm_, f32(s2)[0],
+                                               torch.tensor(True, device=dev))
+                (t_m, c_n, t_n, c_m), pairs, spread = tables(adm, len(tgt_p), len(ty))
+                row["denom_segments_per_cta"] = spread
+                row["admitted_block"] = float(adm.adm.float().mean())
+                if hasattr(adm, "sub_adm"):
+                    row["admitted_sub_tile"] = float(adm.sub_adm.float().mean())
+                row["visited"] = [p / (len(tgt_p) * len(ty)) for p in pairs]
+                row["fat"] = [int(adm.fat_n.sum()), int(adm.fat_m.sum())]
+                row["denom_ms"] = [time_ms(lambda: cpd_cand.denom_cand(
+                    scal[0], ty, tgt_p, t_m, c_n), 5) for _ in range(2)]
+                row["moments_ms"] = [time_ms(lambda: cpd_cand.moments_cand(
+                    scal[0], ty, tgt_p, w4[0], t_n, c_m), 5) for _ in range(2)]
+                args = (mov, m1, tgt, m1, s2, 0.3, torch.tensor(True, device=dev))
+                row["estep_ms"] = [time_ms(lambda: cpd_cand.cpd_estep_cand(*args), 5)
+                                   for _ in range(2)]
+                row["route"] = cpd_cand.ROUTE_TRACE[-1]
+                profiles[key] = lambda a=args: cpd_cand.cpd_estep_cand(*a)
+            out[key] = row
+        res[str(n)] = out
+
+    n = 376_401
+    before = (rng.random((n, 3)) * 10).astype(np.float32)
+    r_true = get_random_rotation_matrix(rng, 0.1)
+    t_true = get_random_translation_vector(rng, 0.5)
+    after = (before @ r_true.T + t_true).astype(np.float32)[rng.permutation(n)]
+    cpd.PHASE_TRACE.clear()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    rot, trans, iters, err = tpuslam_torch.register(
+        before, after, device=dev, computation_method=ComputationMethod.Cpd,
+        approximation_type=ApproximationType.Hybrid, cpd_weight=0.1, cpd_const_scale=True,
+        cpd_tolerance=0.0, max_iterations=30)
+    wall = time.perf_counter() - t0
+    cos = (np.trace(rot.astype(np.float64).T @ r_true.astype(np.float64)) - 1) / 2
+    res["hybrid_376k"] = {"wall_s": wall, "iterations": iters, "phases": list(cpd.PHASE_TRACE),
+                          "rotation_err_deg": float(np.degrees(np.arccos(np.clip(cos, -1, 1)))),
+                          "sigma2": float(err)}
+    # the profiler last: once started it slows the host for the process
+    res["profile_376k"] = {k: profiled(fn) for k, fn in profiles.items()}
+    with open(os.path.join(out_dir, f"ab_{label}.json"), "w") as f:
+        json.dump(res, f, indent=1)
+    return res
+
+
+def _build_and_dump(build, res, out_dir, label) -> None:
+    """Build the checkout's kernels; keep ptxas's report and the SASS."""
+    build.build(force=True)
+    res["build_s"] = build.last_build["seconds"]
+    res["ptxas"] = [line.strip() for line in build.last_build["log"].splitlines()
+                    if "registers" in line or "spill" in line or "entry function" in line]
+    build.load_library()
+    os.makedirs(out_dir, exist_ok=True)
+    cuobjdump = os.path.join(os.path.dirname(build._nvcc()), "cuobjdump")
+    if os.path.exists(cuobjdump):
+        with open(os.path.join(out_dir, f"ab_{label}.sass"), "w") as f:
+            f.write(subprocess.run([cuobjdump, "-sass", build.last_build["path"]],
+                                   capture_output=True, text=True).stdout)
+
+
 def main(argv) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("trees", nargs="+", help="OLD NEW (or one tree with --worker)")
@@ -266,14 +442,19 @@ def main(argv) -> int:
     parser.add_argument("--out", default="build/ab")
     parser.add_argument("--skip-1m", action="store_true")
     parser.add_argument("--sweep", action="store_true")
+    parser.add_argument("--cpd", action="store_true", help="K4, K5 and CPD instead")
     a = parser.parse_args(argv)
     out_dir = os.path.abspath(a.out)
     if a.worker:
-        res = worker(a.trees[0], a.worker, out_dir, a.skip_1m, a.sweep)
+        if a.cpd:
+            res = cpd_worker(a.trees[0], a.worker, out_dir)
+        else:
+            res = worker(a.trees[0], a.worker, out_dir, a.skip_1m, a.sweep)
         print(json.dumps({k: v for k, v in res.items() if k != "ptxas"}))
         return 0
     old, new = a.trees
-    extra = ["--out", out_dir] + ["--skip-1m"] * a.skip_1m + ["--sweep"] * a.sweep
+    extra = (["--out", out_dir] + ["--skip-1m"] * a.skip_1m + ["--sweep"] * a.sweep
+             + ["--cpd"] * a.cpd)
     rc = 0
     for tree, label in ((old, "old_1"), (new, "new_1"), (new, "new_2"), (old, "old_2")):
         cmd = [sys.executable, os.path.abspath(__file__), tree, "--worker", label, *extra]

@@ -145,15 +145,18 @@ def load_library() -> ctypes.CDLL:
             #  chunks, splits, stage_rows, depth, smem_bytes, idx, dist,
             #  stream)
             ("tpuslam_nn_cand", [p, p, p, p, *[i] * 12, p, p, p]),
-            # (scalars, ty, target, batch, n, m, denom, stream)
-            ("tpuslam_cpd_denom", [p, p, p, i, i, i, p, p]),
-            # (scalars, ty, target, weights4, batch, n, m, acc, stream)
-            ("tpuslam_cpd_moments", [p, p, p, p, i, i, i, p, p]),
-            # (scalars, ty, target, cand, counts, n, m, width, denom, stream)
-            ("tpuslam_cpd_denom_cand", [p, p, p, p, p, i, i, i, p, p]),
-            # (scalars, ty, target, weights4, cand, counts, n, m, width,
-            #  acc, stream)
-            ("tpuslam_cpd_moments_cand", [p, p, p, p, p, p, i, i, i, p, p]),
+            # (scalars, ty, target, batch, n, m, threads, rows_per_thread,
+            #  splits, parts, denom, stream)
+            ("tpuslam_cpd_denom", [p, p, p, i, i, i, i, i, i, p, p, p]),
+            # (scalars, ty, target, weights4, batch, n, m, threads,
+            #  rows_per_thread, splits, parts, acc, stream)
+            ("tpuslam_cpd_moments", [p, p, p, p, i, i, i, i, i, i, p, p, p]),
+            # (scalars, ty, target, table, counts, n, m, width, threads,
+            #  rows_per_thread, denom, stream)
+            ("tpuslam_cpd_denom_cand", [p, p, p, p, p, i, i, i, i, i, p, p]),
+            # (scalars, ty, target, weights4, table, counts, n, m, width,
+            #  threads, rows_per_thread, acc, stream)
+            ("tpuslam_cpd_moments_cand", [p, p, p, p, p, p, i, i, i, i, i, p, p]),
         ):
             fn = getattr(lib, name)
             fn.argtypes = argtypes

@@ -15,9 +15,18 @@ ascending order.  With truncation on, terms whose exponent is below
 The Gaussian is rounded as XLA rounds ``pallas_cpd._gauss`` on the CPU:
 ``d = fma(dz, dz, fma(dx, dx, dy*dy))`` (``kernels/nn_dense.fma_sq_dist``,
 K1's distance), then ``expo = mult * d`` in float32, so the truncation
-decisions are those of the JAX package.  Inside a block the plain
-version sums in torch's order and the kernel in its own fixed order
-(``csrc/cpd_gauss.cuh``); they agree to a tolerance, not bit for bit.
+decisions are those of the JAX package.  The plain version takes
+``torch.exp(expo)``; the kernel takes one ``ex2.approx`` (a few ulps
+apart, ``csrc/cpd_gauss.cuh``).  Inside a block the plain version sums in
+torch's order and the kernel in its own fixed order; they agree to a
+tolerance, not bit for bit.
+
+Launch geometry (``cpd_geometry``): ``THREADS`` threads a CTA, each
+holding 1 or 2 output rows, and on small grids the other cloud's blocks
+split over several CTAs (per-block partials, added in order by a second
+kernel); the C entry points refuse any other.  The kernel's summation
+order does not depend on it, so K5 (which uses the same function)
+equals K4 bit for bit at any geometry.
 
 Dispatch: tensors on the CPU take the plain versions; CUDA tensors
 launch the kernels, or raise.  There is no other path.
@@ -26,6 +35,7 @@ launch the kernels, or raise.  There is no other path.
 from __future__ import annotations
 
 import math
+from typing import NamedTuple
 
 import torch
 
@@ -41,6 +51,42 @@ SENTINEL = 1e15
 DENOM_LAUNCHES = 0
 MOMENTS_LAUNCHES = 0
 
+THREADS = 64  # threads a CTA: kCpdThreads of csrc/cpd_gauss.cuh
+# a grid of at least this many threads keeps 8 warps on each of the H100's
+# 132 SMs: only then does a thread take 2 rows (half the threads)
+FILL_THREADS = 132 * 8 * 32
+# below that, the other cloud's blocks are split over CTAs until the grid
+# holds this many threads (half of what the card keeps resident)
+SPLIT_THREADS = 132 * 1024
+
+
+class CpdGeometry(NamedTuple):
+    """Launch geometry of K4's and K5's passes."""
+
+    threads: int  # threads a CTA
+    rows_per_thread: int  # output rows a thread holds (kR)
+    splits: int  # K4: CTAs that share a row's blocks of the other cloud
+
+    @property
+    def cta_rows(self) -> int:
+        return self.threads * self.rows_per_thread
+
+
+def cpd_geometry(rows: int, batch: int = 1, other_blocks: int = 1) -> CpdGeometry:
+    """The geometry of a pass over ``rows`` output rows per pair (a
+    multiple of ``TILE``) for ``batch`` pairs against ``other_blocks``
+    blocks of the other cloud: 2 rows a thread, so that one shared load
+    serves both, wherever the grid still has ``FILL_THREADS`` threads
+    (376,401 rows: 2,944 CTAs of 128 rows); else 1 row a thread, and K4
+    splits the other cloud's blocks over up to ``SPLIT_THREADS / rows``
+    CTAs (20,480 rows: 7 splits of 20 blocks; K5's fat blocks at 376k:
+    3,072 rows, 44 splits of 368).  K5 walks its own tables and does not
+    split."""
+    if batch * rows // 2 >= FILL_THREADS:
+        return CpdGeometry(THREADS, 2, 1)
+    want = -(-SPLIT_THREADS // max(batch * rows, 1))
+    return CpdGeometry(THREADS, 1, max(1, min(other_blocks, want)))
+
 
 def gauss_tile(rows: torch.Tensor, block: torch.Tensor,
                scalars: torch.Tensor) -> torch.Tensor:
@@ -53,48 +99,57 @@ def gauss_tile(rows: torch.Tensor, block: torch.Tensor,
     return torch.where(cut, torch.zeros_like(g), g)
 
 
+def _kept(g: torch.Tensor, keep) -> torch.Tensor:
+    return g if keep is None else torch.where(keep, g, torch.zeros_like(g))
+
+
 def denom_partial(rows: torch.Tensor, block: torch.Tensor,
-                  scalars: torch.Tensor) -> torch.Tensor:
+                  scalars: torch.Tensor, keep=None) -> torch.Tensor:
     """f32[TILE]: each of ``TILE`` target rows' partial sum over one block
-    of ``TILE`` moving rows."""
-    return torch.sum(gauss_tile(rows, block, scalars), dim=1)
+    of ``TILE`` moving rows; terms outside ``keep`` bool[TILE, TILE]
+    (where given) count as 0."""
+    return torch.sum(_kept(gauss_tile(rows, block, scalars), keep), dim=1)
 
 
 def moments_partial(rows: torch.Tensor, block: torch.Tensor,
-                    weights: torch.Tensor, scalars: torch.Tensor) -> torch.Tensor:
+                    weights: torch.Tensor, scalars: torch.Tensor,
+                    keep=None) -> torch.Tensor:
     """f32[4, TILE]: each of ``TILE`` moving rows' four moment partials
     over one block of ``TILE`` target rows with their ``weights``
-    f32[TILE, 4]."""
-    g = gauss_tile(rows, block, scalars)
+    f32[TILE, 4] (``keep`` as in ``denom_partial``)."""
+    g = _kept(gauss_tile(rows, block, scalars), keep)
     return torch.stack(
         [torch.sum(g * weights[:, c], dim=1) for c in range(4)])
 
 
 def denom_rows(scalars: torch.Tensor, ty: torch.Tensor, rows: torch.Tensor,
-               blocks) -> torch.Tensor:
+               blocks, keep=None) -> torch.Tensor:
     """The plain running total of phase 1 for one block of ``TILE`` target
     ``rows``: the constant, then one partial per moving block of
-    ``blocks`` in the order given.  K4's and K5's plain versions both
+    ``blocks`` in the order given (``keep``: block id -> the bool[TILE,
+    TILE] terms K5 folds, where given).  K4's and K5's plain versions both
     build on it, always on (TILE, TILE) tiles: torch's CPU ``exp`` rounds
     an element by its vector or its scalar path depending on where the
     element falls in the tensor's split across threads, so equal shapes
     are what makes the two plain versions equal bit for bit."""
     run = scalars[1].expand(TILE).clone()
     for j in blocks:
-        run = run + denom_partial(rows, ty[j * TILE:(j + 1) * TILE], scalars)
+        run = run + denom_partial(rows, ty[j * TILE:(j + 1) * TILE], scalars,
+                                  None if keep is None else keep[j])
     return run
 
 
 def moments_rows(scalars: torch.Tensor, ty_rows: torch.Tensor,
                  target: torch.Tensor, weights4: torch.Tensor,
-                 blocks) -> torch.Tensor:
+                 blocks, keep=None) -> torch.Tensor:
     """The plain running totals of phase 2 for one block of ``TILE``
     moving rows over the target blocks of ``blocks`` (see
     ``denom_rows``)."""
     run = torch.zeros((4, TILE), dtype=torch.float32, device=ty_rows.device)
     for i in blocks:
         sl = slice(i * TILE, (i + 1) * TILE)
-        run = run + moments_partial(ty_rows, target[sl], weights4[sl], scalars)
+        run = run + moments_partial(ty_rows, target[sl], weights4[sl], scalars,
+                                    None if keep is None else keep[i])
     return run
 
 
@@ -166,6 +221,14 @@ def cuda_ready(name: str, *tensors: torch.Tensor) -> None:
             raise ValueError(f"{name}: sizes exceed the kernel's int indexing")
 
 
+def _partials(geo: CpdGeometry, shape, device):
+    """The split passes' scratch: one partial per (pair, block of the other
+    cloud, statistic, row), or None without a split."""
+    if geo.splits == 1:
+        return None
+    return torch.empty(shape, dtype=torch.float32, device=device)
+
+
 def denom_pass_batch(scalars: torch.Tensor, ty: torch.Tensor,
                      target: torch.Tensor) -> torch.Tensor:
     """Phase 1 (``pallas_cpd.denom_pass_batch``): ``denom`` f32[B, 1, N]
@@ -181,9 +244,12 @@ def denom_pass_batch(scalars: torch.Tensor, ty: torch.Tensor,
 
     b, m, _ = ty.shape
     n = target.shape[1]
+    geo = cpd_geometry(n, b, m // TILE)
     denom = torch.empty((b, 1, n), dtype=torch.float32, device=ty.device)
+    parts = _partials(geo, (b, m // TILE, 1, n), ty.device)
     launch("tpuslam_cpd_denom", ty.device, scalars.data_ptr(), ty.data_ptr(),
-           target.data_ptr(), b, n, m, denom.data_ptr())
+           target.data_ptr(), b, n, m, geo.threads, geo.rows_per_thread,
+           geo.splits, 0 if parts is None else parts.data_ptr(), denom.data_ptr())
     DENOM_LAUNCHES += 1
     return denom
 
@@ -202,9 +268,13 @@ def moments_pass_batch(scalars: torch.Tensor, ty: torch.Tensor,
 
     b, m, _ = ty.shape
     n = target.shape[1]
+    geo = cpd_geometry(m, b, n // TILE)
     acc = torch.empty((b, 4, m), dtype=torch.float32, device=ty.device)
+    parts = _partials(geo, (b, n // TILE, 4, m), ty.device)
     launch("tpuslam_cpd_moments", ty.device, scalars.data_ptr(), ty.data_ptr(),
-           target.data_ptr(), weights4.data_ptr(), b, n, m, acc.data_ptr())
+           target.data_ptr(), weights4.data_ptr(), b, n, m, geo.threads,
+           geo.rows_per_thread, geo.splits, 0 if parts is None else parts.data_ptr(),
+           acc.data_ptr())
     MOMENTS_LAUNCHES += 1
     return acc
 
