@@ -14,9 +14,17 @@ exits non-zero without printing a result:
    (``csrc/cpd_cand.cu``) from source, one nvcc per source, started
    together; ptxas's registers and spills per kernel;
 3. K1 against its plain PyTorch version on the card, bit for bit (idx and
-   dist equal; tolerance 0): the 102,400 x 102,400 headline pair, a
-   ragged count, planted ties, count 0 and a batch of two; then K1's and
-   the plain version's times at 102,400 x 102,400;
+   dist equal; tolerance 0), each case at the geometry (sources a thread,
+   splits of the target range) ``dense_geometry`` gives it: the 102,400 x
+   102,400 headline pair, two counts that end inside a split, a stage and
+   a segment, count 0, planted ties whose equal targets sit in different
+   splits, a batch of two, 8,192^2, a batch of 16 x 2,048 with ragged
+   counts, and NaN and inf source and target rows (held to the plain
+   version read under K1's contract, ``plain_under_contract``: the plain
+   argmin takes a NaN, K1 never does); then K1's and the plain version's
+   times at 102,400 x 102,400, and K1's at 8,192^2 and 16 x 2,048^2 (one
+   CUDA graph of 50 launches, so the host's Python between launches does
+   not count);
 4. K2 and K3 against their plain versions on the headline pair's
    hierarchical set-up (C = 800 tiles, 100 source groups): K2 cold, warm
    after one dense step, warm in mid-registration, and a batch of two
@@ -83,9 +91,10 @@ exits non-zero without printing a result:
    the CPU (plain versions, ``use_kernels=True``) and on the card in None
    and in Hybrid without the FGT, 100 iterations at most: equal
    iterations, R and t within 1e-4, rotation within 1 degree;
-11. E-step rows at 376,401^2: exact K4 against the FGT E-step (with and
-   without the loop's cached clusterings), and the FGT prediction at
-   three chunk sizes.
+11. E-step rows at 376,401^2: two FGT E-steps on the same inputs, which
+   must be bit-equal (the segment sums add in a fixed order); exact K4
+   against the FGT E-step (with and without the loop's cached clusterings
+   and their order), and the FGT prediction at three chunk sizes.
 
 The last lines are the card's name and power limit, one JSON object
 describing each kernel (with its bound: the larger of its float32
@@ -597,10 +606,22 @@ def cpd_phases(dev, smi, kind, sizes, time_ms) -> list:
     cnt = torch.sum(m1)
     w = f32(0.1)[0]
     exact_ms = time_ms(lambda: cpd_dense.cpd_estep_dense(mov, m1, tgt, m1, s2, 0.3, False), 3)
-    clusters = (*fgt.k_center(mov, m1, 128), *fgt.k_center(tgt, m1, 128))
-    fgt_cached_ms = time_ms(lambda: cpd.cpd_estep_fgt(
-        mov, m1, tgt, m1, s2, w, cnt, cnt, 128, 8, 10.0, sigma2_init=s2,
-        clusters=clusters), 5)
+    cy, iy, oy = fgt.k_center_ordered(mov, m1, 128)
+    cx, ix, ox = fgt.k_center_ordered(tgt, m1, 128)
+    clusters = (cy, iy, cx, ix)
+
+    def fgt_cached():
+        return cpd.cpd_estep_fgt(mov, m1, tgt, m1, s2, w, cnt, cnt, 128, 8, 10.0,
+                                 sigma2_init=s2, clusters=clusters, orders=(oy, ox))
+
+    # the segment sums add in an order the data fixes: equal bits in two runs
+    first, second = fgt_cached(), fgt_cached()
+    torch.cuda.synchronize()
+    differing = sum(int((getattr(first, f) != getattr(second, f)).sum()) for f in stats)
+    log(f"[estep] two FGT E-steps at {n}^2 on the same inputs: elements differing "
+        f"{differing} of {sum(getattr(first, f).numel() for f in stats)} (must be 0)")
+    check(differing == 0, "two FGT E-steps on the same inputs differ")
+    fgt_cached_ms = time_ms(fgt_cached, 5)
     fgt_ms = time_ms(lambda: cpd.cpd_estep_fgt(
         mov, m1, tgt, m1, s2, w, cnt, cnt, 128, 8, 10.0, sigma2_init=s2), 3)
     hs = torch.sqrt(2.0 * s2)
@@ -662,6 +683,7 @@ def main(dev=None, sizes=FULL) -> int:
         get_random_rotation_matrix,
         get_random_translation_vector,
     )
+    from tpuslam_torch.harness.ab_kernels import graph_ms
     from tpuslam_torch.harness.measure import build_headline_pair, measure_icp_100k
     from tpuslam_torch.kernels import bound, build, nn_cand, nn_dense
     from tpuslam_torch.ops import nn_hier
@@ -699,14 +721,21 @@ def main(dev=None, sizes=FULL) -> int:
         return start.elapsed_time(stop) / reps
 
     # 3. K1 against its plain version -----------------------------------------
-    def compare(name, src, tgt, count):
+    def compare(name, src, tgt, count, contract=False):
+        """K1 against its plain version, bit for bit; with ``contract``
+        (NaN or inf rows) against the plain version read under K1's
+        contract (``plain_under_contract``: argmin would take a NaN)."""
         idx, dist = nn_dense.nearest_neighbors_dense_batch(src, tgt, count)
-        ref_idx, ref_dist = nn_dense.nearest_neighbors_dense_ref(src, tgt, count)
+        plain = (nn_dense.plain_under_contract if contract
+                 else nn_dense.nearest_neighbors_dense_ref)
+        ref_idx, ref_dist = plain(src, tgt, count)
         torch.cuda.synchronize()
         bad_idx = int((idx != ref_idx).sum())
         bad_dist = int((dist != ref_dist).sum())
         err = float((dist.double() - ref_dist.double()).abs().max())
+        geo = nn_dense.dense_geometry(src.shape[0], src.shape[1], tgt.shape[1])
         log(f"[k1] {name}: {tuple(src.shape)} x {tuple(tgt.shape)}, "
+            f"{geo.rows_per_thread} sources a thread, {geo.splits} splits, "
             f"idx mismatches {bad_idx}, dist mismatches {bad_dist}, "
             f"max_abs_err {err} (tolerance 0: bit-identical)")
         check(bad_idx == 0 and bad_dist == 0, f"K1 differs from plain ({name})")
@@ -716,8 +745,10 @@ def main(dev=None, sizes=FULL) -> int:
     cb, ca = build_headline_pair(n_head, device=dev)
     src, tgt, count = cb.points[None], ca.points[None], ca.count.reshape(1)
     errs = [compare(f"headline {n_head}", src, tgt, count)[2]]
-    ragged = torch.tensor([n_head * 3 // 4 + 1], dtype=torch.int32, device=dev)
-    errs.append(compare("ragged count", src, tgt, ragged)[2])
+    # counts that end inside a split, a stage and a segment
+    for c in (n_head * 3 // 4 + 1, n_head // 2 + 1):
+        ragged = torch.tensor([c], dtype=torch.int32, device=dev)
+        errs.append(compare(f"ragged count {c}", src, tgt, ragged)[2])
     none = torch.zeros(1, dtype=torch.int32, device=dev)
     idx0, dist0, err = compare("count 0", src, tgt, none)
     errs.append(err)
@@ -725,12 +756,13 @@ def main(dev=None, sizes=FULL) -> int:
           "count 0 must give (0, 3.4e38)")
     rng = np.random.Generator(np.random.PCG64(11))
     lattice = (rng.integers(-40, 40, size=(8192, 3)) * 4).astype(np.float32)
+    # three copies 8,192 rows apart: equal targets in different splits
     ties = np.concatenate([lattice + [1, 0, 0], lattice - [1, 0, 0],
                            lattice + [1, 0, 0]]).astype(np.float32)
     t_src = torch.from_numpy(lattice)[None].to(dev)
     t_tgt = torch.from_numpy(ties)[None].to(dev)
     t_count = torch.tensor([len(ties)], dtype=torch.int32, device=dev)
-    idx_t, dist_t, err = compare("planted ties", t_src, t_tgt, t_count)
+    idx_t, dist_t, err = compare("planted ties across splits", t_src, t_tgt, t_count)
     errs.append(err)
     check(bool((dist_t == 1.0).all()) and bool((idx_t < 8192).all()),
           "planted ties: the first index must win")
@@ -739,6 +771,29 @@ def main(dev=None, sizes=FULL) -> int:
     b_count = torch.tensor([10000, 6000], dtype=torch.int32)
     errs.append(compare("batch of 2", b_src.to(dev), b_tgt.to(dev),
                         b_count.to(dev))[2])
+    n_small = sizes["small"]
+    s_src = torch.from_numpy((rng.random((1, n_small, 3)) * 10).astype(np.float32)).to(dev)
+    s_tgt = torch.from_numpy((rng.random((1, n_small, 3)) * 10).astype(np.float32)).to(dev)
+    s_count = torch.tensor([n_small], dtype=torch.int32, device=dev)
+    errs.append(compare(f"{n_small}^2", s_src, s_tgt, s_count)[2])
+    q_src = torch.from_numpy((rng.random((16, 2048, 3)) * 10).astype(np.float32)).to(dev)
+    q_tgt = torch.from_numpy((rng.random((16, 2048, 3)) * 10).astype(np.float32)).to(dev)
+    q_count = torch.tensor([2048, 2047, 1500, 1, 0, 33, 257, 1024, 2000, 999, 2048, 7, 1800,
+                            31, 32, 1283], dtype=torch.int32, device=dev)
+    errs.append(compare("16 x 2048, ragged counts", q_src, q_tgt, q_count)[2])
+    # NaN and inf sources; inf and NaN targets inside the count, NaN past it
+    nan_src = (rng.random((4096, 3)) * 10).astype(np.float32)
+    nan_src[3], nan_src[7, 1], nan_src[11], nan_src[13, 2] = np.nan, np.nan, np.inf, -np.inf
+    nan_src[17] = 1e30  # every distance overflows to +inf
+    nan_tgt = (rng.random((8192, 3)) * 10).astype(np.float32)
+    nan_tgt[5], nan_tgt[9, 0], nan_tgt[4000:4040], nan_tgt[8000:] = np.inf, np.nan, np.nan, np.nan
+    n_idx, n_dist, _ = compare(
+        "NaN and inf rows", torch.from_numpy(nan_src)[None].to(dev),
+        torch.from_numpy(nan_tgt)[None].to(dev),
+        torch.tensor([8000], dtype=torch.int32, device=dev), contract=True)
+    check(bool((n_idx[0, [3, 7, 11, 13, 17]] == 0).all())
+          and bool((n_dist[0, [3, 7, 11, 13, 17]] == nn_dense.BIG).all()),
+          "NaN and inf sources must give (0, 3.4e38)")
 
     plain_ms = time_ms(
         lambda: nn_dense.nearest_neighbors_dense_ref(src, tgt, count), 3)
@@ -750,7 +805,15 @@ def main(dev=None, sizes=FULL) -> int:
         lambda: nn_dense.nearest_neighbors_dense_batch(src, tgt, count), 20)
     log(f"[k1] time at {n_head} x {n_head} on {smi}: K1 {k1_ms:.4f} / "
         f"{k1_ms_2:.4f} ms, plain {plain_ms:.3f} / {plain_ms_2:.3f} ms")
-
+    # the small grids the target splits are for
+    k1_small_ms = {}
+    for name, args in ((f"{n_small}^2", (s_src, s_tgt, s_count)),
+                       ("16 x 2048^2", (q_src, q_tgt, q_count.clone().fill_(2048)))):
+        b_, n_, _ = args[0].shape
+        ms = graph_ms(torch, lambda a=args: nn_dense.nearest_neighbors_dense_batch(*a), 50)
+        k1_small_ms[name] = ms
+        log(f"[k1] time at {name} on {smi}: K1 {ms:.4f} ms; bound "
+            f"{bound_of(FLOPS_NN * float(b_ * n_) * args[1].shape[1], b_ * n_ * 32)}")
     # 4. K2 and K3 against their plain versions ---------------------------------
     setup = prepare_spatial(cb, ca)
     target, g, gsrc, l_budget = setup.target, setup.g, setup.gsrc, setup.l_budget
@@ -1082,6 +1145,7 @@ def main(dev=None, sizes=FULL) -> int:
             "ms": k1_ms,
             "plain_ms": plain_ms,
             **k1_bound,
+            "ms_small_grids": k1_small_ms,
             "library_ms": None,
             "launches_per_iter": per_iter["K1"],
         },

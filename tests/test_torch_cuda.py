@@ -95,6 +95,111 @@ def test_kernel_rejects_non_contiguous(cuda):
         nn_dense.nearest_neighbors_dense_batch(src, src.contiguous(), count)
 
 
+def _k1_case(rng, name):
+    """The inputs of one of ``chip_smoke.py``'s phase-3 cases of K1, and
+    whether it is held to the plain version under K1's contract."""
+    def box(*shape):
+        return torch.from_numpy((rng.random(shape) * 10).astype(np.float32))
+
+    if name == "8192^2":
+        return box(1, 8192, 3), box(1, 8192, 3), [8192], False
+    if name == "16 x 2048 ragged":
+        return box(16, 2048, 3), box(16, 2048, 3), [
+            2048, 2047, 1500, 1, 0, 33, 257, 1024, 2000, 999, 2048, 7, 1800, 31, 32, 1283], False
+    if name == "count inside a split and a stage":
+        return box(1, 20_000, 3), box(1, 102_400, 3), [50_001], False
+    if name == "ties across splits":
+        lattice = (rng.integers(-40, 40, size=(8192, 3)) * 4).astype(np.float32)
+        ties = np.concatenate([lattice + [1, 0, 0], lattice - [1, 0, 0],
+                               lattice + [1, 0, 0]]).astype(np.float32)
+        return torch.from_numpy(lattice)[None], torch.from_numpy(ties)[None], [len(ties)], False
+    src = (rng.random((4096, 3)) * 10).astype(np.float32)
+    src[3], src[7, 1], src[11], src[13, 2], src[17] = np.nan, np.nan, np.inf, -np.inf, 1e30
+    tgt = (rng.random((8192, 3)) * 10).astype(np.float32)
+    tgt[5], tgt[9, 0], tgt[4000:4040], tgt[8000:] = np.inf, np.nan, np.nan, np.nan
+    return torch.from_numpy(src)[None], torch.from_numpy(tgt)[None], [8000], True
+
+
+@pytest.mark.parametrize("name", ["8192^2", "16 x 2048 ragged", "count inside a split and a stage",
+                                  "ties across splits", "NaN and inf rows"])
+def test_kernel_phase3_cases_bit_identical_to_plain(rng, cuda, name):
+    """Tolerance 0 on every split geometry phase 3 reaches; NaN and inf
+    rows against the plain version under K1's contract (argmin would take
+    a NaN)."""
+    src, tgt, counts, contract = _k1_case(rng, name)
+    count = torch.tensor(counts, dtype=torch.int32, device=cuda)
+    src, tgt = src.to(cuda), tgt.to(cuda)
+    before = nn_dense.LAUNCHES
+    idx, dist = nn_dense.nearest_neighbors_dense_batch(src, tgt, count)
+    torch.cuda.synchronize()
+    assert nn_dense.LAUNCHES == before + 1
+    plain = nn_dense.plain_under_contract if contract else nn_dense.nearest_neighbors_dense_ref
+    ref_idx, ref_dist = plain(src, tgt, count)
+    assert torch.equal(idx, ref_idx) and torch.equal(dist, ref_dist)
+    if name == "ties across splits":
+        assert nn_dense.dense_geometry(1, 8192, tgt.shape[1]).splits > 1
+        assert bool((idx < 8192).all()) and bool((dist == 1.0).all())
+
+
+@pytest.mark.parametrize("splits", [1, 2, 3, 5, 8])
+@pytest.mark.parametrize("stage", [32, 256])
+def test_kernel_every_split_and_stage(rng, cuda, monkeypatch, splits, stage):
+    """K1 bit-identical to its plain version whatever the geometry: every
+    number of splits, a ring of one segment a stage, four and two
+    sources a thread, a count inside a segment."""
+    monkeypatch.setattr(nn_dense, "MIN_SPLIT_ROWS", 32)
+    monkeypatch.setattr(nn_dense, "STAGE_ROWS", stage)
+    for n, m, c in ((4096, 8192, 8192), (1000, 3000, 2999), (70_000, 4096, 4001)):
+        rpt = nn_dense.dense_geometry(1, n, m).rows_per_thread
+        monkeypatch.setattr(nn_dense, "BLOCKS_TARGET", splits * -(-n // (128 * rpt)))
+        geo = nn_dense.dense_geometry(1, n, m)
+        src = torch.from_numpy((rng.random((1, n, 3)) * 10).astype(np.float32)).to(cuda)
+        tgt = torch.from_numpy((rng.random((1, m, 3)) * 10).astype(np.float32)).to(cuda)
+        count = torch.tensor([c], dtype=torch.int32, device=cuda)
+        idx, dist = nn_dense.nearest_neighbors_dense_batch(src, tgt, count)
+        ref_idx, ref_dist = nn_dense.nearest_neighbors_dense_ref(src, tgt, count)
+        assert geo.splits == splits and geo.stage_rows == stage
+        assert torch.equal(idx, ref_idx) and torch.equal(dist, ref_dist)
+
+
+@pytest.mark.parametrize("bad", [dict(smem_bytes=1), dict(rows_per_thread=3), dict(splits=9),
+                                 dict(stage_rows=48), dict(threads=256), dict(depth=4)])
+def test_kernel_refused_geometry_raises(cuda, monkeypatch, bad):
+    """A geometry the C entry point does not take is refused there, and
+    the wrapper raises; nothing counts as launched."""
+    real = nn_dense.dense_geometry
+    monkeypatch.setattr(nn_dense, "dense_geometry", lambda *a: real(*a)._replace(**bad))
+    src = torch.zeros((1, 64, 3), device=cuda)
+    count = torch.tensor([64], dtype=torch.int32, device=cuda)
+    before = nn_dense.LAUNCHES
+    with pytest.raises(RuntimeError, match="launch failed"):
+        nn_dense.nearest_neighbors_dense_batch(src, src, count)
+    assert nn_dense.LAUNCHES == before
+
+
+def test_fgt_expansions_bit_equal_across_calls(rng, cuda):
+    """The FGT's segment sums add in an order the data fixes: two calls on
+    the same inputs give the same bits (expansions and E-step)."""
+    from tpuslam_torch.algorithms.cpd import cpd_estep_fgt
+    from tpuslam_torch.ops import fgt
+
+    n = 60_000
+    pts = torch.from_numpy((rng.random((n, 3)) * 10).astype(np.float32)).to(cuda)
+    other = torch.from_numpy((rng.random((n, 3)) * 10).astype(np.float32)).to(cuda)
+    mask = torch.ones(n, device=cuda)
+    w = torch.from_numpy(rng.random((n, 4)).astype(np.float32)).to(cuda)
+    sigma = torch.tensor(2.0, device=cuda)
+    a = fgt.compute_fgt_model_multi(pts, w, mask, sigma, 128, 8)
+    b = fgt.compute_fgt_model_multi(pts, w, mask, sigma, 128, 8)
+    assert torch.equal(a.ak, b.ak) and torch.equal(a.centers, b.centers)
+    cnt = torch.sum(mask)
+    s2 = torch.tensor(3.0, device=cuda)
+    e1, e2 = (cpd_estep_fgt(pts, mask, other, mask, s2, torch.tensor(0.1, device=cuda), cnt,
+                            cnt, 128, 8, 10.0, sigma2_init=s2) for _ in range(2))
+    for f in ("p1", "pt1", "px", "error"):
+        assert torch.equal(getattr(e1, f), getattr(e2, f)), f
+
+
 def test_register_on_card_launches_k1_and_matches_cpu(rng, cuda):
     n = 8000  # padded to 8,064 target rows: below the hierarchical gate
     before = (rng.random((n, 3)) * 10).astype(np.float32)

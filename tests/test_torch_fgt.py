@@ -129,3 +129,67 @@ def test_cpd_estep_fgt_matches_jax(rng, cached):
         np.testing.assert_allclose(getattr(got, f).numpy(), np.asarray(getattr(want, f)),
                                    rtol=RTOL, atol=ATOL, err_msg=f)
     np.testing.assert_allclose(float(got.error), float(want.error), rtol=1e-5)
+
+
+def test_segment_sum_against_float64_index_add(rng):
+    """The fixed-order segment sum against a float64 ``index_add_``: float32
+    sums of about 300 terms each, within 1e-5 of the largest |sum|; an
+    empty cluster gives exactly 0; each cluster's rows are added one
+    after the other in their original order, bit for bit."""
+    k = 20
+    indx = rng.integers(0, 16, size=5000).astype(np.int32)  # clusters 16..19 empty
+    vals = rng.standard_normal((5000, 7, 2)).astype(np.float32)
+    seg = fgt.segment_order(_t(indx), k)
+    got = fgt.segment_sum(_t(vals)[seg.order], seg.lengths)
+    want = torch.zeros((k, 7, 2), dtype=torch.float64).index_add_(
+        0, _t(indx).long(), _t(vals).double())
+    assert got.shape == (k, 7, 2) and got.dtype == torch.float32
+    assert bool((got[16:] == 0).all())
+    np.testing.assert_allclose(got.double().numpy(), want.numpy(), rtol=0,
+                               atol=1e-5 * float(want.abs().max()))
+    acc = torch.zeros((7, 2))
+    for row in np.flatnonzero(indx == 3):
+        acc = acc + _t(vals[row])
+    assert torch.equal(got[3], acc)
+
+
+def test_segment_order_is_stable(rng):
+    indx = rng.integers(0, 9, size=777).astype(np.int32)
+    seg = fgt.segment_order(_t(indx), 12)
+    order = seg.order.numpy()
+    np.testing.assert_array_equal(order, np.argsort(indx, kind="stable"))
+    np.testing.assert_array_equal(seg.lengths.numpy(), np.bincount(indx, minlength=12))
+
+
+def test_clustering_cache_carries_the_order(rng, monkeypatch):
+    """``k_center_ordered`` hands back the order its centres were summed
+    in; a model built from the cached clustering and order equals one
+    built from scratch, bit for bit; the CPD loop sorts once per
+    clustering, never per E-step."""
+    pts = _t((rng.random((900, 3)) * 4.0).astype(np.float32))
+    mask = torch.ones(900)
+    mask[-50:] = 0.0
+    centers, indx, seg = fgt.k_center_ordered(pts, mask, 24)
+    c0, i0 = fgt.k_center(pts, mask, 24)
+    assert torch.equal(centers, c0) and torch.equal(indx, i0)
+    want = fgt.segment_order(indx, 24)
+    assert torch.equal(seg.order, want.order) and torch.equal(seg.lengths, want.lengths)
+    w = _t(rng.random((900, 4)).astype(np.float32)) * mask[:, None]
+    sigma = torch.tensor(1.5)
+    cached = fgt.compute_fgt_model_multi(pts, w, mask, sigma, 24, 8,
+                                         clustering=(centers, indx), order=seg)
+    fresh = fgt.compute_fgt_model_multi(pts, w, mask, sigma, 24, 8)
+    assert torch.equal(cached.ak, fresh.ak) and torch.equal(cached.centers, fresh.centers)
+
+    from tpuslam_torch.algorithms.cpd import cpd_register
+    from tpuslam_torch.config.configuration import ApproximationType
+    from tpuslam_torch.core.types import pad_cloud
+
+    sorts = []
+    real = fgt.segment_order
+    monkeypatch.setattr(fgt, "segment_order", lambda *a: sorts.append(1) or real(*a))
+    b = (rng.random((600, 3)) * 4.0).astype(np.float32)
+    out = cpd_register(pad_cloud(b), pad_cloud(b + 0.05), weight=0.1, max_iterations=4,
+                       tolerance=0.0, approximation_type=ApproximationType.Full,
+                       use_fgt=True, fgt_k=16)
+    assert out.iterations == 4 and len(sorts) == 2  # one per cloud's clustering

@@ -153,3 +153,37 @@ def test_wrapper_rejects_what_the_kernel_does_not_take(bad):
         tgt, err = torch.zeros((2, 8, 3)), ValueError
     with pytest.raises(err):
         nn_dense.nearest_neighbors_dense_batch(src, tgt, count)
+
+
+def _edge_problem(rng, name):
+    """The inputs K1's split geometry and fold are tested on (see
+    ``test_torch_nn_dense_geometry.py``), at a small size."""
+    if name == "ties across splits":
+        lattice = (rng.integers(-8, 8, size=(300, 3)) * 4).astype(np.float32)
+        tgt = np.concatenate([lattice + [1, 0, 0], lattice - [1, 0, 0],
+                              lattice + [1, 0, 0]]).astype(np.float32)
+        return lattice[rng.permutation(300)], tgt, len(tgt)
+    src = (rng.random((200, 3)) * 10).astype(np.float32)
+    tgt = (rng.random((1000, 3)) * 10).astype(np.float32)
+    if name == "count inside a segment and a stage":
+        return src, tgt, 257
+    if name == "inf rows":
+        src[11], src[13, 2], src[17] = np.inf, -np.inf, 1e30
+        tgt[5], tgt[600] = np.inf, -np.inf
+        return src, tgt, 900
+    src[3], src[7, 1] = np.nan, np.nan  # "NaN rows"
+    tgt[9, 0], tgt[400:420], tgt[900:] = np.nan, np.nan, np.nan
+    return src, tgt, 900
+
+
+@pytest.mark.parametrize("name", ["ties across splits", "count inside a segment and a stage",
+                                  "inf rows", "NaN rows"])
+def test_plain_bit_identical_to_jax_on_edge_inputs(rng, name):
+    """K1's plain version, which its CUDA kernel is held to (under the
+    contract on NaN and inf rows), equals the JAX oracle bit for bit on
+    the edge inputs of the kernel's tests: both argmins take a NaN."""
+    src, tgt, count = _edge_problem(rng, name)
+    ref = jax_nn_ref(jnp.asarray(src), jnp.asarray(tgt), jnp.int32(count))
+    port = _port(src, tgt, count)
+    np.testing.assert_array_equal(port[0], np.asarray(ref[0]))
+    np.testing.assert_array_equal(port[1], np.asarray(ref[1]))

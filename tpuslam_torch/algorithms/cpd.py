@@ -64,7 +64,7 @@ from tpuslam_torch.ops.fgt import (
     compute_fgt_model_multi,
     fgt_predict,
     fgt_predict_multi,
-    k_center,
+    k_center_ordered,
 )
 from tpuslam_torch.ops.geometry import transform_points
 from tpuslam_torch.ops.procrustes import svd_rotation_det
@@ -216,6 +216,7 @@ def cpd_estep_fgt(
     ratio_of_far_field: float,
     sigma2_init: Optional[torch.Tensor] = None,
     clusters=None,
+    orders=None,
 ) -> Sufficient:
     """FGT-approximated E-step (``ComputePMatrixWithFGT``,
     ``cpdutils.cpp:19-73``): five Gauss transforms — Kt1 for the
@@ -227,7 +228,8 @@ def cpd_estep_fgt(
     (``cpdutils.cpp:35``).  ``clusters`` = ``(centers_y, indx_y,
     centers_x, indx_x)`` reuses clusterings made once per registration
     (then all ``fgt_k`` centres are used: a tighter approximation than
-    the reference's adaptive count)."""
+    the reference's adaptive count); ``orders`` = ``(order_y, order_x)``,
+    their ``SegmentOrder``s, made with them, skips the sorts."""
     sigma2 = torch.as_tensor(sigma2, dtype=torch.float32, device=transformed.device)
     if sigma2_init is not None and clusters is None:
         k_rt = torch.minimum(
@@ -241,10 +243,11 @@ def cpd_estep_fgt(
     if clusters is not None:
         cl_y = (clusters[0], clusters[1])
         cl_x = (clusters[2], clusters[3])
+    order_y, order_x = (None, None) if orders is None else orders
     hsigma = torch.sqrt(2.0 * sigma2)
     model_y = compute_fgt_model_multi(
         transformed, moving_mask[:, None], moving_mask, hsigma, fgt_k, fgt_p,
-        k_rt, clustering=cl_y,
+        k_rt, clustering=cl_y, order=order_y,
     )
     kt1 = fgt_predict(
         target, FGTModel(centers=model_y.centers, ak=model_y.ak[..., 0]),
@@ -257,7 +260,7 @@ def cpd_estep_fgt(
     weights4 = torch.cat([inv_denom[:, None], target * inv_denom[:, None]], dim=1)
     model_x = compute_fgt_model_multi(
         target, weights4, target_mask, hsigma, fgt_k, fgt_p, k_rt,
-        clustering=cl_x,
+        clustering=cl_x, order=order_x,
     )
     out = fgt_predict_multi(transformed, model_x, hsigma, ratio_of_far_field, fgt_p)
     p1 = out[:, 0] * moving_mask
@@ -436,13 +439,14 @@ def cpd_register(
     switch = HYBRID_SWITCH * sigma2_0
     iter_offset = 0 if resume is None else int(resume.done_before)
 
-    # the FGT clusterings, made once: the target's never changes, and the
-    # moving cloud's assignments are invariant under the similarity
-    # transforms EM applies, while its centres (segment means) move with it
+    # the FGT clusterings, made once with the order their segment sums
+    # take: the target's never changes, and the moving cloud's assignments
+    # are invariant under the similarity transforms EM applies, while its
+    # centres (segment means) move with it
     fgt_kk = min(fgt_k, before.padded_size, after.padded_size)
     if use_fgt and approximation_type != ApproximationType.NONE:
-        centers_y0, indx_y = k_center(moving, mask_b, fgt_kk)
-        centers_x, indx_x = k_center(target, mask_a, fgt_kk)
+        centers_y0, indx_y, order_y = k_center_ordered(moving, mask_b, fgt_kk)
+        centers_x, indx_x, order_x = k_center_ordered(target, mask_a, fgt_kk)
 
     def fgt_stats(transformed, sigma_e, s: CPDState) -> Sufficient:
         PHASE_TRACE.append("fgt")
@@ -450,7 +454,7 @@ def cpd_register(
         return cpd_estep_fgt(
             transformed, mask_b, target, mask_a, sigma_e, weight, m, n, fgt_kk,
             order_of_truncation, ratio_of_far_field, sigma2_init=sigma2_0,
-            clusters=(centers_y, indx_y, centers_x, indx_x),
+            clusters=(centers_y, indx_y, centers_x, indx_x), orders=(order_y, order_x),
         )
 
     def exact_stats(transformed, sigma_e, constant, trunc: bool) -> Sufficient:

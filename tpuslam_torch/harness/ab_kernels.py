@@ -1,10 +1,11 @@
 """Time kernels K2 (bound pass) and K3 (candidate rescore), the
 hierarchical query and the 100k headline of two checkouts of the port,
 in turns, on one CUDA card; with ``--cpd``, kernels K4 and K5 and the
-376k CPD Hybrid registration instead.
+376k CPD Hybrid registration instead; with ``--nn``, kernel K1, the
+headline's dense arm and the FGT E-step.
 
     python3 tpuslam_torch/harness/ab_kernels.py OLD NEW [--out DIR]
-        [--skip-1m] [--sweep] [--cpd]
+        [--skip-1m] [--sweep] [--cpd | --nn]
 
 OLD and NEW are directories that each hold a ``tpuslam_torch`` package:
 for example the parent commit's, unpacked with ``git archive HEAD
@@ -41,6 +42,23 @@ pass visits; one 376,401-point Hybrid registration (30 iterations,
 tolerance 0: ``chip_smoke.py`` phase 10's protocol); last, the device
 time by kernel of one of each 376k E-step (``torch.profiler``).
 
+With ``--nn`` a run measures instead (``nn_worker``), on uniform boxes
+of side 10 made from one seed: K1 (identity with its plain version
+included, up to 102,400^2) at 102,400^2, 8,192^2, 16 x 2,048^2, 16,384^2,
+32,768^2, 65,536^2 and 1,048,576 x 102,400 (``--skip-1m`` leaves the
+last out), each by CUDA graphs of many launches and back to back, with the
+pairs/s and, from the SASS of the checkout's K1 (the innermost loop:
+its instructions over its distances), the instructions a pair and the
+share of the card's issue rate (132 SMs x 128 lanes x 1.98 GHz) they
+reach, and the SM clock and power while K1 runs at 102,400^2;
+``measure_icp_100k`` on the dense arm at 102,400 and on both arms at
+8,192 and 65,536; the FGT E-step at 376,401^2 with the loop's cached
+clusterings (and their segment order, where the checkout has one) and
+without, whether two E-steps on the same inputs give equal bits, and
+last the device time by kernel of one of each (``torch.profiler``);
+with ``--sweep``, K1 at each shape over its sources a thread, number of
+splits and ring stage.
+
 Needs a CUDA card; exits non-zero without one.
 """
 
@@ -55,6 +73,98 @@ import time
 
 
 HEADLINE_CALLS = 3  # measure_icp_100k calls per run (each: warm-up + 3 x 50 iterations)
+ISSUE_RATE = 132 * 128 * 1.98e9  # lane-instructions/s: 132 SMs x 4 schedulers x 32 lanes
+
+
+def sass_loop_stats(sass: str, kernel: str) -> list:
+    """For each function of ``sass`` (cuobjdump -sass: branch targets as
+    addresses; nvdisasm: as labels) whose name holds ``kernel``: the hot
+    loop, taken as the backward branch whose
+    body holds the most FFMA, with its instructions, its distances (two
+    FFMA each, the shared ``sq_dist``) and instructions a distance.  The
+    count is static: a branch around a few instructions counts them."""
+    import re
+
+    out = []
+    for block in sass.split("Function : ")[1:]:
+        name = block.split("\n", 1)[0].strip()
+        if kernel not in name:
+            continue
+        addr_of, insns = {}, []  # label -> address; (address, text)
+        pending = []
+        for line in block.splitlines():
+            lab = re.match(r"\s*(\.L_x_\d+):", line)
+            if lab:
+                pending.append(lab.group(1))
+                continue
+            ins = re.match(r"\s*/\*([0-9a-f]{4,})\*/\s+(.*?);", line)
+            if ins:
+                a = int(ins.group(1), 16)
+                for lb in pending:
+                    addr_of[lb] = a
+                pending = []
+                insns.append((a, ins.group(2).strip()))
+        best = None
+        for a, text in insns:
+            tgt = re.search(r"BRA\s+(?:`\((\.L_x_\d+)\)|(0x[0-9a-f]+))", text)
+            if not tgt:
+                continue
+            lo = addr_of.get(tgt.group(1), a + 1) if tgt.group(1) else int(tgt.group(2), 16)
+            if lo > a:
+                continue
+            body = [t for x, t in insns if lo <= x <= a]
+            ffma = sum(1 for t in body if re.search(r"\bFFMA\b", t))
+            if ffma and (best is None or ffma > best["ffma"]):
+                best = {"function": name[:80], "instructions": len(body), "ffma": ffma,
+                        "pairs": ffma / 2, "per_pair": len(body) / (ffma / 2),
+                        "fmnmx": sum(1 for t in body if "FMNMX" in t),
+                        "branches": sum(1 for t in body if "BRA" in t)}
+        if best:
+            out.append(best)
+    return out
+
+
+def graph_ms(torch, fn, reps):
+    """Device ms per call of ``fn``: ``reps`` calls captured in one CUDA
+    graph and replayed, timed by CUDA events, so the host's Python between
+    launches does not count (it can exceed a small kernel's time)."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    start.record()
+    graph.replay()
+    stop.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(stop) / reps
+
+
+def _clocks_during(torch, fn, seconds=2.0):
+    """The SM clock (MHz) and power draw (W) nvidia-smi reports every
+    100 ms while ``fn`` runs back to back for about ``seconds``."""
+    proc = subprocess.Popen(
+        ["nvidia-smi", "--query-gpu=clocks.sm,power.draw", "--format=csv,noheader,nounits",
+         "-lms", "100"], stdout=subprocess.PIPE, text=True)
+    t0 = time.perf_counter()
+    while time.perf_counter() - t0 < seconds:
+        for _ in range(20):
+            fn()
+        torch.cuda.synchronize()
+    proc.terminate()
+    out = proc.communicate(timeout=30)[0]
+    rows = [[float(x) for x in line.split(",")] for line in out.splitlines()
+            if line.count(",") == 1]
+    rows = rows[2:] or rows  # the first samples may precede the load
+    return {"sm_mhz": [r[0] for r in rows], "power_w": [r[1] for r in rows]}
 
 
 def _time_ms(torch, fn, reps):
@@ -420,6 +530,144 @@ def cpd_worker(tree: str, label: str, out_dir: str) -> dict:
     return res
 
 
+def nn_worker(tree: str, label: str, out_dir: str, skip_1m: bool, sweep: bool) -> dict:
+    """One ``--nn`` run on the package under ``tree`` (module docstring)."""
+    sys.path.insert(0, os.path.abspath(tree))
+    import inspect
+
+    import numpy as np
+    import torch
+
+    import tpuslam_torch
+    from tpuslam_torch.algorithms import cpd
+    from tpuslam_torch.harness.measure import build_headline_pair, measure_icp_100k
+    from tpuslam_torch.kernels import build, nn_dense
+    from tpuslam_torch.ops import fgt
+
+    if not torch.cuda.is_available():
+        raise SystemExit("ab_kernels: no CUDA device")
+    package = os.path.dirname(os.path.abspath(tpuslam_torch.__file__))
+    if os.path.dirname(package) != os.path.abspath(tree):
+        raise SystemExit(f"ab_kernels: imported {package}, not the one under {tree}")
+    time_ms = lambda fn, reps: _time_ms(torch, fn, reps)  # noqa: E731
+    res = {"label": label, "tree": os.path.abspath(tree), "mode": "nn"}
+    res["nvidia_smi"] = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60).stdout.strip()
+    _build_and_dump(build, res, out_dir, label)
+    sass_path = os.path.join(out_dir, f"ab_{label}.sass")
+    loops = []
+    if os.path.exists(sass_path):
+        with open(sass_path) as f:
+            loops = sass_loop_stats(f.read(), "nn_dense_kernel")
+    res["sass_k1"] = loops
+    dev = torch.device("cuda", 0)
+    rng = np.random.Generator(np.random.PCG64(102))
+
+    def box(*shape):
+        return torch.from_numpy((rng.random(shape) * 10).astype(np.float32)).to(dev)
+
+    shapes = {"102400^2": (1, 102_400, 102_400), "8192^2": (1, 8192, 8192),
+              "16x2048^2": (16, 2048, 2048), "16384^2": (1, 16_384, 16_384),
+              "32768^2": (1, 32_768, 32_768), "65536^2": (1, 65_536, 65_536)}
+    if not skip_1m:
+        shapes["1048576x102400"] = (1, 1_048_576, 102_400)
+    per_pair = max((lp["per_pair"] for lp in loops), default=None)
+    k1 = {}
+    for key, (b, n, m) in shapes.items():
+        src, tgt = box(b, n, 3), box(b, m, 3)
+        count = torch.full((b,), m, dtype=torch.int32, device=dev)
+        row = {"pairs": float(b) * n * m}
+        if n * m <= 102_400 ** 2:
+            idx, dist = nn_dense.nearest_neighbors_dense_batch(src, tgt, count)
+            r_idx, r_dist = nn_dense.nearest_neighbors_dense_ref(src, tgt, count)
+            row["mismatch"] = int((idx != r_idx).sum() + (dist != r_dist).sum())
+        reps = 3 if n * m > 102_400 ** 2 else (20 if n * m >= 102_400 ** 2 else 100)
+        call = lambda a=(src, tgt, count): nn_dense.nearest_neighbors_dense_batch(*a)  # noqa: E731
+        # CUDA graphs: the host's Python between launches does not count
+        row["ms"] = [graph_ms(torch, call, reps) for _ in range(2)]
+        row["ms_back_to_back"] = time_ms(call, reps)
+        ms = min(row["ms"])
+        row["pairs_per_s"] = row["pairs"] / ms * 1e3
+        if per_pair is not None:
+            row["issue_share"] = row["pairs"] * per_pair / (ms * 1e-3) / ISSUE_RATE
+        if hasattr(nn_dense, "dense_geometry"):
+            row["geometry"] = nn_dense.dense_geometry(b, n, m)._asdict()
+        if n * m == 102_400 ** 2:
+            row["clocks"] = _clocks_during(torch, call)
+        k1[key] = row
+    res["k1"] = k1
+    if sweep and hasattr(nn_dense, "dense_geometry"):
+        # K1 over its sources a thread, number of splits and ring stage
+        keep = (nn_dense.BLOCKS_TARGET, nn_dense.STAGE_ROWS, nn_dense.FILL_BLOCKS)
+        sweeps = {}
+        for key, (b, n, m) in shapes.items():
+            src, tgt = box(b, n, 3), box(b, m, 3)
+            count = torch.full((b,), m, dtype=torch.int32, device=dev)
+            times = {}
+            for fill in (0, 10 ** 9):  # four sources a thread, then two
+                for stage in (256, 512):
+                    for splits in range(1, nn_dense.MAX_SPLITS + 1):
+                        nn_dense.FILL_BLOCKS, nn_dense.STAGE_ROWS = fill, stage
+                        rpt = nn_dense.dense_geometry(b, n, m).rows_per_thread
+                        nn_dense.BLOCKS_TARGET = b * -(-n // (128 * rpt)) * splits
+                        geo = nn_dense.dense_geometry(b, n, m)
+                        times[f"r{rpt}_splits{geo.splits}_stage{geo.stage_rows}"] = graph_ms(
+                            torch, lambda: nn_dense.nearest_neighbors_dense_batch(src, tgt, count),
+                            3 if n * m > 102_400 ** 2 else 20)
+            sweeps[key] = times
+        nn_dense.BLOCKS_TARGET, nn_dense.STAGE_ROWS, nn_dense.FILL_BLOCKS = keep
+        res["k1_sweep"] = sweeps
+
+    cb, ca = build_headline_pair(102_400, device=dev)
+    res["dense_headline_ms_per_iter"] = [measure_icp_100k(
+        pair=(cb, ca), use_spatial=False)["ms_per_iter"] for _ in range(2)]
+    for size in (8192, 65_536):  # the hierarchical gate's range
+        pair = build_headline_pair(size, device=dev)
+        res[f"headline_{size}_ms_per_iter"] = {
+            arm: measure_icp_100k(pair=pair, use_spatial=flag)["ms_per_iter"]
+            for arm, flag in (("hier", True), ("dense", False))}
+
+    # the FGT E-step at 376,401^2 (cpu-made boxes, as chip_smoke.py phase 11)
+    n = 376_401
+    mov, tgt = box(n, 3), box(n, 3)
+    m1 = torch.ones(n, device=dev)
+    s2 = cpd.sigma_squared_init(mov, m1, tgt, m1)
+    cnt, w = torch.sum(m1), torch.tensor(0.1, device=dev)
+    clusters = (*fgt.k_center(mov, m1, 128), *fgt.k_center(tgt, m1, 128))
+    kw = {}
+    if "orders" in inspect.signature(cpd.cpd_estep_fgt).parameters:
+        kw["orders"] = (fgt.segment_order(clusters[1], 128), fgt.segment_order(clusters[3], 128))
+    cached = lambda: cpd.cpd_estep_fgt(  # noqa: E731
+        mov, m1, tgt, m1, s2, w, cnt, cnt, 128, 8, 10.0, sigma2_init=s2, clusters=clusters, **kw)
+    own = lambda: cpd.cpd_estep_fgt(  # noqa: E731
+        mov, m1, tgt, m1, s2, w, cnt, cnt, 128, 8, 10.0, sigma2_init=s2)
+    a, b = cached(), cached()
+    torch.cuda.synchronize()
+    res["fgt_estep_376k"] = {
+        "cached_ms": [time_ms(cached, 5) for _ in range(2)],
+        "own_clusterings_ms": [time_ms(own, 3) for _ in range(2)],
+        "differing_elements_two_runs": sum(
+            int((getattr(a, f) != getattr(b, f)).sum()) for f in ("p1", "pt1", "px", "error")),
+    }
+    # last: a profiler, once started, slows the host for the process
+    from torch.profiler import ProfilerActivity, profile
+
+    for key, fn in (("cached", cached), ("own_clusterings", own)):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        kernels = {}
+        for e in prof.events():
+            if e.device_type.name == "CUDA":
+                kernels[e.name[:60]] = kernels.get(e.name[:60], 0.0) + e.device_time_total / 1e3
+        res["fgt_estep_376k"][f"{key}_device_ms"] = sum(kernels.values())
+        res["fgt_estep_376k"][f"{key}_top"] = sorted(kernels.items(), key=lambda kv: -kv[1])[:6]
+    with open(os.path.join(out_dir, f"ab_{label}.json"), "w") as f:
+        json.dump(res, f, indent=1)
+    return res
+
+
 def _build_and_dump(build, res, out_dir, label) -> None:
     """Build the checkout's kernels; keep ptxas's report and the SASS."""
     build.build(force=True)
@@ -443,18 +691,21 @@ def main(argv) -> int:
     parser.add_argument("--skip-1m", action="store_true")
     parser.add_argument("--sweep", action="store_true")
     parser.add_argument("--cpd", action="store_true", help="K4, K5 and CPD instead")
+    parser.add_argument("--nn", action="store_true", help="K1, the dense arm and the FGT instead")
     a = parser.parse_args(argv)
     out_dir = os.path.abspath(a.out)
     if a.worker:
         if a.cpd:
             res = cpd_worker(a.trees[0], a.worker, out_dir)
+        elif a.nn:
+            res = nn_worker(a.trees[0], a.worker, out_dir, a.skip_1m, a.sweep)
         else:
             res = worker(a.trees[0], a.worker, out_dir, a.skip_1m, a.sweep)
         print(json.dumps({k: v for k, v in res.items() if k != "ptxas"}))
         return 0
     old, new = a.trees
     extra = (["--out", out_dir] + ["--skip-1m"] * a.skip_1m + ["--sweep"] * a.sweep
-             + ["--cpd"] * a.cpd)
+             + ["--cpd"] * a.cpd + ["--nn"] * a.nn)
     rc = 0
     for tree, label in ((old, "old_1"), (new, "new_1"), (new, "new_2"), (old, "old_2")):
         cmd = [sys.executable, os.path.abspath(__file__), tree, "--worker", label, *extra]

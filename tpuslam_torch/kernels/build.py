@@ -136,8 +136,9 @@ def load_library() -> ctypes.CDLL:
         lib = ctypes.CDLL(str(build()))
         p, i = ctypes.c_void_p, ctypes.c_int
         for name, argtypes in (
-            # (src, tgt, count, batch, n, m, idx, dist, stream)
-            ("tpuslam_nn_dense", [p, p, p, i, i, i, p, p, p]),
+            # (src, tgt, count, batch, n, m, threads, rows_per_thread,
+            #  splits, stage_rows, depth, smem_bytes, idx, dist, stream)
+            ("tpuslam_nn_dense", [p, p, p, *[i] * 9, p, p, p]),
             # (saug, aux, caug, radii, eps, warm, batch, n, c, gsrc,
             #  chunks, splits, span, stage, smem_bytes, adm, stream)
             ("tpuslam_bound_pass", [p, p, p, p, p, p, *[i] * 9, p, p]),

@@ -8,12 +8,14 @@ count), the first index winning a tie, ``(0, 3.4e38)`` when there is no
 valid target.
 
 Dispatch: a tensor on the CPU takes the plain version; a CUDA tensor
-launches the kernel, or raises.  There is no other path.
+launches the kernel, or raises.  There is no other path.  The kernel's
+launch geometry is chosen here (``dense_geometry``), where the CPU tests
+reach it, and checked again by the C entry point.
 """
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import NamedTuple, Tuple
 
 import torch
 
@@ -24,6 +26,52 @@ REF_CHUNK = 1024
 
 # kernel launches made by the wrappers below (CPU calls do not count)
 LAUNCHES = 0
+
+# launch geometry of csrc/nn_dense.cu (its kThreads, kSeg, kMaxSplits)
+THREADS = 128
+SEGMENT = 32  # targets per segment of the running minimum
+MAX_SPLITS = 8  # blocks sharing a source block's targets: a portable cluster
+STAGE_ROWS = 512  # target rows per stage of the shared-memory ring
+RING_DEPTH = 3  # stages in flight
+FILL_BLOCKS = 256  # about two blocks on each of 132 SMs
+BLOCKS_TARGET = 12 * 132  # the grid the target splits aim for
+MIN_SPLIT_ROWS = 256  # no split gets fewer target rows
+
+
+class DenseGeometry(NamedTuple):
+    """How K1 is launched: ``threads`` threads a block, each holding
+    ``rows_per_thread`` sources; the target range split over a cluster of
+    ``splits`` blocks, each staging its share ``stage_rows`` rows at a time
+    through a ring of ``depth`` stages in ``smem_bytes`` of dynamic shared
+    memory."""
+
+    threads: int
+    rows_per_thread: int
+    splits: int
+    stage_rows: int
+    depth: int
+    smem_bytes: int
+
+
+def dense_geometry(batch: int, n: int, m: int) -> DenseGeometry:
+    """K1's geometry for ``batch`` pairs of ``n`` sources and ``m`` target
+    rows.  Four sources a thread, or two where even eight splits would
+    leave fewer than ``FILL_BLOCKS`` blocks; then the target range is
+    split (at most ``MAX_SPLITS`` ways, each split at least
+    ``MIN_SPLIT_ROWS`` rows) until the grid reaches ``BLOCKS_TARGET``
+    blocks.  The ring holds no more rows than a split's share."""
+
+    def blocks(rows_per_thread: int) -> int:
+        return batch * -(-n // (THREADS * rows_per_thread))
+
+    rpt = 4 if blocks(4) * MAX_SPLITS >= FILL_BLOCKS else 2
+    splits = max(1, min(MAX_SPLITS, -(-BLOCKS_TARGET // max(blocks(rpt), 1)),
+                        m // MIN_SPLIT_ROWS))
+    share = -(-max(m, 1) // splits)
+    stage_rows = min(STAGE_ROWS, -(-share // SEGMENT) * SEGMENT)
+    # ring (12-byte rows), partial (minimum, segment row) per source
+    smem = 12 * RING_DEPTH * stage_rows + 8 * THREADS * rpt
+    return DenseGeometry(THREADS, rpt, splits, stage_rows, RING_DEPTH, smem)
 
 
 def fma_sq_dist(src: torch.Tensor, tgt: torch.Tensor) -> torch.Tensor:
@@ -74,6 +122,23 @@ def nearest_neighbors_dense_ref(
             idx[p, lo:lo + chunk] = i
             dist[p, lo:lo + chunk] = d
     return idx, dist
+
+
+def plain_under_contract(
+    src: torch.Tensor, tgt: torch.Tensor, tgt_count: torch.Tensor
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The plain version read under K1's contract, for inputs with NaN or
+    inf rows: ``torch.argmin`` takes a NaN distance, where K1 never does,
+    so a valid target row holding a NaN is given as +inf (its distance
+    then never wins either), and a source with no distance below 3.4e38
+    reports ``(0, 3.4e38)``.  On finite inputs whose nearest distances
+    stay below 3.4e38 this is the plain version, bit for bit."""
+    tgt = torch.where(torch.isnan(tgt).any(-1, keepdim=True),
+                      torch.full_like(tgt, float("inf")), tgt)
+    idx, dist = nearest_neighbors_dense_ref(src, tgt, tgt_count)
+    none = ~(dist < BIG)
+    return (torch.where(none, torch.zeros_like(idx), idx),
+            torch.where(none, torch.full_like(dist, BIG), dist))
 
 
 def _check(src: torch.Tensor, tgt: torch.Tensor, count: torch.Tensor) -> None:
@@ -127,7 +192,7 @@ def nearest_neighbors_dense_batch(
     launch(
         "tpuslam_nn_dense", src.device,
         src.data_ptr(), tgt.data_ptr(), tgt_count.data_ptr(),
-        b, n, m, idx.data_ptr(), dist.data_ptr(),
+        b, n, m, *dense_geometry(b, n, m), idx.data_ptr(), dist.data_ptr(),
     )
     LAUNCHES += 1
     return idx, dist

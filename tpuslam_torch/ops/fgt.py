@@ -16,11 +16,14 @@ O(N + M) instead of O(N M), as the reference's CPU FGT (``fgt.cpp``):
 * prediction (``ComputeFGTPredict``, ``fgt.cpp:84-145``): dense
   (target chunk x K centres) evaluation, the far-field cutoff as a mask.
 
-JAX's ``segment_sum`` becomes ``index_add_``.  On CUDA that adds with
-atomics in no fixed order, so the expansions (and every statistic built
-on them) are not bitwise reproducible from run to run; the tests hold
-them to a tolerance.  The squared distances of the clustering are
-rounded as XLA rounds them on the CPU, so ``k_center``'s picks and
+JAX's ``segment_sum`` becomes a sum in an order the data fixes, on the
+CPU and the card alike: the rows are sorted by cluster once per
+clustering (a stable sort, ``segment_order``), the summands are formed in
+that order, and ``torch.segment_reduce`` adds each cluster's rows one
+after the other (``segment_sum``).  No atomics, so the same inputs give
+the same bits in every run; the tests hold the sums to float64 and to
+the JAX package at a tolerance.  The squared distances of the clustering
+are rounded as XLA rounds them on the CPU, so ``k_center``'s picks and
 assignments equal the JAX package's.
 """
 
@@ -91,6 +94,29 @@ def _c_coefficients(p: int) -> np.ndarray:
     return (2.0 ** total / denom).astype(np.float32)
 
 
+class SegmentOrder(NamedTuple):
+    """A clustering's rows sorted by cluster: ``order`` i64[N] (a stable
+    sort, so each cluster keeps its rows in their original order) and
+    ``lengths`` i64[K], each cluster's row count."""
+
+    order: torch.Tensor
+    lengths: torch.Tensor
+
+
+def segment_order(indx: torch.Tensor, k: int) -> SegmentOrder:
+    """The ``SegmentOrder`` of assignments ``indx`` i32[N] in [0, k)."""
+    return SegmentOrder(torch.argsort(indx, stable=True),
+                        torch.bincount(indx, minlength=k))
+
+
+def segment_sum(values: torch.Tensor, lengths: torch.Tensor) -> torch.Tensor:
+    """Per-cluster sums of ``values`` [N, ...] whose rows are sorted by
+    cluster (``SegmentOrder.order``): [K, ...], each cluster's rows added
+    one after the other from 0 (an empty cluster gives 0).  ``unsafe``
+    skips the argument checks, which read the lengths back to the host."""
+    return torch.segment_reduce(values, "sum", lengths=lengths, unsafe=True)
+
+
 class FGTModel(NamedTuple):
     """The reference's ``FGT_Model`` (``fgt_model.h:7-13``)."""
 
@@ -112,6 +138,17 @@ def k_center(
     ``k_rt`` (optional, an int32 tensor <= k) is the reference's
     per-iteration adaptive centre count (``cpdutils.cpp:35``): selection
     steps past it change nothing, so clusters ``>= k_rt`` get no points."""
+    centers, indx, _ = k_center_ordered(points, mask, k, k_rt)
+    return centers, indx
+
+
+def k_center_ordered(
+    points: torch.Tensor,
+    mask: torch.Tensor,
+    k: int,
+    k_rt: Optional[torch.Tensor] = None,
+) -> Tuple[torch.Tensor, torch.Tensor, SegmentOrder]:
+    """``k_center`` and the ``SegmentOrder`` its centres were summed in."""
     n = points.shape[0]
     first = points[1 % n]  # deterministic seed, fgt.cpp:160
     d0 = sq_norm_xla(points - first)
@@ -125,13 +162,12 @@ def k_center(
             better = torch.logical_and(better, i < k_rt)
         dist_c = torch.where(better, d, dist_c)
         indx = torch.where(better, torch.full_like(indx, i), indx)
-    w = mask.to(torch.float32)
-    counts = torch.zeros(k, dtype=torch.float32, device=points.device)
-    counts.index_add_(0, indx, w)
-    sums = torch.zeros((k, 3), dtype=torch.float32, device=points.device)
-    sums.index_add_(0, indx, points * w[:, None])
+    seg = segment_order(indx, k)
+    w = mask.to(torch.float32).index_select(0, seg.order)
+    counts = segment_sum(w, seg.lengths)
+    sums = segment_sum(points.index_select(0, seg.order) * w[:, None], seg.lengths)
     centers = sums / torch.clamp_min(counts, 1.0)[:, None]
-    return centers, indx
+    return centers, indx, seg
 
 
 def _monomials(dy: torch.Tensor, p: int) -> torch.Tensor:
@@ -172,24 +208,30 @@ def compute_fgt_model_multi(
     p: int,
     k_rt: Optional[torch.Tensor] = None,
     clustering: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+    order: Optional[SegmentOrder] = None,
 ) -> FGTModel:
     """Batched-weights model: ``weights`` f32[N, W] -> ``ak`` f32[K, pd, W].
     One clustering serves every weight vector (the reference rebuilds it
     per vector, ``cpdutils.cpp:41-66``).  ``clustering`` = precomputed
     ``(centers f32[k, 3], indx i32[N])`` skips the selection: the CPD loop
     clusters each cloud once and moves the moving cloud's centres with
-    it (see ``algorithms/cpd.py``)."""
+    it (see ``algorithms/cpd.py``); ``order``, its ``SegmentOrder``, skips
+    the sort too.  The [N, pd, W] summands are formed in that order, so
+    the segment sums need no second copy of them."""
     if clustering is None:
-        centers, indx = k_center(points, mask, k, k_rt)
+        centers, indx, order = k_center_ordered(points, mask, k, k_rt)
     else:
         centers, indx = clustering
-    dy = (points - centers.index_select(0, indx)) / sigma
-    g = torch.exp(-torch.sum(dy * dy, dim=-1)) * mask
+        if order is None:
+            order = segment_order(indx, k)
+    rows = order.order
+    dy = (points.index_select(0, rows)
+          - centers.index_select(0, indx.index_select(0, rows))) / sigma
+    g = torch.exp(-torch.sum(dy * dy, dim=-1)) * mask.index_select(0, rows)
     prods = _monomials(dy, p)  # [N, pd]
-    contrib = prods[:, :, None] * (g[:, None, None] * weights[:, None, :])
-    ak = torch.zeros((k,) + contrib.shape[1:], dtype=torch.float32,
-                     device=points.device)
-    ak.index_add_(0, indx, contrib)  # atomics on CUDA: no fixed order
+    contrib = prods[:, :, None] * (g[:, None, None]
+                                   * weights.index_select(0, rows)[:, None, :])
+    ak = segment_sum(contrib, order.lengths)
     c = torch.from_numpy(_c_coefficients(p)).to(points.device)
     return FGTModel(centers=centers, ak=ak * c[None, :, None])
 
