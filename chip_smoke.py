@@ -95,12 +95,45 @@ exits non-zero without printing a result:
    must be bit-equal (the segment sums add in a fixed order); exact K4
    against the FGT E-step (with and without the loop's cached clusterings
    and their order), and the FGT prediction at three chunk sizes.
+12. NICP — K1 at NICP's rescore shape (8 candidates x 1,024 subcloud rows
+   against 1,048,576 targets) against its plain version, bit for bit;
+   ``tpuslam_torch.register`` with NICP (seed 1) on a 1,048,576-point
+   anisotropic box ([0,40] x [0,20] x [0,10]) moved by (2.0 rad, 30),
+   timed after an untimed call: within 1 degree of the truth, K1
+   launched; ``nicp_register`` direct on a 1,048,576-point uniform box of
+   side 10, subcloud 1000, seed 1, three timed runs after a warm-up (the
+   JAX records' row), and the same box through ``register``, whose
+   eigengap pre-pass widens it (candidates scored and ms printed); a
+   degenerate cylinder, two disjoint samples of 102,400 points, 70
+   degrees about its axis: widened, within 1 degree;
+13. prealigned ICP — ``register(icp_prealign=True)`` on a 102,400-point
+   anisotropic box moved by (2.0 rad, 30), with noise of 0.01 on the
+   moved copy: within 1 degree, K1 launched (the NICP shot), K2 and K3
+   launched (the hierarchical loop); the cold run of the same pair
+   printed beside it, unchecked;
+14. batching — ``tpuslam_torch.register_pairs`` with ICP on 16 x 2,048
+   boxes of sides (10, 5, 2.5) (the batched dense lowering: K1's batch
+   form must launch with B = 16), each pair equal to its solo
+   ``register`` bit for bit (iterations, R and t); 16 x 16,384 pairs on
+   the auto (unrolled) lowering and forced to the batched hierarchical
+   one (K2's and K3's batch forms must launch), each pair equal to its
+   solo hierarchical run bit for bit;
+   ms per call and per pair-iteration of the four lowerings (batched or
+   unrolled, dense or hierarchical) at both sizes, 20 iterations a pair;
+   NICP on 16 x 16,384 anisotropic pairs, each within 1 degree; CPD on
+   4 x 2,048 pairs, 10 iterations, each equal to its solo run bit for
+   bit.
+
+The launch counts each path is checked by are set to 0 just before it
+runs and read just after.
 
 The last lines are the card's name and power limit, one JSON object
 describing each kernel (with its bound: the larger of its float32
 operations, or for K4 and K5 the exponentials on the special-function
 units, over the card's peak rate and its bytes over the memory rate; and
-for K1, K2 and K3 the launches per warm headline iteration), and
+for K1, K2 and K3 the launches per warm headline iteration; for K1 also
+its launches per NICP run of phase 12 and its time at the rescore
+shape), and
 ``{"ok": true, "device": {...}}``.
 """
 
@@ -116,7 +149,9 @@ import numpy as np
 # cloud sizes of the phases
 FULL = dict(headline=102_400, small=8192, large=1_048_576, large_iters=20,
             mid_iters=12, cpd_small=20_480, cpd_large=376_401, cpd_iters=30,
-            cpd_exact_iters=3, cpd_cpu=8192)
+            cpd_exact_iters=3, cpd_cpu=8192, nicp_large=1_048_576,
+            nicp_cylinder=102_400, prealign=102_400, batch_pairs=16,
+            batch_small=2048, batch_large=16_384, cpd_batch=2048)
 
 # the H100 SXM's published peaks (NVIDIA's data sheet, at 700 W): float32
 # outside the tensor cores and HBM3; and the special-function units' exp2,
@@ -579,7 +614,8 @@ def cpd_phases(dev, smi, kind, sizes, time_ms) -> list:
         kw = dict(weight=0.1, max_iterations=100, tolerance=1e-4, approximation_type=mode,
                   use_fgt=False, use_kernels=True)
         t0 = time.perf_counter()
-        on_cpu = cpd.cpd_register(pad_cloud(small_b), pad_cloud(small_a), **kw)
+        on_cpu = cpd.cpd_register(pad_cloud(small_b, device="cpu"),
+                                  pad_cloud(small_a, device="cpu"), **kw)
         cpu_s = time.perf_counter() - t0
         t0 = time.perf_counter()
         on_card = cpd.cpd_register(pad_cloud(small_b, device=dev),
@@ -667,6 +703,307 @@ def cpd_phases(dev, smi, kind, sizes, time_ms) -> list:
          "max_abs_err": main_errs["K5 moments"], "ms": k5_times["moments"],
          "plain_ms": k5_times["moments_plain"], **bounds["K5 moments"], "library_ms": None},
     ]
+
+
+def cylinder(rng, n):
+    """A near-degenerate spectrum: a cylinder about z (radius 1, height 4)
+    and three thin ridges at {0, 90, 210} degrees on mixed halves
+    (``tests/test_nicp.py::degenerate_cylinder``; its (l2, l3) gap is
+    under NICP's 5 % threshold, and the ridges fix the in-plane angle)."""
+    theta = rng.uniform(0, 2 * np.pi, n).astype(np.float32)
+    z = rng.uniform(-2, 2, n).astype(np.float32)
+    pts = [np.stack([np.cos(theta), np.sin(theta), z], axis=1).astype(np.float32)]
+    nr = max(n // 33, 1)
+    for ang, (zlo, zhi) in ((0.0, (0.5, 2)), (90.0, (-2, -0.5)), (210.0, (0.5, 2))):
+        a = np.radians(ang)
+        pts.append(np.stack([
+            np.full(nr, 1.35 * np.cos(a), np.float32) + rng.normal(0, 0.01, nr).astype(np.float32),
+            np.full(nr, 1.35 * np.sin(a), np.float32) + rng.normal(0, 0.01, nr).astype(np.float32),
+            rng.uniform(zlo, zhi, nr).astype(np.float32),
+        ], axis=1))
+    return np.concatenate(pts)
+
+
+def rotation_error_deg(rot, r_true) -> float:
+    cos = (np.trace(np.asarray(rot, np.float64).T @ np.asarray(r_true, np.float64)) - 1) / 2
+    return float(np.degrees(np.arccos(np.clip(cos, -1.0, 1.0))))
+
+
+def nicp_batch_phases(dev, smi, kind, sizes, time_ms) -> dict:
+    """Phases 12-14 (module docstring); returns K1's NICP and batch numbers
+    for the kernels line."""
+    import torch
+
+    import tpuslam_torch
+    from tpuslam_torch.algorithms import batch
+    from tpuslam_torch.algorithms.icp import icp_register
+    from tpuslam_torch.algorithms.nicp import nicp_register
+    from tpuslam_torch.config.configuration import ComputationMethod
+    from tpuslam_torch.core.types import Cloud, pad_cloud
+    from tpuslam_torch.data.synthesis import (
+        get_random_rotation_matrix,
+        get_random_translation_vector,
+    )
+    from tpuslam_torch.kernels import bound, nn_cand, nn_dense
+    from tpuslam_torch.ops import nn_hier
+
+    rng = np.random.Generator(np.random.PCG64(1207))
+    wrappers = {"K1": nn_dense, "K2": bound, "K3": nn_cand}
+    nicp_method = ComputationMethod.NoniterativeIcp
+
+    def reset():
+        for w in wrappers.values():
+            w.LAUNCHES = 0
+            w.BATCH_LAUNCHES.clear()
+
+    def launches():
+        return {k: w.LAUNCHES for k, w in wrappers.items()}
+
+    def moved(before, angle, trans):
+        r = get_random_rotation_matrix(rng, angle)
+        t = get_random_translation_vector(rng, trans)
+        return (before @ r.T + t).astype(np.float32)[rng.permutation(len(before))], r, t
+
+    def wall(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, (time.perf_counter() - t0) * 1e3
+
+    # 12. NICP ------------------------------------------------------------------
+    n = sizes["nicp_large"]
+    # K1 at NICP's rescore shape: 8 candidates x 1,024 subcloud rows against
+    # the whole target
+    src = torch.from_numpy((rng.random((1, 8 * 1024, 3)) * 10).astype(np.float32)).to(dev)
+    tgt = torch.from_numpy((rng.random((1, n, 3)) * 10).astype(np.float32)).to(dev)
+    cnt = torch.tensor([n], dtype=torch.int32, device=dev)
+    idx, dist = nn_dense.nearest_neighbors_dense_batch(src, tgt, cnt)
+    r_idx, r_dist = nn_dense.nearest_neighbors_dense_ref(src, tgt, cnt, chunk=256)
+    torch.cuda.synchronize()
+    bad = int((idx != r_idx).sum() + (dist != r_dist).sum())
+    k1_err = float((dist.double() - r_dist.double()).abs().max())
+    geo = nn_dense.dense_geometry(1, src.shape[1], n)
+    k1_rescore = {"ms": time_ms(lambda: nn_dense.nearest_neighbors_dense_batch(src, tgt, cnt), 20),
+                  "plain_ms": time_ms(lambda: nn_dense.nearest_neighbors_dense_ref(
+                      src, tgt, cnt, chunk=256), 2),
+                  **bound_of(FLOPS_NN * float(src.shape[1]) * n, src.shape[1] * 20 + n * 12)}
+    log(f"[nicp] K1 at the rescore shape {tuple(src.shape)} x {tuple(tgt.shape)} "
+        f"({geo.rows_per_thread} sources a thread, {geo.splits} splits): mismatches against "
+        f"plain {bad} (tolerance 0), max_abs_err {k1_err}; on {smi}: K1 "
+        f"{k1_rescore['ms']:.4f} ms, plain {k1_rescore['plain_ms']:.3f} ms, bound "
+        f"{k1_rescore['bound_ms']:.4f} ms")
+    check(bad == 0, "K1 differs from plain at NICP's rescore shape")
+    del src, tgt, idx, dist, r_idx, r_dist
+
+    nicp_runs = {}
+    # the main path: register(NICP) on an anisotropic box, (2.0 rad, 30)
+    before = (rng.random((n, 3)) * np.array([40.0, 20.0, 10.0])).astype(np.float32)
+    after, r_true, t_true = moved(before, 2.0, 30.0)
+    # an untimed call first: the first eigh, sort and solve of a process
+    # load their CUDA libraries
+    tpuslam_torch.register(before, after, device=dev, computation_method=nicp_method,
+                           random_seed=1)
+    reset()
+    (rot, trans, iters, err), ms = wall(lambda: tpuslam_torch.register(
+        before, after, device=dev, computation_method=nicp_method, random_seed=1))
+    got = launches()
+    ang = rotation_error_deg(rot, r_true)
+    nicp_runs["anisotropic"] = {"n": n, "ms": ms, "candidates": iters, "K1": got["K1"],
+                                "angle_deg": ang}
+    log(f"[nicp] register NICP on a {n}-point anisotropic box [0,40]x[0,20]x[0,10] moved by "
+        f"(2.0 rad, 30) on {kind} ({smi}): {iters} candidates scored, error {err}, rotation "
+        f"off by {ang} deg, translation off by {float(np.abs(trans - t_true).max())}, "
+        f"{ms:.3f} ms (host arrays in, transfer and pre-pass included), launches {got}")
+    check(got["K1"] > 0, "the NICP registration did not launch K1")
+    check(bool(np.isfinite(rot).all() and np.isfinite(err)), "non-finite NICP result")
+    check(ang < 1.0, f"NICP rotation {ang} deg from the truth")
+
+    # the JAX record's row (tools/bench_report.py:134-144): nicp_register
+    # on a uniform box of side 10, subcloud 1000, seed 1, 3 timed calls
+    # after a warm-up
+    box = (rng.random((n, 3)) * 10.0).astype(np.float32)
+    box_after, r_box, _ = moved(box, 0.2, 10.0)
+    cb, ca = pad_cloud(box, device=dev), pad_cloud(box_after, device=dev)
+    nicp_register(cb, ca, subcloud_size=1000, seed=1)
+    reset()
+    direct = []
+    for _ in range(3):
+        res, ms = wall(lambda: nicp_register(cb, ca, subcloud_size=1000, seed=1))
+        direct.append(ms)
+    nicp_runs["box_direct"] = {"n": n, "ms": direct, "candidates": res.iterations,
+                               "K1": launches()["K1"] / 3}
+    log(f"[nicp] nicp_register direct on a {n}-point uniform box of side 10 (the JAX "
+        f"record's row), subcloud 1000, seed 1, on {smi}: {direct} ms per run, "
+        f"{res.iterations} candidates, K1 launches per run {launches()['K1'] / 3}, rotation "
+        f"off by {rotation_error_deg(res.transform.rotation.cpu().numpy(), r_box)} deg (a "
+        f"cube's axes are arbitrary: not checked)")
+    # the same box through register: the eigengap pre-pass widens it
+    reset()
+    (rot, _, iters, _), ms = wall(lambda: tpuslam_torch.register(
+        box, box_after, device=dev, computation_method=nicp_method, random_seed=1))
+    nicp_runs["box_register"] = {"n": n, "ms": ms, "candidates": iters, "K1": launches()["K1"],
+                                 "angle_deg": rotation_error_deg(rot, r_box)}
+    log(f"[nicp] register NICP on the same box: {iters} candidates scored (widened), "
+        f"{ms:.3f} ms, K1 launches {launches()['K1']}, rotation off by "
+        f"{nicp_runs['box_register']['angle_deg']} deg (not checked)")
+    del cb, ca
+
+    # a degenerate cylinder: two disjoint samples, 70 degrees about its axis
+    nc = sizes["nicp_cylinder"]
+    allp = cylinder(rng, 2 * nc)
+    perm = rng.permutation(len(allp))
+    c_before = allp[perm[:nc]]
+    c, s = np.cos(np.radians(70.0)), np.sin(np.radians(70.0))
+    r_cyl = np.array([[c, -s, 0], [s, c, 0], [0, 0, 1]], np.float32)
+    c_after = (allp[perm[nc:2 * nc]] @ r_cyl.T + np.array([0.5, -1.0, 2.0], np.float32)
+               ).astype(np.float32)
+    reset()
+    (rot, _, iters, _), ms = wall(lambda: tpuslam_torch.register(
+        c_before, c_after, device=dev, computation_method=nicp_method, random_seed=1,
+        nicp_subcloud_size=2000))
+    ang = rotation_error_deg(rot, r_cyl)
+    nicp_runs["cylinder"] = {"n": nc, "ms": ms, "candidates": iters, "K1": launches()["K1"],
+                             "angle_deg": ang}
+    log(f"[nicp] register NICP on a degenerate cylinder of {nc} points a side, 70 deg about "
+        f"its axis: {iters} candidates scored, rotation off by {ang} deg, {ms:.3f} ms, "
+        f"K1 launches {launches()['K1']}")
+    check(iters == 4 * 16, "the cylinder was not widened")
+    check(ang < 1.0, f"widened NICP rotation {ang} deg from the truth")
+
+    # 13. prealigned ICP ---------------------------------------------------------
+    n = sizes["prealign"]
+    before = (rng.random((n, 3)) * np.array([40.0, 20.0, 10.0])).astype(np.float32)
+    after, r_true, _ = moved(before, 2.0, 30.0)
+    # noise of 0.01 keeps ICP iterating from the NICP seed (an exact copy
+    # converges at its first, cold query), so its warm queries run K3
+    after = (after + rng.normal(0, 0.01, after.shape)).astype(np.float32)
+    kw = dict(device=dev, max_iterations=60, max_distance_squared=1e9,
+              convergence_epsilon=1e-6, random_seed=1)
+    reset()
+    nn_hier.ARM_TRACE.clear()
+    (rot, _, iters, err), ms = wall(lambda: tpuslam_torch.register(
+        before, after, icp_prealign=True, **kw))
+    got = launches()
+    arms = "".join(a[0] for a in nn_hier.ARM_TRACE)
+    ang = rotation_error_deg(rot, r_true)
+    (c_rot, _, c_iters, c_err), c_ms = wall(lambda: tpuslam_torch.register(before, after, **kw))
+    prealign = {"n": n, "ms": ms, "iterations": iters, "angle_deg": ang, "launches": got,
+                "cold": {"ms": c_ms, "iterations": c_iters,
+                         "angle_deg": rotation_error_deg(c_rot, r_true)}}
+    log(f"[prealign] register ICP with icp_prealign on a {n}-point anisotropic box moved by "
+        f"(2.0 rad, 30), noise 0.01, on {smi}: {iters} iterations, error {err}, rotation "
+        f"off by {ang} deg, "
+        f"{ms:.3f} ms, launches {got}, arms {arms}; cold ICP on the same pair: {c_iters} "
+        f"iterations, error {c_err}, rotation off by {prealign['cold']['angle_deg']} deg, "
+        f"{c_ms:.3f} ms (not checked)")
+    check(got["K1"] > 0 and got["K2"] > 0 and got["K3"] > 0,
+          "prealigned ICP did not launch K1 (NICP shot), K2 and K3 (hierarchical loop)")
+    check(ang < 1.0, f"prealigned ICP rotation {ang} deg from the truth")
+
+    # 14. batching ------------------------------------------------------------------
+    b = sizes["batch_pairs"]
+    reg = dict(max_iterations=50, convergence_epsilon=1e-5, max_distance_squared=1e4)
+
+    def box_pairs(n, angle=0.2, trans=1.0, scale=(10.0, 5.0, 2.5)):
+        pairs = [(rng.random((n, 3)) * np.array(scale)).astype(np.float32) for _ in range(b)]
+        moved_ = [moved(p, angle, trans) for p in pairs]
+        return pairs, [m[0] for m in moved_], [m[1] for m in moved_]
+
+    def against_solo(name, got, solos):
+        """Each pair of a batched run against its solo run, bit for bit:
+        the batched step sums each pair's rows by the solo call."""
+        d_rot = max(float(np.abs(got[0][i] - s[0]).max()) for i, s in enumerate(solos))
+        d_t = max(float(np.abs(got[1][i] - s[1]).max()) for i, s in enumerate(solos))
+        same_it = all(int(got[2][i]) == int(s[2]) for i, s in enumerate(solos))
+        log(f"[batch] {name}: against the solo runs max |dR| {d_rot}, |dt| {d_t}, "
+            f"iterations {list(map(int, got[2]))} equal {same_it} (tolerance 0)")
+        check(same_it and d_rot == 0 and d_t == 0, f"{name}: a pair differs from solo")
+        return d_rot, d_t
+
+    small = sizes["batch_small"]
+    befores, afters, _ = box_pairs(small)
+    reset()
+    got = tpuslam_torch.register_pairs(befores, afters, device=dev, **reg)
+    batch_launch = {k: dict(w.BATCH_LAUNCHES) for k, w in wrappers.items()}
+    log(f"[batch] register_pairs ICP on {b} x {small} (vmapped dense lowering): launches by "
+        f"batch size {batch_launch}")
+    check(nn_dense.BATCH_LAUNCHES[b] > 0, f"K1's batch form did not launch with B = {b}")
+    solos = [tpuslam_torch.register(x, y, device=dev, **reg) for x, y in zip(befores, afters)]
+    batch_err = {"ICP dense": against_solo(f"ICP {b} x {small}", got, solos)}
+
+    large = sizes["batch_large"]
+    l_befores, l_afters, _ = box_pairs(large)
+    bb, ba = batch.stack_clouds(l_befores, device=dev), batch.stack_clouds(l_afters, device=dev)
+    got = tpuslam_torch.register_pairs(l_befores, l_afters, device=dev, **reg)
+    log(f"[batch] register_pairs ICP on {b} x {large} (auto: unrolled): iterations "
+        f"{got[2].tolist()}")
+    icp_kw = dict(eps=reg["convergence_epsilon"], max_distance_squared=reg["max_distance_squared"],
+                  max_iterations=reg["max_iterations"])
+    reset()
+    forced = batch.icp_register_batch(bb, ba, unroll=False, use_spatial=True, **icp_kw)
+    batch_launch = {k: dict(w.BATCH_LAUNCHES) for k, w in wrappers.items()}
+    log(f"[batch] {b} x {large} forced unroll=False, use_spatial=True: launches by batch "
+        f"size {batch_launch}")
+    check(bound.BATCH_LAUNCHES[b] > 0 and nn_cand.BATCH_LAUNCHES[b] > 0,
+          f"K2's and K3's batch forms did not launch with B = {b}")
+    solos = []
+    for p in range(b):
+        s_ = icp_register(Cloud(bb.points[p], bb.count[p]), Cloud(ba.points[p], ba.count[p]),
+                          use_spatial=True, **icp_kw)
+        solos.append((s_.transform.rotation.cpu().numpy(),
+                      s_.transform.translation.cpu().numpy(), s_.iterations))
+    batch_err["ICP hier"] = against_solo(
+        f"ICP {b} x {large} batched hierarchical",
+        (forced.transform.rotation.cpu().numpy(), forced.transform.translation.cpu().numpy(),
+         forced.iterations.cpu().numpy()), solos)
+
+    # ms per call and per pair-iteration of each lowering: 20 iterations a
+    # pair (eps 0, no guard), one warm-up call, then two timed calls
+    lowering_ms = {}
+    for n_pts, (xb, xa) in ((small, (befores, afters)), (large, (l_befores, l_afters))):
+        sb, sa = batch.stack_clouds(xb, device=dev), batch.stack_clouds(xa, device=dev)
+        for unroll in (False, True):
+            for arm in (False, True):
+                def call(unroll=unroll, arm=arm):
+                    return batch.icp_register_batch(
+                        sb, sa, eps=0.0, max_distance_squared=1e18, max_iterations=20,
+                        divergence_guard=False, unroll=unroll, use_spatial=arm)
+                call()
+                runs = [wall(call) for _ in range(2)]
+                pair_iters = int(runs[0][0].iterations.sum())
+                name = (f"{b}x{n_pts} {'unrolled' if unroll else 'batched'} "
+                        f"{'hier' if arm else 'dense'}")
+                lowering_ms[name] = {"ms": [r[1] for r in runs],
+                                     "ms_per_pair_iter": [r[1] / pair_iters for r in runs]}
+    log(f"[batch] ICP lowerings on {smi}, {b} pairs x 20 iterations: " + json.dumps(lowering_ms))
+
+    # NICP on anisotropic pairs
+    n_befores, n_afters, n_truths = box_pairs(large, 2.0, 30.0, (40.0, 20.0, 10.0))
+    reset()
+    (rots, _, iters, _), ms = wall(lambda: tpuslam_torch.register_pairs(
+        n_befores, n_afters, device=dev, computation_method=nicp_method, random_seed=1))
+    angs = [rotation_error_deg(rots[i], n_truths[i]) for i in range(b)]
+    log(f"[batch] register_pairs NICP on {b} x {large} anisotropic pairs: {ms:.3f} ms, "
+        f"candidates {iters.tolist()}, K1 launches by batch size {dict(nn_dense.BATCH_LAUNCHES)}, "
+        f"worst rotation error {max(angs)} deg")
+    check(max(angs) < 1.0, "a batched NICP pair is more than 1 deg from its truth")
+
+    # CPD, pair by pair
+    cb_ = sizes["cpd_batch"]
+    c_befores, c_afters, _ = box_pairs(cb_, 0.1, 0.5)
+    c_befores, c_afters = c_befores[:4], c_afters[:4]
+    cpd = dict(computation_method=ComputationMethod.Cpd, max_iterations=10, cpd_weight=0.1,
+               cpd_const_scale=True)
+    got, ms = wall(lambda: tpuslam_torch.register_pairs(c_befores, c_afters, device=dev, **cpd))
+    solos = [tpuslam_torch.register(x, y, device=dev, **cpd) for x, y in zip(c_befores, c_afters)]
+    same = all(np.array_equal(got[0][i], s_[0]) and np.array_equal(got[1][i], s_[1])
+               and int(got[2][i]) == s_[2] for i, s_ in enumerate(solos))
+    log(f"[batch] register_pairs CPD on 4 x {cb_}, 10 iterations: {ms:.3f} ms, each pair "
+        f"equal to its solo run {same} (tolerance 0)")
+    check(same, "a batched CPD pair differs from its solo run")
+    return {"nicp_runs": nicp_runs, "k1_rescore": k1_rescore, "k1_rescore_err": k1_err,
+            "prealign": prealign, "lowering_ms": lowering_ms, "batch_err": batch_err}
 
 
 def main(dev=None, sizes=FULL) -> int:
@@ -1008,7 +1345,8 @@ def main(dev=None, sizes=FULL) -> int:
         f"|dt| {d_trans}, error {on_cpu[3]} / {on_card[3]}")
     check(d_rot <= 1e-4 and d_trans <= 1e-4, "CPU and card disagree")
     kw = dict(max_iterations=100, use_spatial=True)
-    h_cpu = icp_register(pad_cloud(small_before), pad_cloud(small_after), **kw)
+    h_cpu = icp_register(pad_cloud(small_before, device="cpu"),
+                         pad_cloud(small_after, device="cpu"), **kw)
     h_card = icp_register(pad_cloud(small_before, device=dev),
                           pad_cloud(small_after, device=dev), **kw)
     d_rot = float((h_cpu.transform.rotation - h_card.transform.rotation.cpu())
@@ -1132,6 +1470,8 @@ def main(dev=None, sizes=FULL) -> int:
     k1_bound = bound_of(FLOPS_NN * float(n_head) * n_head, n_head * (12 + 12 + 8))
 
     cpd_kernels = cpd_phases(dev, smi, kind, sizes, time_ms)
+    slice7 = nicp_batch_phases(dev, smi, kind, sizes, time_ms)
+    log(f"[nicp] summary: {json.dumps(slice7)}")
 
     log(smi)
     log(json.dumps({"kernels": [
@@ -1148,6 +1488,8 @@ def main(dev=None, sizes=FULL) -> int:
             "ms_small_grids": k1_small_ms,
             "library_ms": None,
             "launches_per_iter": per_iter["K1"],
+            "launches_per_nicp_run": {k: v["K1"] for k, v in slice7["nicp_runs"].items()},
+            "ms_nicp_rescore": slice7["k1_rescore"]["ms"],
         },
         {
             "name": "bound_pass (K2)",

@@ -225,7 +225,8 @@ def _hier_problem(rng, device, n=4096, m=8192, count=8000, noise=0.02):
     mask = torch.ones(n)
     mask[-100:] = 0.0
     src = src[morton_permutation(src, torch.ones(n)).long()].contiguous()
-    cloud = pad_cloud((rng.random((count, 3)) * 10).astype(np.float32), multiple=m)
+    cloud = pad_cloud((rng.random((count, 3)) * 10).astype(np.float32), multiple=m,
+                      device="cpu")
     target = nn_hier.prepare_hier_target(cloud.points, cloud.mask(), cloud.count)
     idx, _ = nearest_neighbors_ref(src, cloud.points, cloud.count)
     state = nn_hier.HierState(cloud.points[idx.long()], torch.tensor(True),
@@ -304,7 +305,8 @@ def _bound_problem(rng, cuda, n, m, count, warm):
     src = src[morton_permutation(src, torch.ones(n)).long()].contiguous()
     mask = torch.ones(n)
     mask[-(n // 50):] = 0.0
-    cloud = pad_cloud((rng.random((count, 3)) * 10).astype(np.float32), multiple=m)
+    cloud = pad_cloud((rng.random((count, 3)) * 10).astype(np.float32), multiple=m,
+                      device="cpu")
     target = nn_hier.prepare_hier_target(cloud.points, cloud.mask(), cloud.count)
     idx, _ = nearest_neighbors_ref(src, cloud.points, cloud.count)
     state = nn_hier.HierState(cloud.points[idx.long()], torch.tensor(warm),
@@ -456,7 +458,8 @@ def test_register_on_card_launches_hier_kernels_and_matches_cpu(rng, cuda):
     on_card = icp_register(pad_cloud(before, device=cuda),
                            pad_cloud(after, device=cuda), **kw)
     assert bound.LAUNCHES > k[0] and nn_cand.LAUNCHES > k[1]
-    on_cpu = icp_register(pad_cloud(before), pad_cloud(after), use_spatial=True, **kw)
+    on_cpu = icp_register(pad_cloud(before, device="cpu"), pad_cloud(after, device="cpu"),
+                          use_spatial=True, **kw)
     assert on_card.iterations == on_cpu.iterations
     for a, b in ((on_card.transform.rotation, on_cpu.transform.rotation),
                  (on_card.transform.translation, on_cpu.transform.translation)):
@@ -684,9 +687,152 @@ def test_cpd_register_on_card_matches_cpu(rng, cuda, mode):
     k = cpd_dense.DENOM_LAUNCHES + cpd_cand.DENOM_LAUNCHES
     on_card = cpd_register(pad_cloud(before, device=cuda), pad_cloud(after, device=cuda), **kw)
     assert cpd_dense.DENOM_LAUNCHES + cpd_cand.DENOM_LAUNCHES > k
-    on_cpu = cpd_register(pad_cloud(before), pad_cloud(after), **kw)
+    on_cpu = cpd_register(pad_cloud(before, device="cpu"), pad_cloud(after, device="cpu"), **kw)
     assert on_card.iterations == on_cpu.iterations
     for a, b in ((on_card.transform.rotation, on_cpu.transform.rotation),
                  (on_card.transform.translation, on_cpu.transform.translation)):
         np.testing.assert_allclose(a.cpu().numpy(), b.numpy(), rtol=0, atol=1e-4)
     np.testing.assert_allclose(on_card.transform.rotation.cpu().numpy(), r, atol=1e-3)
+
+
+# --- NICP, prealigned ICP and batching (slice 7) ------------------------------
+
+@pytest.mark.parametrize("rows,m", [(8 * 1024, 1_048_576), (248 * 1024, 102_400)])
+def test_kernel_at_nicp_rescore_shapes(rng, cuda, rows, m):
+    """K1 at NICP's rescore shapes (8 candidates, and 248 when both axes
+    are widened, x 1,024 subcloud rows) bit for bit with its plain
+    version."""
+    src = torch.from_numpy((rng.random((1, rows, 3)) * 10).astype(np.float32)).to(cuda)
+    tgt = torch.from_numpy((rng.random((1, m, 3)) * 10).astype(np.float32)).to(cuda)
+    count = torch.tensor([m], dtype=torch.int32, device=cuda)
+    idx, dist = nn_dense.nearest_neighbors_dense_batch(src, tgt, count)
+    r_idx, r_dist = nn_dense.nearest_neighbors_dense_ref(src, tgt, count, chunk=256)
+    torch.cuda.synchronize()
+    assert torch.equal(idx, r_idx) and torch.equal(dist, r_dist)
+
+
+def _stacked_hier_problem(rng, cuda, b, n, far=None):
+    """``b`` pairs of ``n`` sorted sources near a warm state against their
+    own prepared targets of ``n`` rows; pair ``far`` (if any) moved far
+    enough to overflow every budget."""
+    targets, states, moved, masks = [], [], [], []
+    for k in range(b):
+        cloud = pad_cloud((rng.random((n - 50, 3)) * 10).astype(np.float32), multiple=n,
+                          device=cuda)
+        target = nn_hier.prepare_hier_target(cloud.points, cloud.mask(), cloud.count)
+        src = _sorted_cloud(rng, n, cuda)
+        idx, _ = nearest_neighbors(src, cloud.points, cloud.count)
+        states.append(nn_hier.HierState(cloud.points[idx.long()],
+                                        torch.tensor(True, device=cuda),
+                                        torch.tensor(False, device=cuda)))
+        step = 3.0 if k == far else 0.02
+        moved.append(src + torch.from_numpy(
+            (rng.standard_normal((n, 3)) * step).astype(np.float32)).to(cuda))
+        masks.append((torch.arange(n, device=cuda) < n - 31 * k).float())
+        targets.append(target)
+    stack = lambda xs: type(xs[0])(*(torch.stack(f) for f in zip(*xs)))  # noqa: E731
+    return torch.stack(moved), torch.stack(masks), stack(targets), stack(states)
+
+
+@pytest.mark.parametrize("far,arm", [(None, "fine"), (5, "dense")])
+def test_hier_batch_bit_identical_to_k1_batch(rng, cuda, far, arm):
+    """The batched hierarchical search at 16 x 16,384 against K1's batch
+    form, tolerance 0; with one pair far from its warm state the whole
+    batch takes the dense arm.  Groups of 256 sources and a budget of 96
+    of the 128 tiles: a group near its warm state admits at most ~60, the
+    far pair's all 128 (and all 16 coarse tiles, over their budget 10)."""
+    moved, masks, target, state = _stacked_hier_problem(rng, cuda, 16, 16_384, far)
+    k = (bound.BATCH_LAUNCHES[16], nn_cand.BATCH_LAUNCHES[16])
+    idx, dist, new = nn_hier.nearest_neighbors_hier_batch(moved, masks, target, state,
+                                                         l_budget=96, gsrc=256)
+    k1_idx, k1_dist = nn_dense.nearest_neighbors_dense_batch(
+        moved, target.original_points, target.count)
+    torch.cuda.synchronize()
+    assert nn_hier.ARM_TRACE[-1] == arm
+    assert bound.BATCH_LAUNCHES[16] == k[0] + 1
+    assert nn_cand.BATCH_LAUNCHES[16] == k[1] + (arm != "dense")
+    valid = masks > 0
+    assert torch.equal(idx[valid], k1_idx[valid]) and torch.equal(dist[valid], k1_dist[valid])
+    assert new.sparse.tolist() == [arm != "dense"] * 16
+
+
+@pytest.mark.parametrize("mode", [ApproximationType.NONE, ApproximationType.Full])
+def test_nicp_on_card_matches_cpu(rng, cuda, mode):
+    from tpuslam_torch.algorithms.nicp import nicp_register
+
+    n = 20_000
+    before = (rng.random((n, 3)) * np.array([40.0, 20.0, 10.0])).astype(np.float32)
+    r = get_random_rotation_matrix(rng, 1.0)
+    t = get_random_translation_vector(rng, 10.0)
+    after = (before @ r.T + t).astype(np.float32)
+    if mode == ApproximationType.NONE:
+        after = after[rng.permutation(n)]
+    k = nn_dense.LAUNCHES
+    on_card = nicp_register(pad_cloud(before, device=cuda), pad_cloud(after, device=cuda),
+                            approximation_type=mode, seed=1)
+    assert nn_dense.LAUNCHES == k + 1  # one rescore call
+    on_cpu = nicp_register(pad_cloud(before, device="cpu"), pad_cloud(after, device="cpu"),
+                           approximation_type=mode, seed=1)
+    assert on_card.iterations == on_cpu.iterations == 4
+    np.testing.assert_allclose(on_card.transform.rotation.cpu().numpy(),
+                               on_cpu.transform.rotation.numpy(), rtol=0, atol=1e-4)
+    np.testing.assert_allclose(on_card.transform.translation.cpu().numpy(),
+                               on_cpu.transform.translation.numpy(), rtol=0, atol=1e-4 * 40)
+    np.testing.assert_allclose(on_card.transform.rotation.cpu().numpy(), r, atol=1e-3)
+
+
+@pytest.mark.parametrize("use_spatial", [False, True])
+def test_batched_icp_with_frozen_pairs_matches_solo(rng, cuda, use_spatial):
+    """The batched ICP lowering on the card, with pairs that stop at once
+    (identity, no correspondence) beside pairs that run: each pair equals
+    its solo run bit for bit (the batched step sums each pair's rows by
+    the solo call)."""
+    from tpuslam_torch.algorithms.batch import icp_register_batch, stack_clouds
+    from tpuslam_torch.core.types import Cloud
+
+    n = 16_384
+    scale = np.array([10.0, 5.0, 2.5], np.float32)
+    moving = (rng.random((n, 3)) * scale).astype(np.float32)
+    r = get_random_rotation_matrix(rng, 0.2)
+    t = get_random_translation_vector(rng, 1.0)
+    other = (rng.random((n, 3)) * scale).astype(np.float32)
+    befores = [moving, moving, moving, other]
+    afters = [(moving @ r.T + t).astype(np.float32), moving.copy(), moving + 1000.0,
+              (other @ r.T + t).astype(np.float32)]
+    bb, ba = stack_clouds(befores, device=cuda), stack_clouds(afters, device=cuda)
+    kw = dict(eps=1e-5, max_distance_squared=50.0, max_iterations=40, use_spatial=use_spatial)
+    k = nn_dense.BATCH_LAUNCHES[4] + bound.BATCH_LAUNCHES[4]
+    out = icp_register_batch(bb, ba, unroll=False, **kw)
+    assert nn_dense.BATCH_LAUNCHES[4] + bound.BATCH_LAUNCHES[4] > k
+    iters = out.iterations.tolist()
+    assert iters[1] == 0 and iters[2] == 0 and max(iters) > 2
+    for p in range(4):
+        solo = icp_register(Cloud(bb.points[p], bb.count[p]), Cloud(ba.points[p], ba.count[p]),
+                            **kw)
+        assert iters[p] == solo.iterations
+        assert torch.equal(out.transform.rotation[p], solo.transform.rotation)
+        assert torch.equal(out.transform.translation[p], solo.transform.translation)
+        assert torch.equal(out.error[p], solo.error)
+
+
+def test_register_pairs_and_prealign_on_card(rng, cuda):
+    """``register_pairs`` (ICP, 16 x 2,048) launches K1's batch form with
+    B = 16; prealigned ICP on the card lands within 1e-4 of the CPU run."""
+    befores = [(rng.random((2048, 3)) * 10).astype(np.float32) for _ in range(16)]
+    afters = []
+    for b in befores:
+        r = get_random_rotation_matrix(rng, 0.2)
+        afters.append((b @ r.T + get_random_translation_vector(rng, 1.0)).astype(np.float32))
+    k = nn_dense.BATCH_LAUNCHES[16]
+    rots, _, iters, _ = tpuslam_torch.register_pairs(befores, afters, device=cuda)
+    assert nn_dense.BATCH_LAUNCHES[16] > k and iters.shape == (16,)
+    before = (rng.random((6000, 3)) * np.array([40.0, 20.0, 10.0])).astype(np.float32)
+    r = get_random_rotation_matrix(rng, 2.0)
+    after = (before @ r.T + get_random_translation_vector(rng, 30.0)).astype(np.float32)
+    kw = dict(icp_prealign=True, max_iterations=60, max_distance_squared=1e9,
+              convergence_epsilon=1e-6, random_seed=1)
+    on_card = tpuslam_torch.register(before, after, device=cuda, **kw)
+    on_cpu = tpuslam_torch.register(before, after, device="cpu", **kw)
+    assert on_card[2] == on_cpu[2]
+    np.testing.assert_allclose(on_card[0], on_cpu[0], rtol=0, atol=1e-4)
+    np.testing.assert_allclose(on_card[0], r, atol=1e-3)

@@ -202,7 +202,8 @@ def test_coarse_middle_arm_routing(rng, monkeypatch):
     both = Both((rng.random((m, 3)) * 10.0).astype(np.float32), m, m, n)
     pos, mask = _sorted(src)
     crafted = {}
-    monkeypatch.setattr(nn_hier, "bound_pass", lambda *a, **k: crafted["adm"])
+    # the solo search is the batch form's batch of one
+    monkeypatch.setattr(nn_hier, "bound_pass_batch", lambda *a, **k: crafted["adm"][None])
     packed = both.target.packed.numpy()
 
     def brute(rows):

@@ -72,10 +72,17 @@ def test_run_with_configuration_defaults_match_jax(rng):
     (dict(icp_prealign=True), "NICP"),
 ])
 def test_unported_methods_raise(rng, monkeypatch, tmp_path, what, match):
-    # CPD is ported; its checkpointed, chunked form is not (ROADMAP Queue 1 item 7)
+    # ICP (cold and NICP-prealigned) and CPD are ported; their checkpointed,
+    # chunked forms are not (ROADMAP Queue 1 item 2).  NICP, which the JAX
+    # package never chunks, is ported and runs with both set.
     monkeypatch.setenv("TPUSLAM_CPD_CKPT", str(tmp_path / "cpd.ckpt"))
+    monkeypatch.setenv("TPUSLAM_ICP_CKPT", str(tmp_path / "icp.ckpt"))
     cloud = make_cloud(rng, 64)
-    with pytest.raises(NotImplementedError, match=match):
+    if what.get("computation_method") == ComputationMethod.NoniterativeIcp:
+        rot, _, iters, _ = tpuslam_torch.register(cloud, cloud, device="cpu", **what)
+        assert iters == 4 and np.isfinite(rot).all()
+        return
+    with pytest.raises(NotImplementedError, match=f"{match}.*Queue 1 item 2"):
         tpuslam_torch.register(cloud, cloud, device="cpu", **what)
 
 

@@ -39,7 +39,7 @@ from typing import Callable, NamedTuple, Optional, Tuple
 import torch
 
 from tpuslam_torch.core.types import Cloud, RigidTransform, round_up
-from tpuslam_torch.ops.geometry import transform_points
+from tpuslam_torch.ops.geometry import matmul3, matvec3, per_pair, transform_points
 from tpuslam_torch.ops.nn import nearest_neighbors
 from tpuslam_torch.ops.nn_hier import (
     MAX_ROWS,
@@ -61,7 +61,9 @@ SPATIAL_MIN_ROWS = 8192
 
 
 class ICPState(NamedTuple):
-    """The loop carry; every field but ``iterations`` stays on the device."""
+    """The loop carry; every field but ``iterations`` stays on the device
+    (in the batched loop of ``algorithms/batch.py``, where every field has
+    a leading pair axis, ``iterations`` is an i32[B] tensor too)."""
 
     rotation: torch.Tensor  # f32[3,3]
     translation: torch.Tensor  # f32[3]
@@ -163,6 +165,10 @@ def prepare_spatial(before: Cloud, after: Cloud) -> SpatialSetup:
     )
 
 
+def _mean_sq_error(diff: torch.Tensor, w: torch.Tensor, n_corr: torch.Tensor) -> torch.Tensor:
+    return torch.sum(torch.sum(diff * diff, dim=-1) * w) / torch.clamp_min(n_corr, 1.0)
+
+
 def _icp_step(
     s: ICPState,
     src_points: torch.Tensor,
@@ -174,24 +180,27 @@ def _icp_step(
     divergence_guard: bool,
 ) -> tuple[ICPState, torch.Tensor]:
     """One iteration on the device; returns the new state (with
-    ``iterations`` not yet advanced) and the iteration's error."""
+    ``iterations`` not yet advanced) and the iteration's error.  With a
+    leading pair axis on every tensor (``algorithms/batch.py``) it steps
+    each pair as its solo step would, bit for bit: the NN kernels and the
+    elementwise work do not depend on the batch, and the sums over a
+    pair's rows (Procrustes, the error) run pair by pair."""
     transformed = transform_points(src_points, s.rotation, s.translation)
     idx, dist, nn_state = run_nn(transformed, s)
     w = torch.logical_and(dist < max_d2, src_mask > 0).to(torch.float32)
-    n_corr = torch.sum(w)
+    n_corr = torch.sum(w, dim=-1)
     no_corr = n_corr == 0
 
     matched = gather_matched(idx, nn_state)
     r_step, t_step = weighted_procrustes(transformed, matched, w)
-    # 3x3/3-vector composition in full float32 (procrustes pins TF32 off)
-    r_new = torch.matmul(r_step, s.rotation)
-    t_new = torch.matmul(r_step, s.translation) + t_step
+    # 3x3/3-vector composition in full float32, rounded alike batched
+    r_new = matmul3(r_step, s.rotation)
+    t_new = matvec3(r_step, s.translation) + t_step
 
     new_transformed = transform_points(src_points, r_new, t_new)
     diff = matched - new_transformed
-    err = torch.sum(torch.sum(diff * diff, dim=-1) * w) / torch.clamp_min(
-        n_corr, 1.0
-    )
+    err = (per_pair(_mean_sq_error, diff, w, n_corr) if diff.dim() == 3
+           else _mean_sq_error(diff, w, n_corr))
 
     converged = err < eps
     diverged = (
@@ -204,8 +213,8 @@ def _icp_step(
     reject = no_corr | diverged | non_finite
     done = reject | converged
     state = ICPState(
-        rotation=torch.where(reject, s.rotation, r_new),
-        translation=torch.where(reject, s.translation, t_new),
+        rotation=torch.where(reject[..., None, None], s.rotation, r_new),
+        translation=torch.where(reject[..., None], s.translation, t_new),
         error=torch.where(reject, s.error, err),
         prev_error=torch.where(done, s.prev_error, err),
         iterations=s.iterations,
@@ -378,4 +387,51 @@ def icp_register(
         f32(eps), f32(max_distance_squared), int(max_iterations),
         divergence_guard=divergence_guard, verbose=verbose,
         iter_offset=iter_offset, init=init, patience=patience,
+    )
+
+
+def icp_register_prealigned(
+    before: Cloud,
+    after: Cloud,
+    eps: float = 1e-3,
+    max_distance_squared: float = 1000.0,
+    max_iterations: int = 50,
+    subcloud_size: int = 1000,
+    seed: int = 0,
+    chunk: int = 0,
+    checkpoint_path: Optional[str] = None,
+    **kwargs,
+) -> RegistrationResult:
+    """ICP seeded by a one-shot NICP estimate (opt-in: ``icp-prealign``;
+    port of the JAX package's ``icp_register_prealigned``).
+
+    The NICP shot lands inside ICP's basin whenever the clouds' principal
+    axes are resolvable; the unchanged ICP loop (``icp_register``, with
+    its default NN arm) then refines from it through ``ICPResume``.  The
+    carried error is the cold-start reporting sentinel 1e5
+    (``basicicp.cpp:26``) and the divergence guard is seeded with FLT_MAX,
+    as a cold start seeds it: the NICP subcloud error is over another
+    point set, and an absolute threshold would abort the first iteration
+    on large-unit clouds.
+
+    ``chunk`` and ``checkpoint_path`` need the chunked driver, which is
+    not ported (ROADMAP Queue 1 item 2): either raises."""
+    if chunk or checkpoint_path:
+        raise NotImplementedError(
+            "chunked or checkpointed prealigned ICP needs icp_register_chunked: "
+            "ROADMAP Queue 1 item 2"
+        )
+    from tpuslam_torch.algorithms.nicp import nicp_register
+
+    pre = nicp_register(before, after, eps=eps, subcloud_size=subcloud_size, seed=seed)
+    device = before.points.device
+    resume = ICPResume(
+        rotation=pre.transform.rotation,
+        translation=pre.transform.translation,
+        error=torch.tensor(1e5, dtype=torch.float32, device=device),
+        prev_error=torch.tensor(FLT_MAX, dtype=torch.float32, device=device),
+    )
+    return icp_register(
+        before, after, eps=eps, max_distance_squared=max_distance_squared,
+        max_iterations=max_iterations, resume=resume, **kwargs,
     )

@@ -16,6 +16,8 @@ from typing import NamedTuple, Optional
 import numpy as np
 import torch
 
+from tpuslam_torch.core.device import resolve_device
+
 # Row multiple of every padded cloud (the JAX package's TPU lane width;
 # kept so padded shapes match between the two packages).
 LANE = 128
@@ -64,19 +66,21 @@ class RigidTransform(NamedTuple):
 class Cloud(NamedTuple):
     """A padded point cloud: ``points`` is ``f32[Npad, 3]``, ``count`` the
     number of valid leading rows as a 0-d int32 tensor on the same device
-    (padded rows are zeros)."""
+    (padded rows are zeros).  A batch of clouds (``algorithms/batch.py``)
+    has ``points`` f32[B, Npad, 3] and ``count`` i32[B]."""
 
     points: torch.Tensor  # f32[Npad, 3]
     count: torch.Tensor  # i32[] — number of valid points
 
     @property
     def padded_size(self) -> int:
-        return self.points.shape[0]
+        return self.points.shape[-2]
 
     def mask(self, dtype: torch.dtype = torch.float32) -> torch.Tensor:
-        """``dtype[Npad]`` validity mask: 1 for real points, 0 for padding."""
-        idx = torch.arange(self.points.shape[0], device=self.points.device)
-        return (idx < self.count).to(dtype)
+        """``dtype[..., Npad]`` validity mask: 1 for real points, 0 for
+        padding."""
+        idx = torch.arange(self.points.shape[-2], device=self.points.device)
+        return (idx < self.count[..., None]).to(dtype)
 
 
 class Sufficient(NamedTuple):
@@ -114,7 +118,9 @@ def pad_cloud(
 
     ``points`` is a numpy array or a tensor.  The Cloud lies on
     ``device``; when that is None, on the tensor's own device, and for a
-    numpy array on the CPU."""
+    numpy array where ``core.device.resolve_device`` puts it: on the card
+    when there is one, as the JAX package's ``pad_cloud`` places a host
+    array on JAX's default device.  A caller that wants the CPU says so."""
     if isinstance(points, torch.Tensor):
         if device is None:
             device = points.device
@@ -126,7 +132,7 @@ def pad_cloud(
     npad = max(round_up(max(n, 1), multiple), multiple)
     out = np.zeros((npad, 3), dtype=np.float32)
     out[:n] = points
-    device = torch.device("cpu") if device is None else torch.device(device)
+    device = resolve_device(device)
     return Cloud(
         points=torch.from_numpy(out).to(device),
         count=torch.tensor(n, dtype=torch.int32, device=device),

@@ -26,6 +26,7 @@ launches the kernel, or raises.  There is no other path.
 
 from __future__ import annotations
 
+from collections import Counter
 from typing import NamedTuple
 
 import torch
@@ -40,8 +41,10 @@ K = 12  # depth of the centre-distance product
 # (source, tile) elements per chunk of the plain version
 REF_ELEMS = 1 << 24
 
-# kernel launches made by the wrappers below (CPU calls do not count)
+# kernel launches made by the wrappers below (CPU calls do not count),
+# in all and by batch size B
 LAUNCHES = 0
+BATCH_LAUNCHES: Counter = Counter()
 
 # launch geometry of csrc/bound.cu (its kThreads, kR and kMaxCluster)
 THREADS = 128
@@ -214,6 +217,7 @@ def bound_pass_batch(
         eps.data_ptr(), warm.data_ptr(), b, n, c, gsrc, *geo, adm.data_ptr(),
     )
     LAUNCHES += 1
+    BATCH_LAUNCHES[b] += 1
     return adm
 
 

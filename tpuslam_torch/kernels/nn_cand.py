@@ -20,6 +20,7 @@ reach it, and checked again by the C entry point.
 
 from __future__ import annotations
 
+from collections import Counter
 from typing import NamedTuple, Tuple
 
 import torch
@@ -30,8 +31,10 @@ NO_MATCH = 1e37  # distances at or above it report (0, BIG)
 # (source, row) elements per chunk of the plain version
 REF_ELEMS = 1 << 24
 
-# kernel launches made by the wrappers below (CPU calls do not count)
+# kernel launches made by the wrappers below (CPU calls do not count),
+# in all and by batch size B
 LAUNCHES = 0
+BATCH_LAUNCHES: Counter = Counter()
 
 # launch geometry of csrc/nn_cand.cu (its kThreads, kR, kMaxSplits)
 SOURCES_PER_THREAD = 4
@@ -193,6 +196,7 @@ def nearest_neighbors_cand_batch(
         *cand_geometry(b, ts, width, gsrc), idx.data_ptr(), dist.data_ptr(),
     )
     LAUNCHES += 1
+    BATCH_LAUNCHES[b] += 1
     return idx, dist
 
 

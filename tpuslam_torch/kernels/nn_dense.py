@@ -15,6 +15,7 @@ reach it, and checked again by the C entry point.
 
 from __future__ import annotations
 
+from collections import Counter
 from typing import NamedTuple, Tuple
 
 import torch
@@ -24,8 +25,10 @@ BIG = 3.4e38  # no-match distance, the JAX oracle's float32(3.4e38)
 # (chunk, M) float64 temporaries, about 4 GB at M = 102,400
 REF_CHUNK = 1024
 
-# kernel launches made by the wrappers below (CPU calls do not count)
+# kernel launches made by the wrappers below (CPU calls do not count),
+# in all and by batch size B
 LAUNCHES = 0
+BATCH_LAUNCHES: Counter = Counter()
 
 # launch geometry of csrc/nn_dense.cu (its kThreads, kSeg, kMaxSplits)
 THREADS = 128
@@ -195,6 +198,7 @@ def nearest_neighbors_dense_batch(
         b, n, m, *dense_geometry(b, n, m), idx.data_ptr(), dist.data_ptr(),
     )
     LAUNCHES += 1
+    BATCH_LAUNCHES[b] += 1
     return idx, dist
 
 

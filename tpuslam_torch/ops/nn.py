@@ -7,7 +7,11 @@ padded, ``tgt_count`` a 0-d int32 tensor -> (i32[N], f32[N])):
 * ``nearest_neighbors_ref`` — the plain chunked PyTorch oracle on any
   device, bit-identical to the JAX oracle on the CPU;
 * ``nearest_neighbors`` — the front: kernel K1 for a CUDA tensor, the
-  plain version for a CPU tensor (``tpuslam_torch.kernels.nn_dense``).
+  plain version for a CPU tensor (``tpuslam_torch.kernels.nn_dense``);
+* ``nearest_neighbors_batch`` — the batched front, what the JAX
+  package's custom-vmap rule (``tpuslam/ops/nn.py:89-119``) lowers a
+  vmapped call to: ``[B, N, 3]`` sources, ``[B, M, 3]`` targets and
+  ``[B]`` counts in one call of K1's batch form.
 
 Invalid target rows (index >= count) never win; the first (lowest)
 target index wins a tie; zero valid targets give ``(0, 3.4e38)``.  A
@@ -22,11 +26,13 @@ from typing import Tuple
 import torch
 
 # nearest_neighbors, the front of the dense arm, is K1's B=1 wrapper
-# itself; the hierarchical arm lives in ops/nn_hier.py
+# itself and nearest_neighbors_batch its batch form; the hierarchical arm
+# lives in ops/nn_hier.py
 from tpuslam_torch.kernels.nn_dense import (  # noqa: F401  (re-exports)
     BIG,
     REF_CHUNK,
     nearest_neighbors_dense as nearest_neighbors,
+    nearest_neighbors_dense_batch as nearest_neighbors_batch,
     nearest_neighbors_dense_ref,
 )
 

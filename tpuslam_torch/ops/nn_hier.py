@@ -24,9 +24,14 @@ lexicographic on distance and original index).
 The JAX package picks the arm on the device with nested ``lax.cond``;
 eager PyTorch branches on the host, so each query reads the two overflow
 flags back in one small device-to-host copy.  Only the branch taken
-builds its candidate table.  The batched form
-(``nearest_neighbors_hier_batch``) and its vmap machinery wait for the
-batching slice.
+builds its candidate table.
+
+``nearest_neighbors_hier_batch`` is the batched form (the JAX package's
+``nearest_neighbors_hier_batch``, which its custom-vmap rule lowers a
+vmapped query to): every input gains a leading pair axis, K1, K2 and K3
+run their batch forms, and the arm is chosen once for the whole batch,
+dense while any pair overflows.  The solo ``nearest_neighbors_hier`` is
+its batch of one.
 """
 
 from __future__ import annotations
@@ -36,9 +41,9 @@ from typing import NamedTuple, Tuple
 
 import torch
 
-from tpuslam_torch.kernels.bound import INFLATE_ADD, INFLATE_MUL, bound_pass
-from tpuslam_torch.kernels.nn_cand import nearest_neighbors_cand
-from tpuslam_torch.kernels.nn_dense import nearest_neighbors_dense
+from tpuslam_torch.kernels.bound import INFLATE_ADD, INFLATE_MUL, bound_pass_batch
+from tpuslam_torch.kernels.nn_cand import nearest_neighbors_cand_batch
+from tpuslam_torch.kernels.nn_dense import nearest_neighbors_dense_batch
 from tpuslam_torch.ops.spatial import morton_permutation, sqrt_rn, tile_bounds
 
 BIG = 3.4e38
@@ -101,11 +106,12 @@ def auto_tile_params(m: int) -> Tuple[int, int, int]:
     return g, gsrc, l_budget
 
 
-def hier_state_init(n: int, device=None) -> HierState:
+def hier_state_init(n: int, device=None, batch: Tuple[int, ...] = ()) -> HierState:
+    """The cold state of ``n`` sources (of each of ``batch`` pairs)."""
     return HierState(
-        prev_target=torch.zeros((n, 3), dtype=torch.float32, device=device),
-        warm=torch.zeros((), dtype=torch.bool, device=device),
-        sparse=torch.zeros((), dtype=torch.bool, device=device),
+        prev_target=torch.zeros(batch + (n, 3), dtype=torch.float32, device=device),
+        warm=torch.zeros(batch, dtype=torch.bool, device=device),
+        sparse=torch.zeros(batch, dtype=torch.bool, device=device),
     )
 
 
@@ -191,20 +197,21 @@ def bound_operands(
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """K2's source operands for one query: (``saug`` bf16[N, 12], ``aux``
     f32[N, 4] = (s2, warm upper bound, valid flag, 0), ``eps`` f32[]),
-    the JAX package's expressions (``nn_hier.py:389-427``)."""
+    the JAX package's expressions (``nn_hier.py:389-427``); with a leading
+    pair axis on every input, per pair (``nn_hier.py:543-573``)."""
     dev = transformed.device
-    s_rel = transformed - target.center_ref
-    s2 = (s_rel[:, 0] * s_rel[:, 0] + s_rel[:, 1] * s_rel[:, 1]
-          + s_rel[:, 2] * s_rel[:, 2])
+    s_rel = transformed - target.center_ref[..., None, :]
+    s2 = (s_rel[..., 0] * s_rel[..., 0] + s_rel[..., 1] * s_rel[..., 1]
+          + s_rel[..., 2] * s_rel[..., 2])
     s_hi, s_lo = _split_hi_lo(s_rel)
     # scaling by -2 is exact in bf16 (a power of two)
     neg2_hi = (-2.0 * s_hi.float()).to(torch.bfloat16)
     neg2_lo = (-2.0 * s_lo.float()).to(torch.bfloat16)
-    ones = torch.ones((s2.shape[0], 1), dtype=torch.bfloat16, device=dev)
+    ones = torch.ones(s2.shape + (1,), dtype=torch.bfloat16, device=dev)
     saug = torch.cat(
-        [neg2_hi, neg2_hi, neg2_lo, ones, ones, torch.zeros_like(ones)], dim=1
+        [neg2_hi, neg2_hi, neg2_lo, ones, ones, torch.zeros_like(ones)], dim=-1
     )
-    smax = sqrt_rn(torch.amax(s2))
+    smax = sqrt_rn(torch.amax(s2, dim=-1))
     cmax = target.cmax
     eps = _EPS_REL * (smax * cmax + cmax * cmax + smax * smax) + 1e-6
     # the exact distance to the previous matched target point, inflated
@@ -215,7 +222,7 @@ def bound_operands(
     )
     aux = torch.stack(
         [s2, ub_warm, (src_mask > 0).to(torch.float32), torch.zeros_like(s2)],
-        dim=1,
+        dim=-1,
     )
     return saug, aux, eps
 
@@ -228,10 +235,10 @@ def _coarse_tile_rows(g: int, gsrc: int) -> int:
 
 
 def coarse_admission(adm: torch.Tensor, g: int, g2: int) -> torch.Tensor:
-    """bool[ts, C // f]: the fine admission regrouped to tiles of ``g2``
-    rows (a coarse tile is admitted when any of its fine tiles is)."""
-    ts, c = adm.shape
-    return adm.reshape(ts, c * g // g2, g2 // g).any(dim=2)
+    """bool[..., ts, C // f]: the fine admission regrouped to tiles of
+    ``g2`` rows (a coarse tile is admitted when any of its fine tiles is)."""
+    c = adm.shape[-1]
+    return adm.reshape(adm.shape[:-1] + (c * g // g2, g2 // g)).any(dim=-1)
 
 
 def _build_cand_table(
@@ -273,9 +280,37 @@ def nearest_neighbors_hier(
     for valid sources.  ``state`` from ``hier_state_init`` on the first
     query, then threaded through (positions of the same sorted source
     cloud, moving rigidly between queries).  Appends the arm taken to
-    ``ARM_TRACE``."""
-    n = transformed.shape[0]
-    m = target.packed.shape[0]
+    ``ARM_TRACE``.  The batch of one of ``nearest_neighbors_hier_batch``."""
+    idx, dist, new = nearest_neighbors_hier_batch(
+        transformed[None], src_mask[None],
+        HierTarget(*(t[None] for t in target)),
+        HierState(*(t[None] for t in state)),
+        l_budget=l_budget, g=g, gsrc=gsrc,
+    )
+    return idx[0], dist[0], HierState(*(t[0] for t in new))
+
+
+def nearest_neighbors_hier_batch(
+    transformed: torch.Tensor,
+    src_mask: torch.Tensor,
+    target: HierTarget,
+    state: HierState,
+    l_budget: int = DEFAULT_L,
+    g: int = DEFAULT_G,
+    gsrc: int = DEFAULT_GSRC,
+) -> Tuple[torch.Tensor, torch.Tensor, HierState]:
+    """``nearest_neighbors_hier`` over a leading pair axis: ``transformed``
+    f32[B, N, 3], ``src_mask`` f32[B, N], and every leaf of ``target`` and
+    ``state`` with its pair axis (pairs prepared one by one and stacked)
+    -> (i32[B, N], f32[B, N], batched state).
+
+    The arm is chosen once for the batch, as in the JAX package
+    (``nn_hier.py:579``, ``:599-627``): dense while any group of any pair
+    overflows its budget, else coarse while any overflows the fine one,
+    else fine; one host read of the flags per query.  Every arm is exact,
+    so each pair's result equals its solo query's."""
+    b, n = transformed.shape[0], transformed.shape[1]
+    m = target.packed.shape[1]
     c = m // g
     if n < gsrc:  # small direct calls: one group is the whole cloud
         gsrc = n
@@ -286,8 +321,8 @@ def nearest_neighbors_hier(
     l_eff = min(l_budget, c)  # overflow threshold (the true budget)
 
     saug, aux, eps = bound_operands(transformed, src_mask, target, state)
-    adm = bound_pass(saug, aux, target.caug, target.radii, eps, state.warm, gsrc)
-    counts = torch.sum(adm, dim=1, dtype=torch.int32)
+    adm = bound_pass_batch(saug, aux, target.caug, target.radii, eps, state.warm, gsrc)
+    counts = torch.sum(adm, dim=2, dtype=torch.int32)  # [B, ts]
     flags = [torch.any(counts > l_eff)]
 
     # the coarse middle arm: admission regrouped to g2-row tiles, a
@@ -298,7 +333,7 @@ def nearest_neighbors_hier(
     coarse = bool(g2) and m % g2 == 0 and c2 >= 8
     if coarse:
         adm2 = coarse_admission(adm, g, g2)
-        counts2 = torch.sum(adm2, dim=1, dtype=torch.int32)
+        counts2 = torch.sum(adm2, dim=2, dtype=torch.int32)
         l_eff2 = min(l_budget, (5 * c2) // 8)
         width2 = -(-min(l_budget, c2) // 8) * 8
         flags.append(torch.any(counts2 > l_eff2))
@@ -306,32 +341,35 @@ def nearest_neighbors_hier(
     overflow, *rest = torch.stack(flags).tolist()
     overflow2 = rest[0] if coarse else True
 
+    def table(a, cnt, w):
+        return _build_cand_table(a.reshape(b * ts, -1), cnt.reshape(b * ts),
+                                 w).reshape(b, ts, w)
+
     if not overflow:
         arm = "fine"
-        cand = _build_cand_table(adm, counts, width)
-        idx, dist = nearest_neighbors_cand(
-            transformed, target.packed, cand,
+        idx, dist = nearest_neighbors_cand_batch(
+            transformed, target.packed, table(adm, counts, width),
             torch.clamp_max(counts, l_eff), g=g, gsrc=gsrc,
         )
     elif not overflow2:
         arm = "coarse"
-        cand2 = _build_cand_table(adm2, counts2, width2)
-        idx, dist = nearest_neighbors_cand(
-            transformed, target.packed, cand2,
+        idx, dist = nearest_neighbors_cand_batch(
+            transformed, target.packed, table(adm2, counts2, width2),
             torch.clamp_max(counts2, l_eff2), g=g2, gsrc=gsrc,
         )
     else:
         arm = "dense"
-        idx, dist = nearest_neighbors_dense(
+        idx, dist = nearest_neighbors_dense_batch(
             transformed, target.original_points, target.count
         )
     ARM_TRACE.append(arm)
     # both arms already give the oracle's (0, BIG) on no match; kept, as
     # in the JAX package, so idx stays in range whatever a kernel does
     idx = torch.where(dist >= BIG, torch.zeros_like(idx), idx)
+    dev = transformed.device
     return idx, dist, HierState(
-        prev_target=target.original_points.index_select(0, idx),
-        warm=torch.ones((), dtype=torch.bool, device=transformed.device),
-        sparse=torch.full((), arm != "dense", dtype=torch.bool,
-                          device=transformed.device),
+        prev_target=torch.take_along_dim(
+            target.original_points, idx.long()[..., None], dim=1),
+        warm=torch.ones((b,), dtype=torch.bool, device=dev),
+        sparse=torch.full((b,), arm != "dense", dtype=torch.bool, device=dev),
     )

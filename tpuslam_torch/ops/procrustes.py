@@ -22,6 +22,8 @@ from typing import Tuple
 
 import torch
 
+from tpuslam_torch.ops.geometry import per_pair
+
 torch.backends.cuda.matmul.allow_tf32 = False
 torch.set_float32_matmul_precision("highest")
 
@@ -68,7 +70,11 @@ def weighted_procrustes(
     """Rigid (R, t) minimizing ``sum_i w_i |R b_i + t - a_i|^2``.
 
     ``before``/``after`` are row-aligned ``f32[N, 3]``; ``weights`` is
-    ``f32[N]`` (zeros drop correspondences)."""
+    ``f32[N]`` (zeros drop correspondences).  With a leading pair axis
+    (``f32[B, N, 3]``, ``f32[B, N]``) each pair is solved by its own call
+    (``geometry.per_pair``), so it gets the bits it gets alone."""
+    if before.dim() == 3:
+        return per_pair(weighted_procrustes, before, after, weights)
     w = weights.to(before.dtype)
     total = torch.clamp_min(torch.sum(w), 1e-12)
     mu_b = torch.sum(before * w[:, None], dim=0) / total
