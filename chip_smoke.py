@@ -124,6 +124,56 @@ exits non-zero without printing a result:
    4 x 2,048 pairs, 10 iterations, each equal to its solo run bit for
    bit.
 
+15. sequence odometry — ``tpuslam_torch.register_sequence`` on 20 scans of
+   a 102,400-point uniform box of side 10 seen from a drifting pose (steps
+   of 0.08 rad and 0.4, rows permuted; ``bench_results/sequence_100k.json``'s
+   protocol, ``tests/test_sequence.py::_make_trajectory``'s construction),
+   after an untimed 3-scan call: the scan lowering seeded and unseeded,
+   the per-pair lowering and the batch lowering, each timed (host clock
+   around a synchronised call) and then run again under torch's CUDA sync
+   debug mode, which counts its synchronising calls (device-to-host reads,
+   blocking copies) and the lines that make them; every absolute pose
+   within 1 degree and 0.15 of the truth, K2 and K3 launched on each;
+   printed: ms, scans/s, iterations per pair, the drift RMS (translation
+   error over all poses), launches of K1-K3 and synchronising calls per
+   pair;
+16. streaming push — ``tpuslam_torch.sequence_stream`` over the same 20
+   scans and over 5 scans of 1,048,576 points (at most 300 iterations a
+   push there: the structure-free box converges more slowly the denser
+   it is): ms per push (host clock), median and max after the first,
+   queries per push by arm, synchronising calls per push (a second
+   stream, counted); every pose within 1 degree; at 100k the poses within
+   1e-5 of the scan lowering's;
+17. chunked and checkpointed drivers — phase 6's 1,048,576-point
+   hierarchical registration run again by ``icp_register_chunked`` at
+   chunk 5 with a checkpoint file: equal to phase 6's whole run bit for bit
+   (R, t, iterations, error); the same run stopped at 10 iterations and
+   resumed from its file in a new process (``resume_child``): equal bit for
+   bit; phase 10's 376,401-point Hybrid CPD by ``cpd_register_chunked`` at
+   chunk 5 and chunk_fast 19: equal to phase 10's run bit for bit, K5
+   launched in its slow phase; ``register`` with ICP and with CPD at 8,192
+   points under ``TPUSLAM_ICP_CKPT`` and ``TPUSLAM_CPD_CKPT``: equal to the
+   runs without, the files written;
+18. pair-axis CPD — ``tpuslam_torch.register_pairs`` with CPD on 16 x 2,048
+   and 16 x 16,384 box pairs (moved by (0.1 rad, 0.5), noise 0.01), in None
+   (20 iterations a pair) and in Hybrid without the FGT (60, so that the
+   slow phase truncates), and in Hybrid on 4 x 102,400 pairs (truncated
+   E-steps in K4's batch form) and 2 x 376,401 pairs (truncated E-steps on
+   K5 pair by pair, from ``batch.CAND_MIN_ROWS`` rows); tolerance 0,
+   after an untimed two-pair call: each pair equal to its
+   solo ``register`` bit for bit (R, t, iterations, sigma^2), K4's batch
+   form launched with B > 1, truncated E-steps in the batch form below
+   ``CAND_MIN_ROWS`` and on K5 above it; the batch form's first and last
+   call of each run against the plain version on the same operands (both
+   passes on the first, middle and last block of each pair, and the whole
+   E-step at 2,048 rows; within 1e-5 of the largest plain value); the
+   last K5 E-step at 376,401 equal to K4 bit for bit, and K4 there against
+   the plain version; ms per pair-iteration beside the pairs run one by
+   one through solo ``cpd_register`` (the pair-by-pair lowering
+   ``cpd_register_batch`` had before its pair-axis loop) in the same call;
+   K4's two passes alone at 16 x 16,384^2 (CUDA events), then against the
+   plain running totals on the same operands.
+
 The launch counts each path is checked by are set to 0 just before it
 runs and read just after.
 
@@ -131,9 +181,11 @@ The last lines are the card's name and power limit, one JSON object
 describing each kernel (with its bound: the larger of its float32
 operations, or for K4 and K5 the exponentials on the special-function
 units, over the card's peak rate and its bytes over the memory rate; and
-for K1, K2 and K3 the launches per warm headline iteration; for K1 also
-its launches per NICP run of phase 12 and its time at the rescore
-shape), and
+for K1, K2 and K3 the launches per warm headline iteration and per
+sequence pair of phase 15; for K1 also its launches per NICP run of
+phase 12 and its time at the rescore shape; for K4 its launches per
+iteration of phase 18's batched loop, its time at 16 x 16,384^2 and its
+error there; for K5 its launches in each run of phase 18), and
 ``{"ok": true, "device": {...}}``.
 """
 
@@ -151,7 +203,10 @@ FULL = dict(headline=102_400, small=8192, large=1_048_576, large_iters=20,
             mid_iters=12, cpd_small=20_480, cpd_large=376_401, cpd_iters=30,
             cpd_exact_iters=3, cpd_cpu=8192, nicp_large=1_048_576,
             nicp_cylinder=102_400, prealign=102_400, batch_pairs=16,
-            batch_small=2048, batch_large=16_384, cpd_batch=2048)
+            batch_small=2048, batch_large=16_384, cpd_batch=2048, seq_scans=20,
+            seq_points=102_400, stream_large=1_048_576, stream_large_scans=5,
+            stream_large_iters=300, batch_hybrid_iters=60, batch_mid=102_400,
+            batch_mid_pairs=4, batch_cand=376_401, batch_cand_pairs=2)
 
 # the H100 SXM's published peaks (NVIDIA's data sheet, at 700 W): float32
 # outside the tensor cores and HBM3; and the special-function units' exp2,
@@ -186,8 +241,110 @@ def check(cond: bool, what: str) -> None:
         raise RuntimeError(f"chip_smoke: {what}")
 
 
-def cpd_phases(dev, smi, kind, sizes, time_ms) -> list:
-    """Phases 8-11 (module docstring); returns the kernels' JSON entries."""
+STATS = ("p1", "pt1", "px", "error")
+
+
+def estep_operands(transformed, moving_mask, target, target_mask, sigma2, constant, trunc):
+    """The operands ``cpd_estep_dense_batch`` hands K4's passes: (scalars,
+    moving rows padded to 1,024-row blocks at the sentinel, padded target,
+    padded moving and target masks)."""
+    import torch
+
+    from tpuslam_torch.kernels import cpd_dense
+
+    m, n = (-(-r // cpd_dense.TILE) * cpd_dense.TILE for r in (transformed.shape[1],
+                                                                target.shape[1]))
+    moving_mask = cpd_dense.pad_rows(moving_mask, m)
+    transformed = cpd_dense.pad_rows(transformed, m)
+    ty = torch.where(moving_mask[:, :, None] > 0, transformed,
+                     torch.full_like(transformed, cpd_dense.SENTINEL)).contiguous()
+    return (cpd_dense.estep_scalars(sigma2, constant, trunc, 1e-3), ty,
+            cpd_dense.pad_rows(target, n).contiguous(), moving_mask,
+            cpd_dense.pad_rows(target_mask, n))
+
+
+def plain_estep(transformed, moving_mask, target, target_mask, sigma2, constant, trunc):
+    """``cpd_estep_dense_batch`` spelled out with the plain passes
+    (``denom_pass_ref``, ``moments_pass_ref``) on the card's tensors; no
+    kernel may launch."""
+    from tpuslam_torch.kernels import cpd_dense
+
+    def k4_launches():
+        return cpd_dense.DENOM_LAUNCHES, cpd_dense.MOMENTS_LAUNCHES
+
+    before = k4_launches()
+    b, m0, _ = transformed.shape
+    n0 = target.shape[1]
+    scal, ty, target, moving_mask, target_mask = estep_operands(
+        transformed, moving_mask, target, target_mask, sigma2, constant, trunc)
+    denom = cpd_dense.denom_pass_ref(scal, ty, target).reshape(b, target.shape[1])
+    pt1, w4 = cpd_dense.moment_weights(denom, target, target_mask, constant)
+    acc = cpd_dense.moments_pass_ref(scal, ty, target, w4)
+    out = cpd_dense.sufficient_from(acc, denom, pt1, moving_mask, target_mask,
+                                    sigma2, m0, n0)
+    check(k4_launches() == before, "the plain E-step launched K4")
+    return out
+
+
+def rel_errs(got, want):
+    """Per statistic: max |got - want| / max |want| (the error's own
+    relative error)."""
+    out = {}
+    for f in STATS:
+        g, w = getattr(got, f).double(), getattr(want, f).double()
+        out[f] = float((g - w).abs().max() / w.abs().max().clamp_min(1e-30))
+    return out
+
+
+def k4_batch_against_plain(scal, ty, target, weights4=None, moving_mask=None,
+                           target_mask=None):
+    """K4's batch form, both passes launched here on ``scal`` f32[B, 4],
+    ``ty`` f32[B, M, 3] (invalid rows at the sentinel) and ``target``
+    f32[B, N, 3], against the plain running totals over every block of
+    the other cloud, on the first, middle and last 1,024-row block of
+    each pair, valid rows only (masks f32[B, rows], all valid if None).
+    ``weights4`` None: the moments' weights from the kernel's
+    denominators, as the E-step makes them.  Returns {pass: (max abs,
+    max abs / largest plain value)}."""
+    import torch
+
+    from tpuslam_torch.kernels import cpd_dense
+
+    tile = cpd_dense.TILE
+    b, m, _ = ty.shape
+    n = target.shape[1]
+    m_valid = (torch.ones((b, m), device=ty.device) if moving_mask is None
+               else moving_mask) > 0
+    t_valid = (torch.ones((b, n), device=ty.device) if target_mask is None
+               else target_mask) > 0
+    denom = cpd_dense.denom_pass_batch(scal, ty, target)[:, 0]
+    if weights4 is None:
+        _, weights4 = cpd_dense.moment_weights(denom, target, t_valid.float(), scal[:, 1])
+    acc = cpd_dense.moments_pass_batch(scal, ty, target, weights4)
+    err = {"denom": [0.0, 0.0], "moments": [0.0, 0.0]}  # max abs, largest plain value
+    for p in range(b):
+        for name, got, rows, other, valid in (
+                ("denom", denom[p], n, m, t_valid[p]),
+                ("moments", acc[p], m, n, m_valid[p])):
+            nb = rows // tile
+            for i in sorted({0, nb // 2, nb - 1}):
+                sl = slice(i * tile, (i + 1) * tile)
+                if name == "denom":
+                    want = cpd_dense.denom_rows(scal[p], ty[p], target[p, sl], range(other // tile))
+                else:
+                    want = cpd_dense.moments_rows(scal[p], ty[p, sl], target[p], weights4[p],
+                                                  range(other // tile))
+                keep = valid[sl]
+                want = want.double()[..., keep]
+                err[name][0] = max(err[name][0],
+                                   float((got[..., sl].double()[..., keep] - want).abs().max()))
+                err[name][1] = max(err[name][1], float(want.abs().max()))
+    return {k: (a, a / top) for k, (a, top) in err.items()}
+
+
+def cpd_phases(dev, smi, kind, sizes, time_ms) -> tuple:
+    """Phases 8-11 (module docstring); returns the kernels' JSON entries and
+    phase 10's Hybrid run (its clouds and result, for phase 17)."""
     import torch
 
     import tpuslam_torch
@@ -203,7 +360,7 @@ def cpd_phases(dev, smi, kind, sizes, time_ms) -> list:
     from tpuslam_torch.ops.spatial import morton_permutation
 
     rng = np.random.Generator(np.random.PCG64(376))
-    stats = ("p1", "pt1", "px", "error")
+    stats = STATS
 
     def f32(*v):
         return torch.tensor(v, dtype=torch.float32, device=dev)
@@ -213,41 +370,6 @@ def cpd_phases(dev, smi, kind, sizes, time_ms) -> list:
 
     def box(n):
         return sort_rows(torch.from_numpy((rng.random((n, 3)) * 10).astype(np.float32)).to(dev))
-
-    def k4_launches():
-        return cpd_dense.DENOM_LAUNCHES, cpd_dense.MOMENTS_LAUNCHES
-
-    def plain_estep(transformed, moving_mask, target, target_mask, sigma2, constant, trunc):
-        """``cpd_estep_dense_batch`` spelled out with the plain passes
-        (``denom_pass_ref``, ``moments_pass_ref``) on the card's tensors;
-        no kernel may launch."""
-        before = k4_launches()
-        b, m0, _ = transformed.shape
-        n0 = target.shape[1]
-        m, n = (-(-r // cpd_dense.TILE) * cpd_dense.TILE for r in (m0, n0))
-        moving_mask = cpd_dense.pad_rows(moving_mask, m)
-        target = cpd_dense.pad_rows(target, n).contiguous()
-        target_mask = cpd_dense.pad_rows(target_mask, n)
-        transformed = cpd_dense.pad_rows(transformed, m)
-        ty = torch.where(moving_mask[:, :, None] > 0, transformed,
-                         torch.full_like(transformed, cpd_dense.SENTINEL)).contiguous()
-        scal = cpd_dense.estep_scalars(sigma2, constant, trunc, 1e-3)
-        denom = cpd_dense.denom_pass_ref(scal, ty, target).reshape(b, n)
-        pt1, w4 = cpd_dense.moment_weights(denom, target, target_mask, constant)
-        acc = cpd_dense.moments_pass_ref(scal, ty, target, w4)
-        out = cpd_dense.sufficient_from(acc, denom, pt1, moving_mask, target_mask,
-                                        sigma2, m0, n0)
-        check(k4_launches() == before, "the plain E-step launched K4")
-        return out
-
-    def rel_errs(got, want):
-        """Per statistic: max |got - want| / max |want| (the error's own
-        relative error)."""
-        out = {}
-        for f in stats:
-            g, w = getattr(got, f).double(), getattr(want, f).double()
-            out[f] = float((g - w).abs().max() / w.abs().max().clamp_min(1e-30))
-        return out
 
     # 8. K4 against its plain version ------------------------------------------
     n = sizes["cpd_small"]
@@ -595,7 +717,9 @@ def cpd_phases(dev, smi, kind, sizes, time_ms) -> list:
     # every E-step to K4
     cpd_dense.DENOM_LAUNCHES = cpd_dense.MOMENTS_LAUNCHES = 0
     cpd_cand.DENOM_LAUNCHES = cpd_cand.MOMENTS_LAUNCHES = 0
-    _, _, phases, _ = register_cpd(ApproximationType.Hybrid, sizes["cpd_iters"])
+    hybrid, _, phases, _ = register_cpd(ApproximationType.Hybrid, sizes["cpd_iters"])
+    phase10 = {"before": before, "after": after, "result": hybrid,
+               "max_iterations": sizes["cpd_iters"]}
     check("fgt" in phases and "trunc" in phases, "the run must take both Hybrid phases")
     check(cpd_cand.DENOM_LAUNCHES > 0 and cpd_cand.MOMENTS_LAUNCHES > 0,
           "the Hybrid slow phase did not launch K5")
@@ -702,7 +826,7 @@ def cpd_phases(dev, smi, kind, sizes, time_ms) -> list:
          "replaces": "tpuslam/kernels/pallas_cpd_cand.py:181", "launches": launches["K5 moments"],
          "max_abs_err": main_errs["K5 moments"], "ms": k5_times["moments"],
          "plain_ms": k5_times["moments_plain"], **bounds["K5 moments"], "library_ms": None},
-    ]
+    ], phase10
 
 
 def cylinder(rng, n):
@@ -1004,6 +1128,480 @@ def nicp_batch_phases(dev, smi, kind, sizes, time_ms) -> dict:
     check(same, "a batched CPD pair differs from its solo run")
     return {"nicp_runs": nicp_runs, "k1_rescore": k1_rescore, "k1_rescore_err": k1_err,
             "prealign": prealign, "lowering_ms": lowering_ms, "batch_err": batch_err}
+
+
+def trajectory(rng, n_scans, n_pts, step_angle=0.08, step_trans=0.4):
+    """A scene of ``n_pts`` points in a uniform box of side 10 scanned from a
+    drifting sensor pose, as ``tests/test_sequence.py::_make_trajectory``
+    builds one: (scans, true poses P_k with P_0 = I); scan k is the scene in
+    sensor frame k, its rows permuted."""
+    from tpuslam_torch.data.synthesis import (
+        get_random_rotation_matrix,
+        get_random_translation_vector,
+    )
+
+    scene = (rng.random((n_pts, 3)) * 10.0).astype(np.float32)
+    poses = [(np.eye(3, dtype=np.float32), np.zeros(3, np.float32))]
+    for _ in range(n_scans - 1):
+        dr = get_random_rotation_matrix(rng, step_angle)
+        dt = get_random_translation_vector(rng, step_trans)
+        r_prev, t_prev = poses[-1]
+        poses.append(((r_prev @ dr).astype(np.float32), (r_prev @ dt + t_prev).astype(np.float32)))
+    scans = [((scene - t) @ r)[rng.permutation(n_pts)].astype(np.float32) for r, t in poses]
+    return scans, poses
+
+
+def pose_errors(absolute, poses):
+    """Per pose: (rotation error in degrees, translation error)."""
+    return [(rotation_error_deg(a.rotation, r), float(np.linalg.norm(a.translation - t)))
+            for a, (r, t) in zip(absolute, poses)]
+
+
+def count_syncs(torch, fn):
+    """``fn()`` under torch's CUDA sync debug mode: every synchronising call
+    (a device-to-host read, a blocking host-to-device copy, a library call
+    that waits) warns once; returns (result, count, count by calling line)."""
+    import warnings
+    from collections import Counter
+
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("warn")
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            out = fn()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    hits = [w for w in caught if "synchroniz" in str(w.message)]
+    sites = Counter(f"{w.filename.rsplit('/', 2)[-1]}:{w.lineno}" for w in hits)
+    return out, len(hits), dict(sites.most_common(8))
+
+
+def resume_child(data_path: str, ckpt_path: str, out_path: str, device: str) -> None:
+    """Phase 17's second process: continue the chunked 1,048,576-point
+    registration from the checkpoint file on ``device`` and save its
+    result."""
+    import torch
+
+    from tpuslam_torch.algorithms.icp import icp_register_chunked
+    from tpuslam_torch.core.types import pad_cloud
+    from tpuslam_torch.kernels import build
+
+    dev = torch.device(device)
+    if dev.type == "cuda":
+        build.load_library()
+    with np.load(data_path) as z:
+        before, after, iters = z["before"], z["after"], int(z["iters"])
+    res = icp_register_chunked(pad_cloud(before, device=dev), pad_cloud(after, device=dev),
+                               max_iterations=iters, chunk=5, use_spatial=True,
+                               checkpoint_path=ckpt_path)
+    np.savez(out_path, rotation=res.transform.rotation.cpu().numpy(),
+             translation=res.transform.translation.cpu().numpy(),
+             iterations=np.int32(res.iterations), error=res.error.cpu().numpy())
+
+
+def drivers_phases(dev, smi, kind, sizes, time_ms, phase6, phase10) -> dict:
+    """Phases 15-18 (module docstring); returns the numbers of the kernels
+    line (launches per sequence pair, K4's batch form)."""
+    import os
+    import tempfile
+
+    import torch
+
+    import tpuslam_torch
+    from tpuslam_torch.algorithms import batch, cpd
+    from tpuslam_torch.algorithms.cpd import cpd_register, cpd_register_chunked
+    from tpuslam_torch.algorithms.icp import icp_register_chunked
+    from tpuslam_torch.config.configuration import (
+        ApproximationType,
+        ComputationMethod,
+        Configuration,
+    )
+    from tpuslam_torch.core.types import Cloud, pad_cloud
+    from tpuslam_torch.data.synthesis import (
+        get_random_rotation_matrix,
+        get_random_translation_vector,
+    )
+    from tpuslam_torch.kernels import bound, cpd_cand, cpd_dense, nn_cand, nn_dense
+    from tpuslam_torch.ops import nn_hier
+
+    rng = np.random.Generator(np.random.PCG64(808))
+    nn_wrappers = {"K1": nn_dense, "K2": bound, "K3": nn_cand}
+
+    def reset():
+        for w in nn_wrappers.values():
+            w.LAUNCHES = 0
+        cpd_dense.BATCH_LAUNCHES.clear()
+        cpd_dense.DENOM_LAUNCHES = cpd_dense.MOMENTS_LAUNCHES = 0
+        cpd_cand.DENOM_LAUNCHES = cpd_cand.MOMENTS_LAUNCHES = 0
+
+    def nn_launches():
+        return {k: w.LAUNCHES for k, w in nn_wrappers.items()}
+
+    def wall(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, (time.perf_counter() - t0) * 1e3
+
+    out = {}
+    # 15. sequence odometry ----------------------------------------------------------
+    n_scans, n = sizes["seq_scans"], sizes["seq_points"]
+    scans, poses = trajectory(rng, n_scans, n)
+    kw = dict(max_iterations=60, max_distance_squared=1e6)
+    pairs = n_scans - 1
+    lowerings = {"scan seeded": {}, "scan unseeded": dict(seed_with_previous=False),
+                 "per pair": dict(scan=False), "batch": dict(batch=True)}
+    # an untimed warm-up: the first call of a process loads CUDA libraries
+    tpuslam_torch.register_sequence(scans[:3], device=dev, **kw)
+    seq = {}
+    for name, lk in lowerings.items():
+        reset()
+        nn_hier.ARM_TRACE.clear()
+        res, ms = wall(lambda: tpuslam_torch.register_sequence(scans, device=dev, **lk, **kw))
+        got = nn_launches()
+        arms = {a: list(nn_hier.ARM_TRACE).count(a) for a in ("fine", "coarse", "dense")}
+        errs = pose_errors(res.absolute, poses)
+        drift = float(np.sqrt(np.mean([e[1] ** 2 for e in errs])))
+        _, syncs, sites = count_syncs(
+            torch, lambda: tpuslam_torch.register_sequence(scans, device=dev, **lk, **kw))
+        seq[name] = {"ms": ms, "scans_per_s": n_scans / (ms / 1e3),
+                     "mean_iterations": float(np.mean(res.iterations)),
+                     "drift_rms": drift, "worst_deg": max(e[0] for e in errs),
+                     "worst_trans": max(e[1] for e in errs),
+                     "launches_per_pair": {k: v / pairs for k, v in got.items()},
+                     "arms": arms,
+                     "syncs_per_pair": syncs / pairs, "sync_sites": sites}
+        log(f"[sequence] {name} lowering, {n_scans} scans x {n} points on {smi}: {ms:.1f} ms, "
+            f"{seq[name]['scans_per_s']:.2f} scans/s, iterations {res.iterations.tolist()}, "
+            f"drift RMS {drift}, worst {seq[name]['worst_deg']} deg / "
+            f"{seq[name]['worst_trans']}, launches per pair {seq[name]['launches_per_pair']}, "
+            f"queries by arm {arms}, "
+            f"synchronising calls per pair {syncs / pairs} (by line {sites})")
+        check(seq[name]["worst_deg"] < 1.0 and seq[name]["worst_trans"] < 0.15,
+              f"sequence ({name}): a pose is off the truth")
+        check(got["K2"] > 0 and got["K3"] > 0, f"sequence ({name}) did not launch K2 and K3")
+        if name == "scan seeded":
+            scanned = res
+    out["sequence"] = seq
+
+    # 16. streaming push -------------------------------------------------------------
+    streams = {}
+    # the structure-free box needs more iterations the denser it is: 38-60
+    # a pair at 102,400 points (phase 15), so the 1M stream may run 300
+    for label, s_scans, s_poses, reference, s_kw in (
+            ("100k", scans, poses, scanned, kw),
+            ("1M", *trajectory(rng, sizes["stream_large_scans"], sizes["stream_large"]), None,
+             dict(kw, max_iterations=sizes["stream_large_iters"]))):
+        stream = tpuslam_torch.sequence_stream(s_scans[0], device=dev, **s_kw)
+        push_ms, arm_counts = [], []
+        for s in s_scans[1:]:
+            nn_hier.ARM_TRACE.clear()
+            _, ms = wall(lambda s=s: stream.push(s))
+            push_ms.append(ms)
+            arm_counts.append("".join(a[0] for a in nn_hier.ARM_TRACE))
+        errs = pose_errors(stream.absolute, s_poses)
+        probe = tpuslam_torch.sequence_stream(s_scans[0], device=dev, **s_kw)
+        _, syncs, sites = count_syncs(torch, lambda: [probe.push(s) for s in s_scans[1:]])
+        streams[label] = {"n": len(s_scans[0]), "scans": len(s_scans), "push_ms": push_ms,
+                          "median_ms_after_first": float(np.median(push_ms[1:])),
+                          "max_ms_after_first": float(max(push_ms[1:])),
+                          "worst_deg": max(e[0] for e in errs),
+                          "syncs_per_push": syncs / (len(s_scans) - 1), "sync_sites": sites,
+                          "queries_per_push": [len(a) for a in arm_counts]}
+        log(f"[stream] {len(s_scans)} scans x {len(s_scans[0])} points on {smi}: ms per push "
+            f"{[round(m, 3) for m in push_ms]} (median after the first "
+            f"{streams[label]['median_ms_after_first']:.3f}, max "
+            f"{streams[label]['max_ms_after_first']:.3f}), queries (arms f/c/d) per push "
+            f"{arm_counts}, worst pose "
+            f"{streams[label]['worst_deg']} deg, synchronising calls per push "
+            f"{streams[label]['syncs_per_push']} (by line {sites})")
+        check(streams[label]["worst_deg"] < 1.0, f"stream ({label}): a pose is off the truth")
+        if reference is not None:
+            d = max(float(np.abs(a.rotation - b.rotation).max()) for a, b in
+                    zip(stream.absolute, reference.absolute))
+            d = max(d, max(float(np.abs(a.translation - b.translation).max()) for a, b in
+                           zip(stream.absolute, reference.absolute)))
+            streams[label]["vs_scan_lowering"] = d
+            log(f"[stream] against the scan lowering: max |d| {d} (tolerance 1e-5)")
+            check(d <= 1e-5, "the stream's poses differ from the scan lowering's")
+    out["stream"] = streams
+
+    # 17. chunked and checkpointed drivers ---------------------------------------------
+    def same_result(a, b):
+        return all(np.array_equal(x, y) for x, y in zip(a, b))
+
+    def icp_tuple(res):
+        return (res.transform.rotation.cpu().numpy(), res.transform.translation.cpu().numpy(),
+                int(res.iterations), float(res.error))
+
+    big_b, big_a = pad_cloud(phase6["before"], device=dev), pad_cloud(phase6["after"], device=dev)
+    iters = phase6["max_iterations"]
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "icp.npz")
+        (chunked, ms) = wall(lambda: icp_register_chunked(
+            big_b, big_a, max_iterations=iters, chunk=5, use_spatial=True, checkpoint_path=path))
+        eq = same_result(icp_tuple(chunked), phase6["result"])
+        log(f"[chunked] ICP {len(phase6['before'])} points, chunk 5, checkpointed: "
+            f"{chunked.iterations} iterations, {ms:.1f} ms; equal to phase 6's whole run "
+            f"{eq} (tolerance 0)")
+        check(eq, "chunked ICP differs from the whole run")
+        # stopped at 10 iterations (or halfway, should the run end sooner),
+        # then resumed from the file in a new process
+        stop = min(10, max(1, phase6["result"][2] // 2))
+        path = os.path.join(tmp, "resume.npz")
+        icp_register_chunked(big_b, big_a, max_iterations=stop, chunk=5, use_spatial=True,
+                             checkpoint_path=path)
+        data, result = os.path.join(tmp, "clouds.npz"), os.path.join(tmp, "result.npz")
+        np.savez(data, before=phase6["before"], after=phase6["after"], iters=iters)
+        here = os.path.dirname(os.path.abspath(__file__))
+        t0 = time.perf_counter()
+        subprocess.run([sys.executable, "-c", "import chip_smoke; chip_smoke.resume_child("
+                        f"{data!r}, {path!r}, {result!r}, {str(dev)!r})"],
+                       cwd=here, check=True, timeout=600)
+        child_s = time.perf_counter() - t0
+        with np.load(result) as z:
+            resumed = (z["rotation"], z["translation"], int(z["iterations"]), float(z["error"]))
+        eq = same_result(resumed, phase6["result"])
+        log(f"[chunked] stopped at {stop} iterations, resumed in a new process ({child_s:.1f} s): "
+            f"{resumed[2]} iterations, equal to the uninterrupted run {eq} (tolerance 0)")
+        check(eq, "the resumed run differs from the uninterrupted one")
+
+        # the Hybrid CPD of phase 10, chunked at 5 (slow) and 19 (FGT), with
+        # the keywords its registry call took
+        config = Configuration(
+            computation_method=ComputationMethod.Cpd, approximation_type=ApproximationType.Hybrid,
+            cpd_weight=0.1, cpd_const_scale=True, cpd_tolerance=0.0,
+            max_iterations=phase10["max_iterations"])
+        reset()
+        cpd.PHASE_TRACE.clear()
+        cb, ca = pad_cloud(phase10["before"], device=dev), pad_cloud(phase10["after"], device=dev)
+        c_res, ms = wall(lambda: cpd_register_chunked(
+            cb, ca, chunk=5, chunk_fast=19, checkpoint_path=os.path.join(tmp, "cpd.npz"),
+            eps=config.convergence_epsilon, weight=config.cpd_weight,
+            const_scale=config.cpd_const_scale, max_iterations=config.max_iterations,
+            tolerance=config.cpd_tolerance, approximation_type=config.approximation_type,
+            ratio_of_far_field=config.ratio_of_far_field,
+            order_of_truncation=config.order_of_truncation, use_fgt=config.cpd_use_fgt,
+            centroid_init=config.cpd_centroid_init))
+        got = ((c_res.transform.scale * c_res.transform.rotation).cpu().numpy(),
+               c_res.transform.translation.cpu().numpy(), int(c_res.iterations),
+               float(c_res.error))
+        eq = same_result(got, phase10["result"])
+        phases = "".join(p[0] for p in cpd.PHASE_TRACE)
+        log(f"[chunked] CPD Hybrid {len(phase10['before'])} points, chunk 5 / chunk_fast 19, "
+            f"checkpointed: {got[2]} iterations ({phases}), {ms:.1f} ms, K5 launches "
+            f"{cpd_cand.DENOM_LAUNCHES} / {cpd_cand.MOMENTS_LAUNCHES}; equal to phase 10's "
+            f"whole run {eq} (tolerance 0)")
+        check(eq, "chunked CPD differs from the whole run")
+        check(cpd_cand.DENOM_LAUNCHES > 0 and cpd_cand.MOMENTS_LAUNCHES > 0,
+              "chunked CPD's slow phase did not launch K5")
+
+        # register under both checkpoint variables, at 8,192 points
+        small_b, small_a = trajectory(rng, 2, sizes["small"], 0.1, 0.5)[0]
+        configs = {"ICP": dict(max_iterations=30),
+                   "CPD": dict(computation_method=ComputationMethod.Cpd, max_iterations=10,
+                               cpd_weight=0.1)}
+        for name, cfg in configs.items():
+            whole = tpuslam_torch.register(small_b, small_a, device=dev, **cfg)
+            var, path = f"TPUSLAM_{name}_CKPT", os.path.join(tmp, f"{name}.npz")
+            os.environ[var] = path
+            try:
+                ck = tpuslam_torch.register(small_b, small_a, device=dev, **cfg)
+            finally:
+                del os.environ[var]
+            eq = same_result(ck, whole)
+            log(f"[chunked] register {name} under {var}: {ck[2]} iterations, equal to the run "
+                f"without it {eq}, checkpoint written {os.path.exists(path)}")
+            check(eq and os.path.exists(path),
+                  f"register under {var} differs from the run without it")
+
+    # 18. pair-axis CPD ------------------------------------------------------------------
+    k4 = {}
+    pair_cpd = {}
+    none, hybrid = ApproximationType.NONE, ApproximationType.Hybrid
+    # Hybrid runs until its slow phase has truncated for a while (the switch
+    # comes at iteration 21 at 2,048 points, later on denser clouds); the
+    # truncated E-steps of clouds of batch.CAND_MIN_ROWS rows or more take
+    # K5 pair by pair, the others K4's batch form
+    h_iters = sizes["batch_hybrid_iters"]
+    cases = ((sizes["batch_small"], sizes["batch_pairs"], {none: 20, hybrid: h_iters}),
+             (sizes["batch_large"], sizes["batch_pairs"], {none: 20, hybrid: h_iters}),
+             (sizes["batch_mid"], sizes["batch_mid_pairs"], {hybrid: h_iters}),
+             (sizes["batch_cand"], sizes["batch_cand_pairs"], {hybrid: h_iters}))
+    real_estep, real_cand = batch.cpd_estep_dense_batch, cpd.cpd_estep_cand
+    for n_pts, b, modes in cases:
+        befores, afters = [], []
+        for _ in range(b):
+            x = (rng.random((n_pts, 3)) * 10).astype(np.float32)
+            r = get_random_rotation_matrix(rng, 0.1)
+            y = (x @ r.T + get_random_translation_vector(rng, 0.5)
+                 + rng.normal(0, 0.01, x.shape)).astype(np.float32)
+            befores.append(x)
+            afters.append(y[rng.permutation(n_pts)])
+        for mode, iters in modes.items():
+            cfg = dict(computation_method=ComputationMethod.Cpd, approximation_type=mode,
+                       cpd_use_fgt=False, max_iterations=iters, cpd_weight=0.1,
+                       cpd_const_scale=True, cpd_tolerance=0.0, convergence_epsilon=1e-6)
+            tpuslam_torch.register_pairs(befores[:2], afters[:2], device=dev,
+                                         **dict(cfg, max_iterations=2))
+            # the batch form's operands in the run, kept by reference (the
+            # loop makes them anew each iteration): its first and last call,
+            # and every call's truncation flags, read after the run
+            seen = {"flags": []}
+
+            def keep(*args, **kwargs):
+                seen.setdefault("first", args)
+                seen["last"] = args
+                seen["flags"].append(args[6])
+                return real_estep(*args, **kwargs)
+
+            def keep_cand(*args, **kwargs):
+                seen["cand"] = args
+                return real_cand(*args, **kwargs)
+
+            reset()
+            cpd.PHASE_TRACE.clear()
+            batch.cpd_estep_dense_batch, cpd.cpd_estep_cand = keep, keep_cand
+            try:
+                got, ms = wall(lambda: tpuslam_torch.register_pairs(befores, afters, device=dev,
+                                                                    **cfg))
+            finally:
+                batch.cpd_estep_dense_batch, cpd.cpd_estep_cand = real_estep, real_cand
+            launches = dict(cpd_dense.BATCH_LAUNCHES)
+            k5_launches = (cpd_cand.DENOM_LAUNCHES, cpd_cand.MOMENTS_LAUNCHES)
+            phases = list(cpd.PHASE_TRACE)
+            pair_iters = int(got[2].sum())
+            batched_iters = int(got[2].max())
+            trunc_in_batch = int(sum(int(f.sum()) for f in seen["flags"]))
+            bb = batch.stack_clouds(befores, device=dev)
+            ba = batch.stack_clouds(afters, device=dev)
+            kw_solo = dict(weight=0.1, const_scale=True, max_iterations=iters, tolerance=0.0,
+                           eps=1e-6, approximation_type=mode, use_fgt=False)
+            solos, solo_ms = wall(lambda: [cpd_register(Cloud(bb.points[p], bb.count[p]),
+                                                        Cloud(ba.points[p], ba.count[p]),
+                                                        **kw_solo) for p in range(b)])
+            solo_reg = [tpuslam_torch.register(x, y, device=dev, **cfg)
+                        for x, y in zip(befores, afters)]
+            same = all(np.array_equal(got[0][i], s[0]) and np.array_equal(got[1][i], s[1])
+                       and int(got[2][i]) == s[2] and float(got[3][i]) == s[3]
+                       for i, s in enumerate(solo_reg))
+            name = f"{b}x{n_pts} {mode.value}"
+            pair_cpd[name] = {"ms": ms, "ms_per_pair_iter": ms / pair_iters,
+                              "pair_by_pair_ms": solo_ms,
+                              "pair_by_pair_ms_per_pair_iter":
+                                  solo_ms / sum(s.iterations for s in solos),
+                              "estep_kinds": {k: phases.count(k) for k in ("exact", "trunc")},
+                              "truncated_in_batch_form": trunc_in_batch,
+                              "k4_launches_by_batch": launches,
+                              "k5_launches": k5_launches,
+                              # each pass's batch-form (B > 1) launches per
+                              # iteration of the loop
+                              "launches_per_batched_iter":
+                                  sum(v for k, v in launches.items() if k > 1) / 2
+                                  / max(batched_iters, 1)}
+            log(f"[pairs-cpd] register_pairs CPD {name} on {smi}: iterations "
+                f"{got[2].tolist()}, E-steps {pair_cpd[name]['estep_kinds']} (truncated in K4's "
+                f"batch form {trunc_in_batch}), {ms:.1f} ms ({ms / pair_iters:.4f} ms per "
+                f"pair-iteration); pair by pair (solo cpd_register, the earlier lowering) "
+                f"{solo_ms:.1f} ms ({pair_cpd[name]['pair_by_pair_ms_per_pair_iter']:.4f}); K4 "
+                f"launches by batch size {launches}, K5 launches {k5_launches}; each pair equal "
+                f"to its solo register {same} (tolerance 0)")
+            check(same, f"pair-axis CPD ({name}): a pair differs from its solo run")
+            check(any(k > 1 and v > 0 for k, v in launches.items()),
+                  f"pair-axis CPD ({name}) did not launch K4's batch form with B > 1")
+            if mode == hybrid:
+                check("trunc" in phases, f"pair-axis CPD ({name}) never reached the slow phase")
+                if n_pts >= batch.CAND_MIN_ROWS:
+                    check(min(k5_launches) > 0 and trunc_in_batch == 0,
+                          f"pair-axis CPD ({name}): the slow phase did not go to K5")
+                else:
+                    check(trunc_in_batch > 0,
+                          f"pair-axis CPD ({name}): no truncated E-step in K4's batch form")
+            # the batch form's first and last call of the run against the
+            # plain version on the same operands: both passes on the first,
+            # middle and last block of each pair, and at 2,048 rows the
+            # whole E-step
+            for which in ("first", "last"):
+                args = seen[which]
+                scal, ty, tgt, mm, tm = estep_operands(*args)
+                errs = k4_batch_against_plain(scal, ty, tgt, None, mm, tm)
+                if ty.shape[1] <= 2048:
+                    got_e, want_e = real_estep(*args), plain_estep(*args)
+                    for f in STATS:
+                        g, w = getattr(got_e, f).double(), getattr(want_e, f).double()
+                        a = float((g - w).abs().max())
+                        # pt1 = 1 - c / denom lies in [0, 1]: the
+                        # denominators' 1e-5 relative tolerance bounds its
+                        # error by 1e-5 absolute, while against its own
+                        # largest value it is ill-conditioned where c
+                        # dominates the row sums (the slow phase's c_init)
+                        errs[f"E-step {f}"] = (a, a if f == "pt1" else
+                                               a / max(float(w.abs().max()), 1e-30))
+                torch.cuda.synchronize()
+                log(f"[pairs-cpd] {name}: K4's batch form on the loop's {which} call (B = "
+                    f"{ty.shape[0]}, truncated {int(args[6].sum())}) against the plain version: "
+                    + ", ".join(f"{k} {a:.3e}, {e:.3e}" for k, (a, e) in errs.items())
+                    + " (max abs, and relative to the largest plain value, absolute for the "
+                    "E-step's pt1; tolerance 1e-5)")
+                for k, (_, e) in errs.items():
+                    check(e <= 1e-5, f"pair-axis CPD ({name}): K4's batch form ({k}) differs "
+                                     f"from its plain version on the loop's {which} call")
+            if "cand" in seen:
+                # the loop's last E-step on K5: equal to K4 bit for bit, and
+                # K4 on it against the plain version (first, middle and
+                # last block)
+                args = seen["cand"]
+                cand = real_cand(*args)
+                route = cpd_cand.ROUTE_TRACE[-1]
+                dense = cpd_dense.cpd_estep_dense(*args)
+                bad = sum(int((getattr(dense, f) != getattr(cand, f)).sum()) for f in STATS)
+                one = [torch.as_tensor(a, device=dev).reshape(1) for a in args[4:]]
+                scal, ty, tgt, mm, tm = estep_operands(*(a[None] for a in args[:4]),
+                                                       one[0].float(), one[1].float(), one[2])
+                errs = k4_batch_against_plain(scal, ty, tgt, None, mm, tm)
+                torch.cuda.synchronize()
+                log(f"[pairs-cpd] {name}: the loop's last K5 E-step (route {route}) against K4: "
+                    f"{bad} elements differ (tolerance 0); K4 there against the plain version: "
+                    + ", ".join(f"{k} {a:.3e}, {e:.3e}" for k, (a, e) in errs.items())
+                    + " (max abs, relative; tolerance 1e-5)")
+                check(route == "k5" and bad == 0, f"pair-axis CPD ({name}): K5 differs from K4")
+                for k, (_, e) in errs.items():
+                    check(e <= 1e-5, f"pair-axis CPD ({name}): K4 ({k}) differs from its plain "
+                                     f"version on the loop's last K5 E-step")
+            del bb, ba, seen
+    # K4's passes alone at 16 x 16,384^2 (batch form), then against the plain
+    # running totals on the same operands
+    b, rows = sizes["batch_pairs"], sizes["batch_large"]
+    mov = torch.from_numpy((rng.random((b, rows, 3)) * 10).astype(np.float32)).to(dev)
+    tgt = torch.from_numpy((rng.random((b, rows, 3)) * 10).astype(np.float32)).to(dev)
+    s2 = torch.full((b,), 2.0, device=dev)
+    scal = cpd_dense.estep_scalars(s2, torch.full_like(s2, 0.1),
+                                   torch.zeros(b, dtype=torch.bool, device=dev), 1e-3)
+    w4 = torch.from_numpy(rng.random((b, rows, 4)).astype(np.float32)).to(dev)
+    k4["ms_batch"] = {
+        "denom": time_ms(lambda: cpd_dense.denom_pass_batch(scal, mov, tgt), 10),
+        "moments": time_ms(lambda: cpd_dense.moments_pass_batch(scal, mov, tgt, w4), 10)}
+    errs = k4_batch_against_plain(scal, mov, tgt, w4)
+    torch.cuda.synchronize()
+    k4["max_abs_err_batch"] = {k: a for k, (a, _) in errs.items()}
+    k4["shape"] = f"{b} x {rows}^2"
+    k4_pairs, io = float(b) * rows * rows, b * rows * 24 + b * 16
+    k4["bound"] = {"denom": bound_of(FLOPS_DENOM * k4_pairs, io + b * rows * 4, k4_pairs),
+                   "moments": bound_of(FLOPS_MOMENTS * k4_pairs, io + b * rows * 32, k4_pairs)}
+    k4["launches_per_batched_iter"] = {
+        name: v["launches_per_batched_iter"] for name, v in pair_cpd.items()}
+    log(f"[pairs-cpd] K4's passes at {k4['shape']} (batch form) on {smi}: {k4['ms_batch']} ms, "
+        f"bounds {k4['bound']}; against the plain running totals on the first, middle and last "
+        f"block of each pair: "
+        + ", ".join(f"{k} {a:.3e}, {e:.3e}" for k, (a, e) in errs.items())
+        + " (max abs, relative to the largest plain value; tolerance 1e-5)")
+    for k, (_, e) in errs.items():
+        check(e <= 1e-5, f"K4's batch form ({k}) differs from its plain version at {k4['shape']}")
+    out["pair_cpd"] = pair_cpd
+    out["k4"] = k4
+    return out
 
 
 def main(dev=None, sizes=FULL) -> int:
@@ -1373,6 +1971,10 @@ def main(dev=None, sizes=FULL) -> int:
     big = icp_register(lb, la, max_iterations=sizes["large_iters"], use_spatial=True)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
+    phase6 = {"before": big_before, "after": big_after, "max_iterations": sizes["large_iters"],
+              "result": (big.transform.rotation.cpu().numpy(),
+                         big.transform.translation.cpu().numpy(), int(big.iterations),
+                         float(big.error))}
     arms = list(nn_hier.ARM_TRACE)
     cos = (np.trace(big.transform.rotation.cpu().numpy().astype(np.float64).T
                     @ r_big.astype(np.float64)) - 1) / 2
@@ -1469,9 +2071,22 @@ def main(dev=None, sizes=FULL) -> int:
     per_iter = {k: v / iters for k, v in per_call.items()}
     k1_bound = bound_of(FLOPS_NN * float(n_head) * n_head, n_head * (12 + 12 + 8))
 
-    cpd_kernels = cpd_phases(dev, smi, kind, sizes, time_ms)
+    cpd_kernels, phase10 = cpd_phases(dev, smi, kind, sizes, time_ms)
     slice7 = nicp_batch_phases(dev, smi, kind, sizes, time_ms)
     log(f"[nicp] summary: {json.dumps(slice7)}")
+    slice8 = drivers_phases(dev, smi, kind, sizes, time_ms, phase6, phase10)
+    log(f"[drivers] summary: {json.dumps(slice8)}")
+    per_pair = slice8["sequence"]["scan seeded"]["launches_per_pair"]
+    for entry, name in zip(cpd_kernels[:2], ("denom", "moments")):
+        entry["launches_per_batched_iter"] = slice8["k4"]["launches_per_batched_iter"]
+        entry["ms_batch_form"] = slice8["k4"]["ms_batch"][name]
+        entry["bound_ms_batch_form"] = slice8["k4"]["bound"][name]["bound_ms"]
+        entry["batch_form_shape"] = slice8["k4"]["shape"]
+        entry["max_abs_err_batch_form"] = slice8["k4"]["max_abs_err_batch"][name]
+    # K5 on the pair-axis loop: the slow phase of clouds of CAND_MIN_ROWS rows or more
+    for entry, k in zip(cpd_kernels[2:4], range(2)):
+        entry["launches_pair_axis"] = {
+            name: v["k5_launches"][k] for name, v in slice8["pair_cpd"].items()}
 
     log(smi)
     log(json.dumps({"kernels": [
@@ -1488,6 +2103,7 @@ def main(dev=None, sizes=FULL) -> int:
             "ms_small_grids": k1_small_ms,
             "library_ms": None,
             "launches_per_iter": per_iter["K1"],
+            "launches_per_sequence_pair": per_pair["K1"],
             "launches_per_nicp_run": {k: v["K1"] for k, v in slice7["nicp_runs"].items()},
             "ms_nicp_rescore": slice7["k1_rescore"]["ms"],
         },
@@ -1503,6 +2119,7 @@ def main(dev=None, sizes=FULL) -> int:
             **k2_bound,
             "library_ms": None,
             "launches_per_iter": per_iter["K2"],
+            "launches_per_sequence_pair": per_pair["K2"],
         },
         {
             "name": "nn_cand (K3)",
@@ -1516,6 +2133,7 @@ def main(dev=None, sizes=FULL) -> int:
             **k3_bound,
             "library_ms": None,
             "launches_per_iter": per_iter["K3"],
+            "launches_per_sequence_pair": per_pair["K3"],
         },
         *cpd_kernels,
     ]}))

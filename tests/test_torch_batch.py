@@ -26,6 +26,7 @@ import tpuslam_torch
 from tests.conftest import make_cloud, random_rigid
 from tests.test_batch import make_pairs
 from tpuslam.algorithms import batch as jbatch
+from tpuslam.config.configuration import ApproximationType as JaxApprox
 from tpuslam.algorithms.icp import icp_register_prealigned as jax_prealigned
 from tpuslam.core.types import pad_cloud as jax_pad_cloud
 from tpuslam_torch.algorithms.batch import (
@@ -35,9 +36,10 @@ from tpuslam_torch.algorithms.batch import (
     nicp_register_batch,
     stack_clouds,
 )
-from tpuslam_torch.algorithms.cpd import cpd_register
+from tpuslam_torch.algorithms.cpd import cpd_register, sigma_squared_init
 from tpuslam_torch.algorithms.icp import icp_register, icp_register_prealigned
 from tpuslam_torch.algorithms.nicp import nicp_register
+from tpuslam_torch.config.configuration import ApproximationType
 from tpuslam_torch.core import types
 from tpuslam_torch.core.types import Cloud, pad_cloud
 from tpuslam_torch.ops import nn_hier
@@ -64,6 +66,13 @@ def _equal(batch, k, solo):
     assert torch.equal(batch.transform.rotation[k], solo.transform.rotation)
     assert torch.equal(batch.transform.translation[k], solo.transform.translation)
     assert torch.equal(batch.error[k], solo.error)
+
+
+def _equal_solo(a, b):
+    assert int(a.iterations) == int(b.iterations)
+    assert torch.equal(a.transform.rotation, b.transform.rotation)
+    assert torch.equal(a.transform.translation, b.transform.translation)
+    assert torch.equal(a.error, b.error)
 
 
 def _close(port, jax_res, atol=1e-4):
@@ -198,6 +207,138 @@ def test_cpd_batch_recovers(rng):
         _equal(batch, i, cpd_register(_pair(bb, i), _pair(ba, i), **kw))
 
 
+@pytest.mark.parametrize("mode,use_fgt,use_kernels", [
+    (ApproximationType.NONE, False, False),
+    (ApproximationType.Full, False, False),
+    (ApproximationType.Hybrid, False, False),
+    (ApproximationType.NONE, False, True),
+    (ApproximationType.Full, False, True),
+    (ApproximationType.Hybrid, False, True),
+    (ApproximationType.Hybrid, True, True),  # FGT pairs beside K4's batch form
+])
+def test_cpd_pair_axis_equals_solo_bit_for_bit(rng, monkeypatch, mode, use_fgt, use_kernels):
+    """The pair-axis EM loop gives each pair its solo run's bits.  With the
+    kernels (their plain versions here) every iteration's exact and
+    truncated E-steps are one call of K4's batch form over the pairs that
+    step; FGT-phase pairs run the FGT alone."""
+    from tpuslam_torch.algorithms import batch as batch_mod
+
+    calls = []
+    real = batch_mod.cpd_estep_dense_batch
+
+    def counting(transformed, *args, **kwargs):
+        calls.append(transformed.shape[0])
+        return real(transformed, *args, **kwargs)
+
+    monkeypatch.setattr(batch_mod, "cpd_estep_dense_batch", counting)
+    # the FGT case runs past Hybrid's switch (iterations 20-27 on these
+    # small pairs); the others stay short, as K4's plain version is slow
+    sizes = [120, 100, 110] if use_fgt else [300, 250, 280]
+    befores, afters, _ = make_pairs(rng, sizes, angle=0.25, trans=0.5)
+    iterations = 30 if use_fgt else 8 if use_kernels else 40
+    kw = dict(weight=0.1, max_iterations=iterations, tolerance=1e-6,
+              approximation_type=mode, use_fgt=use_fgt, use_kernels=use_kernels)
+    bb, ba = stack_clouds(befores, device="cpu"), stack_clouds(afters, device="cpu")
+    batch = cpd_register_batch(bb, ba, **kw)
+    for i in range(3):
+        solo = cpd_register(_pair(bb, i), _pair(ba, i), **kw)
+        _equal(batch, i, solo)
+        assert torch.equal(batch.transform.scale[i], solo.transform.scale)
+    if not use_kernels:
+        assert calls == []
+    elif use_fgt:
+        # the FGT phase first, then the truncated one on K4's batch form
+        assert 0 < len(calls) < kw["max_iterations"]
+    else:
+        assert calls == [3] * kw["max_iterations"]
+
+
+def test_cpd_pair_axis_mixed_stops(rng, monkeypatch):
+    """Pairs that stop at different iterations keep their states; the
+    batch shrinks to the pairs still stepping."""
+    from tpuslam_torch.algorithms import batch as batch_mod
+
+    calls = []
+    real = batch_mod.cpd_estep_dense_batch
+    monkeypatch.setattr(batch_mod, "cpd_estep_dense_batch",
+                        lambda t, *a, **k: calls.append(t.shape[0]) or real(t, *a, **k))
+    befores, afters = [], []
+    for angle, trans in ((0.02, 0.05), (0.3, 0.8), (0.15, 0.3)):
+        b = (rng.random((200, 3)) * 6.0 - 3.0).astype(np.float32)
+        r, t = random_rigid(rng, angle, trans)
+        befores.append(b)
+        afters.append((b @ r.T + t)[rng.permutation(200)].astype(np.float32))
+    kw = dict(weight=0.1, max_iterations=30, tolerance=1e-4, const_scale=True,
+              use_kernels=True)
+    bb, ba = stack_clouds(befores, device="cpu"), stack_clouds(afters, device="cpu")
+    batch = cpd_register_batch(bb, ba, **kw)
+    iters = batch.iterations.tolist()
+    assert len(set(iters)) > 1, iters
+    for i in range(3):
+        _equal(batch, i, cpd_register(_pair(bb, i), _pair(ba, i), **kw))
+    assert calls == [sum(it > k for it in iters) for k in range(max(iters))]
+
+
+def test_cpd_pair_axis_large_truncated_pairs_take_k5(rng, monkeypatch):
+    """Truncated E-steps of clouds of ``CAND_MIN_ROWS`` rows or more leave
+    K4's batch form for K5 pair by pair, the solo run's route; exact
+    E-steps stay in the batch form, and each pair keeps its solo bits.
+    The threshold and Hybrid's switch are lowered so that 1,152-row
+    clouds (two 1,024-row blocks, the least K5 can skip in) reach the
+    slow phase within a few iterations of the plain versions."""
+    from tpuslam_torch.algorithms import batch as batch_mod
+    from tpuslam_torch.algorithms import cpd as cpd_mod
+    from tpuslam_torch.kernels import cpd_cand
+
+    calls = []
+    real = batch_mod.cpd_estep_dense_batch
+    monkeypatch.setattr(batch_mod, "cpd_estep_dense_batch",
+                        lambda t, *a, **k: calls.append(t.shape[0]) or real(t, *a, **k))
+    monkeypatch.setattr(batch_mod, "CAND_MIN_ROWS", 1024)
+    monkeypatch.setattr(cpd_mod, "HYBRID_SWITCH", 0.5)
+    befores, afters, _ = make_pairs(rng, [1100, 1050], angle=0.1, trans=0.3)
+    kw = dict(weight=0.1, max_iterations=4, tolerance=0.0, const_scale=True,
+              approximation_type=ApproximationType.Hybrid, use_fgt=False, use_kernels=True)
+    bb, ba = stack_clouds(befores, device="cpu"), stack_clouds(afters, device="cpu")
+    cpd_mod.PHASE_TRACE.clear()
+    cpd_cand.ROUTE_TRACE.clear()
+    batch = cpd_register_batch(bb, ba, **kw)
+    phases = list(cpd_mod.PHASE_TRACE)
+    routes = list(cpd_cand.ROUTE_TRACE)
+    assert "exact" in phases and "trunc" in phases, phases
+    # every truncated E-step went through cpd_estep_cand, every exact one
+    # through the batch form
+    assert len(routes) == phases.count("trunc") and "k5" in routes, routes
+    assert sum(calls) == phases.count("exact"), (calls, phases)
+    for i in range(2):
+        solo = cpd_register(_pair(bb, i), _pair(ba, i), **kw)
+        _equal(batch, i, solo)
+        assert torch.equal(batch.transform.scale[i], solo.transform.scale)
+
+
+@pytest.mark.parametrize("mode", [ApproximationType.NONE, ApproximationType.Hybrid])
+def test_cpd_pair_axis_matches_jax_batch(rng, mode):
+    """Against the JAX package's vmapped batch, with the solo parity
+    test's fixture and tolerances (``tests/test_torch_cpd.py``): equal
+    iterations, R within 1e-4, sigma^2 within 1e-6 sigma^2_0."""
+    befores, afters = [], []
+    for n in (300, 260):
+        b = (rng.random((n, 3)) * 6.0 - 3.0).astype(np.float32)
+        r, t = random_rigid(rng, angle=0.25, trans=0.5)
+        befores.append(b)
+        afters.append((b @ r.T + t)[rng.permutation(n)].astype(np.float32))
+    kw = dict(weight=0.1, max_iterations=150, tolerance=1e-6)
+    bb, ba = stack_clouds(befores, device="cpu"), stack_clouds(afters, device="cpu")
+    got = cpd_register_batch(bb, ba, approximation_type=mode, **kw)
+    want = jbatch.cpd_register_batch(jbatch.stack_clouds(befores), jbatch.stack_clouds(afters),
+                                     approximation_type=JaxApprox(mode.value), **kw)
+    np.testing.assert_array_equal(got.iterations.numpy(), np.asarray(want.iterations))
+    _close(got, want)
+    for i in range(2):
+        s0 = float(sigma_squared_init(bb.points[i], bb.mask()[i], ba.points[i], ba.mask()[i]))
+        assert abs(float(got.error[i]) - float(want.error[i])) <= 1e-6 * s0
+
+
 def test_stack_clouds_padding(rng):
     clouds = [rng.random((n, 3)).astype(np.float32) for n in (50, 300)]
     stacked = stack_clouds(clouds)
@@ -259,7 +400,7 @@ def _anisotropic_pairs(rng, sizes, angle=2.0, trans=30.0):
     return befores, afters, truths
 
 
-def test_prealigned_matches_jax(rng):
+def test_prealigned_matches_jax(rng, tmp_path):
     (b,), (a,), ((r, t),) = _anisotropic_pairs(rng, [600])
     kw = dict(eps=1e-6, max_distance_squared=1e9, max_iterations=40, seed=2)
     got = icp_register_prealigned(pad_cloud(b), pad_cloud(a), **kw)
@@ -272,10 +413,9 @@ def test_prealigned_matches_jax(rng):
     cold = icp_register(pad_cloud(b), pad_cloud(a), eps=1e-6, max_distance_squared=1e9,
                         max_iterations=40)
     assert _truth_mse(b, cold.transform.rotation, cold.transform.translation, r, t) > 1.0
-    with pytest.raises(NotImplementedError, match="Queue 1 item 2"):
-        icp_register_prealigned(pad_cloud(b), pad_cloud(a), chunk=10)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 2"):
-        icp_register_prealigned(pad_cloud(b), pad_cloud(a), checkpoint_path="x.npz")
+    # chunked and checkpointed, the prealigned loop follows the same path
+    for extra in (dict(chunk=10), dict(checkpoint_path=str(tmp_path / "x.npz"))):
+        _equal_solo(icp_register_prealigned(pad_cloud(b), pad_cloud(a), **extra, **kw), got)
 
 
 def test_prealign_batch_matches_solo(rng):
@@ -414,10 +554,16 @@ def test_pad_cloud_places_host_arrays_by_resolve_device(rng, monkeypatch):
     assert stack_clouds([pts]).points.device == tpuslam_torch.core.device.resolve_device(None)
 
 
-def test_icp_checkpoint_env_raises(rng, monkeypatch):
-    monkeypatch.setenv("TPUSLAM_ICP_CKPT", "ckpt.npz")
+def test_icp_checkpoint_env_raises(rng, monkeypatch, tmp_path):
+    """``TPUSLAM_ICP_CKPT`` no longer raises: it runs the chunked driver,
+    cold and prealigned, along the whole run's path."""
     pts = make_cloud(rng, 64)
-    with pytest.raises(NotImplementedError, match="TPUSLAM_ICP_CKPT.*Queue 1 item 2"):
-        tpuslam_torch.register(pts, pts, device="cpu")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 2"):
-        tpuslam_torch.register(pts, pts, device="cpu", icp_prealign=True)
+    moved = (pts @ random_rigid(rng, 0.2, 1.0)[0].T).astype(np.float32)
+    whole = [tpuslam_torch.register(pts, moved, device="cpu", icp_prealign=p)
+             for p in (False, True)]
+    monkeypatch.setenv("TPUSLAM_ICP_CKPT", str(tmp_path / "ckpt.npz"))
+    for pre, want in zip((False, True), whole):
+        got = tpuslam_torch.register(pts, moved, device="cpu", icp_prealign=pre)
+        np.testing.assert_array_equal(got[0], want[0])
+        np.testing.assert_array_equal(got[1], want[1])
+        assert got[2:] == want[2:]

@@ -315,11 +315,18 @@ def test_register_entry_point_matches_jax(rng):
 
 
 def test_checkpointing_raises(rng, monkeypatch, tmp_path):
+    """``TPUSLAM_CPD_CKPT`` no longer raises: it runs the chunked driver
+    along the whole run's path and leaves its checkpoint."""
+    before, after, _, _ = _pair(rng, n=64)
+    kw = dict(device="cpu", computation_method=ComputationMethod.Cpd, max_iterations=5,
+              cpd_weight=0.1)
+    whole = tpuslam_torch.register(before, after, **kw)
     monkeypatch.setenv("TPUSLAM_CPD_CKPT", str(tmp_path / "ckpt"))
-    before, _, _, _ = _pair(rng, n=64)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 2"):
-        tpuslam_torch.register(before, before, device="cpu",
-                               computation_method=ComputationMethod.Cpd, max_iterations=5)
+    got = tpuslam_torch.register(before, after, **kw)
+    np.testing.assert_array_equal(got[0], whole[0])
+    np.testing.assert_array_equal(got[1], whole[1])
+    assert got[2:] == whole[2:]
+    assert (tmp_path / "ckpt").exists()
 
 
 def test_interop_round_trips(rng):

@@ -836,3 +836,155 @@ def test_register_pairs_and_prealign_on_card(rng, cuda):
     assert on_card[2] == on_cpu[2]
     np.testing.assert_allclose(on_card[0], on_cpu[0], rtol=0, atol=1e-4)
     np.testing.assert_allclose(on_card[0], r, atol=1e-3)
+
+
+@pytest.mark.parametrize("rows", [2048, 16_384])
+def test_cpd_dense_batch_pairs_equal_their_solo_calls(rng, cuda, rows):
+    """K4's batch form at B = 1, 2 and 16 gives each pair the bits of its
+    B = 1 call, passes and statistics alike, though the launch geometry
+    (rows a thread, splits of the other cloud) changes with B x rows: the
+    pair-axis CPD loop builds on it."""
+    b_max = 16
+    sort = lambda p: p[morton_permutation(p, torch.ones(len(p), device=cuda)).long()]
+    mov = torch.stack([sort(torch.from_numpy((rng.random((rows, 3)) * 10).astype(
+        np.float32)).to(cuda)) for _ in range(b_max)]).contiguous()
+    tgt = torch.stack([sort(torch.from_numpy((rng.random((rows, 3)) * 10).astype(
+        np.float32)).to(cuda)) for _ in range(b_max)]).contiguous()
+    m_mask = torch.ones((b_max, rows), device=cuda)
+    t_mask = m_mask.clone()
+    t_mask[1, rows - 700:] = 0.0  # a ragged target
+    s2 = torch.from_numpy(rng.uniform(0.05, 20.0, b_max).astype(np.float32)).to(cuda)
+    c = torch.from_numpy(rng.uniform(0.0, 0.5, b_max).astype(np.float32)).to(cuda)
+    trunc = torch.from_numpy(np.arange(b_max) % 2 == 1).to(cuda)
+    args = (mov, m_mask, tgt, t_mask, s2, c, trunc)
+    solo = [cpd_dense.cpd_estep_dense_batch(*(a[p:p + 1] for a in args)) for p in range(b_max)]
+    geometries = set()
+    for b in (1, 2, 16):
+        k = cpd_dense.BATCH_LAUNCHES[b]
+        out = cpd_dense.cpd_estep_dense_batch(*(a[:b] for a in args))
+        torch.cuda.synchronize()
+        assert cpd_dense.BATCH_LAUNCHES[b] == k + 2
+        geometries.add(cpd_dense.cpd_geometry(rows, b, rows // cpd_dense.TILE))
+        for p in range(b):
+            for f in ("p1", "pt1", "px", "error"):
+                assert torch.equal(getattr(out, f)[p], getattr(solo[p], f)[0]), (b, p, f)
+    assert len(geometries) > 1 or rows == 2048
+
+
+@pytest.mark.parametrize("mode", [ApproximationType.NONE, ApproximationType.Hybrid])
+def test_cpd_pair_axis_on_card_equals_solo(rng, cuda, mode):
+    """``cpd_register_batch`` on 4 x 2,048 pairs: one K4 batch call per
+    iteration with B = 4 while all pairs step, each pair equal to its solo
+    run (K5 in its slow phase) bit for bit."""
+    from tpuslam_torch.algorithms.batch import cpd_register_batch, stack_clouds
+    from tpuslam_torch.core.types import Cloud
+
+    befores, afters = [], []
+    for _ in range(4):
+        b = (rng.random((2048, 3)) * 10).astype(np.float32)
+        r = get_random_rotation_matrix(rng, 0.1)
+        befores.append(b)
+        afters.append((b @ r.T + get_random_translation_vector(rng, 0.5)).astype(np.float32))
+    bb, ba = stack_clouds(befores, device=cuda), stack_clouds(afters, device=cuda)
+    kw = dict(weight=0.1, const_scale=True, max_iterations=40, tolerance=1e-5,
+              approximation_type=mode, use_fgt=False)
+    k = cpd_dense.BATCH_LAUNCHES[4]
+    out = cpd_register_batch(bb, ba, **kw)
+    assert cpd_dense.BATCH_LAUNCHES[4] > k
+    for p in range(4):
+        solo = cpd_register(Cloud(bb.points[p], bb.count[p]), Cloud(ba.points[p], ba.count[p]),
+                            **kw)
+        assert int(out.iterations[p]) == solo.iterations
+        assert torch.equal(out.transform.rotation[p], solo.transform.rotation)
+        assert torch.equal(out.transform.translation[p], solo.transform.translation)
+        assert torch.equal(out.error[p], solo.error)
+
+
+def test_cpd_pair_axis_on_card_truncated_pairs_take_k5(rng, cuda, monkeypatch):
+    """Above ``CAND_MIN_ROWS`` (lowered here to 2,048 rows) the batched
+    loop's truncated E-steps launch K5 pair by pair; exact ones stay in
+    K4's batch form, and each pair equals its solo run bit for bit."""
+    from tpuslam_torch.algorithms import batch as batch_mod
+    from tpuslam_torch.algorithms.batch import cpd_register_batch, stack_clouds
+    from tpuslam_torch.core.types import Cloud
+
+    monkeypatch.setattr(batch_mod, "CAND_MIN_ROWS", 2048)
+    befores, afters = [], []
+    for _ in range(4):
+        b = (rng.random((2048, 3)) * 10).astype(np.float32)
+        r = get_random_rotation_matrix(rng, 0.1)
+        befores.append(b)
+        afters.append((b @ r.T + get_random_translation_vector(rng, 0.5)).astype(np.float32))
+    bb, ba = stack_clouds(befores, device=cuda), stack_clouds(afters, device=cuda)
+    kw = dict(weight=0.1, const_scale=True, max_iterations=40, tolerance=0.0,
+              approximation_type=ApproximationType.Hybrid, use_fgt=False)
+    k4, k5 = cpd_dense.BATCH_LAUNCHES[4], cpd_cand.DENOM_LAUNCHES
+    out = cpd_register_batch(bb, ba, **kw)
+    assert cpd_dense.BATCH_LAUNCHES[4] > k4 and cpd_cand.DENOM_LAUNCHES > k5
+    for p in range(4):
+        solo = cpd_register(Cloud(bb.points[p], bb.count[p]), Cloud(ba.points[p], ba.count[p]),
+                            **kw)
+        assert int(out.iterations[p]) == solo.iterations
+        assert torch.equal(out.transform.rotation[p], solo.transform.rotation)
+        assert torch.equal(out.transform.translation[p], solo.transform.translation)
+        assert torch.equal(out.error[p], solo.error)
+
+
+def test_chunked_icp_and_cpd_on_card_equal_whole(rng, cuda):
+    """Chunked ICP on the hierarchical arm at 102,400 points (the warm state
+    crosses each boundary on the card) and chunked CPD (sorted once) equal
+    their whole runs bit for bit."""
+    from tpuslam_torch.algorithms.cpd import cpd_register_chunked
+    from tpuslam_torch.algorithms.icp import icp_register_chunked
+
+    n = 102_400
+    before = (rng.random((n, 3)) * 10).astype(np.float32)
+    r = get_random_rotation_matrix(rng, 0.1)
+    after = (before @ r.T + get_random_translation_vector(rng, 0.5)).astype(np.float32)
+    b, a = pad_cloud(before, device=cuda), pad_cloud(after[rng.permutation(n)], device=cuda)
+    kw = dict(eps=0.0, max_distance_squared=1e4, max_iterations=12, use_spatial=True)
+    whole = icp_register(b, a, **kw)
+    parts = icp_register_chunked(b, a, chunk=5, **kw)
+    assert parts.iterations == whole.iterations == 12
+    assert torch.equal(parts.transform.rotation, whole.transform.rotation)
+    assert torch.equal(parts.transform.translation, whole.transform.translation)
+    assert torch.equal(parts.error, whole.error)
+    small = 8192
+    b, a = pad_cloud(before[:small], device=cuda), pad_cloud(after[:small], device=cuda)
+    kw = dict(weight=0.1, const_scale=True, max_iterations=30, tolerance=0.0,
+              approximation_type=ApproximationType.Hybrid, use_fgt=False)
+    whole = cpd_register(b, a, **kw)
+    parts = cpd_register_chunked(b, a, chunk=4, **kw)
+    assert parts.iterations == whole.iterations
+    assert torch.equal(parts.transform.rotation, whole.transform.rotation)
+    assert torch.equal(parts.transform.translation, whole.transform.translation)
+    assert torch.equal(parts.error, whole.error)
+
+
+@pytest.mark.parametrize("lowering", [dict(), dict(scan=False), dict(batch=True)])
+def test_sequence_on_card_follows_the_truth(rng, cuda, lowering):
+    """Five scans of 16,384 points on the card (the hierarchical arm from
+    8,192 rows): every absolute pose within 1 degree and 0.15 of the truth;
+    the stream equals the scan lowering."""
+    from tpuslam_torch.data.synthesis import get_random_rotation_matrix as rot
+
+    n, scene = 16_384, (rng.random((16_384, 3)) * 10.0).astype(np.float32)
+    poses = [(np.eye(3, dtype=np.float32), np.zeros(3, np.float32))]
+    for _ in range(4):
+        dr, dt = rot(rng, 0.08), get_random_translation_vector(rng, 0.4)
+        r_prev, t_prev = poses[-1]
+        poses.append(((r_prev @ dr).astype(np.float32), (r_prev @ dt + t_prev).astype(np.float32)))
+    scans = [((scene - t) @ r)[rng.permutation(n)].astype(np.float32) for r, t in poses]
+    kw = dict(max_iterations=60, max_distance_squared=1e6)
+    out = tpuslam_torch.register_sequence(scans, device=cuda, **lowering, **kw)
+    for k, (r, t) in enumerate(poses):
+        est = out.absolute[k]
+        cos = (np.trace(est.rotation.astype(np.float64) @ r.T.astype(np.float64)) - 1) / 2
+        assert np.degrees(np.arccos(np.clip(cos, -1, 1))) < 1.0, k
+        assert np.linalg.norm(est.translation - t) < 0.15, k
+    if not lowering:
+        stream = tpuslam_torch.sequence_stream(scans[0], device=cuda, **kw)
+        for s in scans[1:]:
+            stream.push(s)
+        for p, q in zip(stream.absolute, out.absolute):
+            np.testing.assert_array_equal(p.rotation, q.rotation)

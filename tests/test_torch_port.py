@@ -72,18 +72,20 @@ def test_run_with_configuration_defaults_match_jax(rng):
     (dict(icp_prealign=True), "NICP"),
 ])
 def test_unported_methods_raise(rng, monkeypatch, tmp_path, what, match):
-    # ICP (cold and NICP-prealigned) and CPD are ported; their checkpointed,
-    # chunked forms are not (ROADMAP Queue 1 item 2).  NICP, which the JAX
-    # package never chunks, is ported and runs with both set.
+    # every method runs with both checkpoint variables set: ICP (cold and
+    # NICP-prealigned) and CPD through their chunked drivers, NICP, which
+    # the JAX package never chunks, as it is
+    cloud = make_cloud(rng, 64)
+    whole = tpuslam_torch.register(cloud, cloud, device="cpu", **what)
     monkeypatch.setenv("TPUSLAM_CPD_CKPT", str(tmp_path / "cpd.ckpt"))
     monkeypatch.setenv("TPUSLAM_ICP_CKPT", str(tmp_path / "icp.ckpt"))
-    cloud = make_cloud(rng, 64)
+    rot, trans, iters, err = tpuslam_torch.register(cloud, cloud, device="cpu", **what)
+    assert np.isfinite(rot).all(), match
+    np.testing.assert_array_equal(rot, whole[0])
+    np.testing.assert_array_equal(trans, whole[1])
+    assert (iters, err) == whole[2:]
     if what.get("computation_method") == ComputationMethod.NoniterativeIcp:
-        rot, _, iters, _ = tpuslam_torch.register(cloud, cloud, device="cpu", **what)
-        assert iters == 4 and np.isfinite(rot).all()
-        return
-    with pytest.raises(NotImplementedError, match=f"{match}.*Queue 1 item 2"):
-        tpuslam_torch.register(cloud, cloud, device="cpu", **what)
+        assert iters == 4
 
 
 def test_headline_pair_matches_jax():

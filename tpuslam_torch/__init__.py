@@ -14,10 +14,13 @@ one K1 call.  CPD runs its exact E-step on kernel K5
 (``csrc/cpd_dense.cu``, the dense two-pass E-step) as its overflow arm,
 and its Full/Hybrid fast phase on the Fast Gauss Transform from 74,018
 rows.  ``register_pairs`` registers B pairs in one call, on the batch
-forms of K1, K2 and K3 (CPD pair by pair).  The kernels are hand-written
-CUDA for an NVIDIA Hopper card; on the CPU their plain PyTorch versions
-run.  Sequences, the chunked and checkpointed drivers and the CLI are
-not ported yet.
+forms of K1, K2 and K3, and of K4 for CPD.  ``register_sequence`` and
+``sequence_stream`` register a stream of scans pair by pair (odometry),
+and the environment's ``TPUSLAM_{ICP,CPD}_{CHUNK,CKPT}`` run ICP and CPD
+in chunks with disk checkpoints (``algorithms/registry.py``).  The
+kernels are hand-written CUDA for an NVIDIA Hopper card; on the CPU
+their plain PyTorch versions run.  The CLI and the sharded layer are not
+ported yet.
 """
 
 __version__ = "0.1.0"
@@ -49,6 +52,25 @@ def register(before, after, config=None, device=None, **overrides):
     if overrides:
         config = replace(config, **overrides)
     return run_with_configuration(before, after, config, device=device)
+
+
+def register_sequence(clouds, device=None, **kwargs):
+    """Sequential scan odometry: register consecutive clouds pairwise and
+    compose absolute poses (``algorithms/sequence.py::register_sequence``,
+    whose keywords ``kwargs`` are).  Host arrays go to ``device`` (None:
+    CUDA when there is a card; pass ``"cpu"`` for the CPU)."""
+    from tpuslam_torch.algorithms.sequence import register_sequence as _register_sequence
+
+    return _register_sequence(clouds, device=device, **kwargs)
+
+
+def sequence_stream(first_scan, device=None, **kwargs):
+    """Streaming odometry: a ``SequenceStream`` whose ``push(scan)``
+    registers each arriving scan against the previous one, each scan
+    staged on ``device`` once (``algorithms/sequence.py``)."""
+    from tpuslam_torch.algorithms.sequence import SequenceStream
+
+    return SequenceStream(first_scan, device=device, **kwargs)
 
 
 def register_pairs(befores, afters, config=None, device=None, **overrides):

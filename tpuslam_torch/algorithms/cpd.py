@@ -73,7 +73,7 @@ from tpuslam_torch.ops.spatial import morton_permutation
 __all__ = [
     "CPD_FGT_CROSSOVER", "CPDResume", "CPDState", "MStepResult", "Sufficient",
     "cpd_estep", "cpd_estep_auto", "cpd_estep_fgt", "cpd_mstep",
-    "cpd_register", "hybrid_fast_threshold", "mstep_from_moments",
+    "cpd_register", "cpd_register_chunked", "hybrid_fast_threshold", "mstep_from_moments",
     "resolve_use_fgt", "resolve_use_kernels", "sigma_squared_init",
     "uniform_constant",
 ]
@@ -365,6 +365,155 @@ def _centroid_shift(moving, mask_b, target, mask_a, m, n) -> torch.Tensor:
             - torch.sum(moving * mask_b[:, None], dim=0) / m)
 
 
+class _EM:
+    """One registration's EM set-up and steps (module docstring): the
+    clouds (Morton-sorted with the kernels unless ``assume_sorted``),
+    sigma^2_0, the constants, the FGT clusterings, and the loop's phase
+    choice, E-step and M-step.  ``cpd_register`` runs one; the batched
+    loop (``algorithms/batch.py``) one per pair, so each pair takes its
+    solo run's steps."""
+
+    def __init__(self, before: Cloud, after: Cloud, eps, weight, tolerance,
+                 approximation_type: ApproximationType, ratio_of_far_field: float,
+                 order_of_truncation: int, use_fgt: Optional[bool], fgt_k: int,
+                 use_kernels: Optional[bool], centroid_init: bool, assume_sorted: bool):
+        if before.points.device != after.points.device:
+            raise ValueError(
+                f"before lies on {before.points.device}, after on "
+                f"{after.points.device}: register them on one device")
+        self.device = device = before.points.device
+        self.approximation_type = approximation_type
+        self.ratio_of_far_field = ratio_of_far_field
+        self.order_of_truncation = order_of_truncation
+        self.use_fgt = resolve_use_fgt(use_fgt, approximation_type, before.padded_size,
+                                       after.padded_size)
+        self.use_kernels = resolve_use_kernels(use_kernels, device)
+        moving, target = before.points, after.points
+        mask_b, mask_a = before.mask(), after.mask()
+        if self.use_kernels and not assume_sorted:
+            # Morton-sorted rows give K5 spatially compact blocks to skip
+            perm_b = morton_permutation(moving, mask_b).long()
+            moving, mask_b = moving[perm_b], mask_b[perm_b]
+            perm_a = morton_permutation(target, mask_a).long()
+            target, mask_a = target[perm_a], mask_a[perm_a]
+        self.moving, self.target = moving.contiguous(), target.contiguous()
+        self.rows = min(len(moving), len(target))  # padded rows of the smaller cloud
+        self.mask_b, self.mask_a = mask_b, mask_a
+        self.m, self.n = m, n = torch.sum(mask_b), torch.sum(mask_a)
+
+        self.weight = torch.clamp(self.f32(weight), 1e-6, 1.0 - 1e-6)
+        self.eps = self.f32(eps)
+        self.tolerance = self.f32(tolerance)
+        if centroid_init:
+            self.t0 = _centroid_shift(moving, mask_b, target, mask_a, m, n)
+            self.sigma2_0 = sigma_squared_init(moving + self.t0, mask_b, target, mask_a)
+        else:
+            self.t0 = torch.zeros(3, dtype=torch.float32, device=device)
+            self.sigma2_0 = sigma_squared_init(moving, mask_b, target, mask_a)
+        self.c_init = uniform_constant(self.sigma2_0, self.weight, m, n)
+        self.switch = HYBRID_SWITCH * self.sigma2_0
+
+        # the FGT clusterings, made once with the order their segment sums
+        # take: the target's never changes, and the moving cloud's
+        # assignments are invariant under the similarity transforms EM
+        # applies, while its centres (segment means) move with it
+        self.fgt_kk = min(fgt_k, before.padded_size, after.padded_size)
+        if self.use_fgt and approximation_type != ApproximationType.NONE:
+            self.fgt_y = k_center_ordered(moving, mask_b, self.fgt_kk)
+            self.fgt_x = k_center_ordered(target, mask_a, self.fgt_kk)
+
+    def f32(self, x) -> torch.Tensor:
+        return torch.as_tensor(x, dtype=torch.float32, device=self.device)
+
+    def initial(self, resume: Optional[CPDResume]) -> CPDState:
+        if resume is None:
+            return CPDState(
+                rotation=torch.eye(3, dtype=torch.float32, device=self.device),
+                translation=self.t0,
+                scale=self.f32(1.0),
+                sigma2=self.sigma2_0,
+                log_likelihood=self.f32(0.0),
+                ntol=self.tolerance + 10.0,
+                iterations=0,
+            )
+        return CPDState(
+            rotation=self.f32(resume.rotation),
+            translation=self.f32(resume.translation),
+            scale=self.f32(resume.scale),
+            sigma2=self.f32(resume.sigma2),
+            log_likelihood=self.f32(resume.log_likelihood),
+            ntol=self.f32(resume.ntol),
+            iterations=0,
+        )
+
+    def flags(self, s: CPDState) -> torch.Tensor:
+        """bool[2] on the device: whether the loop goes on (a non-finite
+        sigma^2 or ntol fails its comparison), and the Hybrid phase."""
+        return torch.stack([
+            torch.isfinite(s.log_likelihood) & (s.ntol > self.tolerance) & (s.sigma2 > self.eps),
+            s.sigma2 > self.switch,
+        ])
+
+    def plan(self, s: CPDState, fast: bool):
+        """The iteration's E-step: ``(fgt, sigma_e, constant, trunc)``
+        (``constant`` None for the FGT, which makes its own)."""
+        if self.approximation_type == ApproximationType.NONE:
+            return False, s.sigma2, self.c_init, False
+        if self.approximation_type == ApproximationType.Full:
+            # sigma^2 floor (coherentpointdrift.cpp:152-155) and the
+            # FGT-mode constant from the current sigma^2 (cpdutils.cpp:44)
+            sigma_e = torch.clamp_min(s.sigma2, 0.05)
+            if self.use_fgt:
+                return True, sigma_e, None, False
+            return False, sigma_e, uniform_constant(sigma_e, self.weight, self.m, self.n), False
+        # Hybrid (coherentpointdrift.cpp:157-164)
+        if not fast:
+            return False, s.sigma2, self.c_init, True
+        if self.use_fgt:
+            return True, s.sigma2, None, False
+        return False, s.sigma2, uniform_constant(s.sigma2, self.weight, self.m, self.n), False
+
+    def transformed(self, s: CPDState) -> torch.Tensor:
+        return transform_points(self.moving, s.rotation, s.translation, s.scale)
+
+    def fgt_stats(self, transformed, sigma_e, s: CPDState) -> Sufficient:
+        PHASE_TRACE.append("fgt")
+        centers_y0, indx_y, order_y = self.fgt_y
+        centers_x, indx_x, order_x = self.fgt_x
+        centers_y = transform_points(centers_y0, s.rotation, s.translation, s.scale)
+        return cpd_estep_fgt(
+            transformed, self.mask_b, self.target, self.mask_a, sigma_e, self.weight, self.m,
+            self.n, self.fgt_kk, self.order_of_truncation, self.ratio_of_far_field,
+            sigma2_init=self.sigma2_0, clusters=(centers_y, indx_y, centers_x, indx_x),
+            orders=(order_y, order_x),
+        )
+
+    def exact_stats(self, transformed, sigma_e, constant, trunc: bool) -> Sufficient:
+        PHASE_TRACE.append("trunc" if trunc else "exact")
+        return cpd_estep_auto(transformed, self.mask_b, self.target, self.mask_a, sigma_e,
+                              constant, trunc, use_kernels=self.use_kernels)
+
+    def estep(self, s: CPDState, fast: bool) -> Sufficient:
+        fgt, sigma_e, constant, trunc = self.plan(s, fast)
+        if fgt:
+            return self.fgt_stats(self.transformed(s), sigma_e, s)
+        return self.exact_stats(self.transformed(s), sigma_e, constant, trunc)
+
+    def advance(self, s: CPDState, stats: Sufficient, const_scale: bool) -> CPDState:
+        """The M-step after ``stats``: the next loop state."""
+        ntol = torch.abs((stats.error - s.log_likelihood) / stats.error)
+        mres = cpd_mstep(self.moving, self.target, stats, const_scale, s.scale)
+        return CPDState(
+            rotation=mres.rotation,
+            translation=mres.translation,
+            scale=mres.scale,
+            sigma2=mres.sigma2,
+            log_likelihood=stats.error,
+            ntol=ntol,
+            iterations=s.iterations + 1,
+        )
+
+
 def cpd_register(
     before: Cloud,
     after: Cloud,
@@ -403,132 +552,23 @@ def cpd_register(
     iterations' (sigma^2, ntol, log-likelihood, scale), iteration i in
     slot i % history_length.  ``resume`` continues from a ``CPDResume``.
     The result's ``error`` is sigma^2, its ``em`` the final loop state."""
-    if before.points.device != after.points.device:
-        raise ValueError(
-            f"before lies on {before.points.device}, after on "
-            f"{after.points.device}: register them on one device")
-    device = before.points.device
-
-    def f32(x):
-        return torch.as_tensor(x, dtype=torch.float32, device=device)
-
-    use_fgt = resolve_use_fgt(use_fgt, approximation_type, before.padded_size,
-                              after.padded_size)
-    use_kernels = resolve_use_kernels(use_kernels, device)
-    moving, target = before.points, after.points
-    mask_b, mask_a = before.mask(), after.mask()
-    if use_kernels and not assume_sorted:
-        # Morton-sorted rows give K5 spatially compact blocks to skip
-        perm_b = morton_permutation(moving, mask_b).long()
-        moving, mask_b = moving[perm_b], mask_b[perm_b]
-        perm_a = morton_permutation(target, mask_a).long()
-        target, mask_a = target[perm_a], mask_a[perm_a]
-    moving, target = moving.contiguous(), target.contiguous()
-    m, n = torch.sum(mask_b), torch.sum(mask_a)
-
-    weight = torch.clamp(f32(weight), 1e-6, 1.0 - 1e-6)
-    eps = f32(eps)
-    tolerance = f32(tolerance)
-    if centroid_init:
-        t0 = _centroid_shift(moving, mask_b, target, mask_a, m, n)
-        sigma2_0 = sigma_squared_init(moving + t0, mask_b, target, mask_a)
-    else:
-        t0 = torch.zeros(3, dtype=torch.float32, device=device)
-        sigma2_0 = sigma_squared_init(moving, mask_b, target, mask_a)
-    c_init = uniform_constant(sigma2_0, weight, m, n)
-    switch = HYBRID_SWITCH * sigma2_0
+    em = _EM(before, after, eps, weight, tolerance, approximation_type, ratio_of_far_field,
+             order_of_truncation, use_fgt, fgt_k, use_kernels, centroid_init, assume_sorted)
     iter_offset = 0 if resume is None else int(resume.done_before)
-
-    # the FGT clusterings, made once with the order their segment sums
-    # take: the target's never changes, and the moving cloud's assignments
-    # are invariant under the similarity transforms EM applies, while its
-    # centres (segment means) move with it
-    fgt_kk = min(fgt_k, before.padded_size, after.padded_size)
-    if use_fgt and approximation_type != ApproximationType.NONE:
-        centers_y0, indx_y, order_y = k_center_ordered(moving, mask_b, fgt_kk)
-        centers_x, indx_x, order_x = k_center_ordered(target, mask_a, fgt_kk)
-
-    def fgt_stats(transformed, sigma_e, s: CPDState) -> Sufficient:
-        PHASE_TRACE.append("fgt")
-        centers_y = transform_points(centers_y0, s.rotation, s.translation, s.scale)
-        return cpd_estep_fgt(
-            transformed, mask_b, target, mask_a, sigma_e, weight, m, n, fgt_kk,
-            order_of_truncation, ratio_of_far_field, sigma2_init=sigma2_0,
-            clusters=(centers_y, indx_y, centers_x, indx_x), orders=(order_y, order_x),
-        )
-
-    def exact_stats(transformed, sigma_e, constant, trunc: bool) -> Sufficient:
-        PHASE_TRACE.append("trunc" if trunc else "exact")
-        return cpd_estep_auto(transformed, mask_b, target, mask_a, sigma_e,
-                              constant, trunc, use_kernels=use_kernels)
-
-    def estep(s: CPDState, fast: bool) -> Sufficient:
-        transformed = transform_points(moving, s.rotation, s.translation, s.scale)
-        if approximation_type == ApproximationType.NONE:
-            return exact_stats(transformed, s.sigma2, c_init, False)
-        if approximation_type == ApproximationType.Full:
-            # sigma^2 floor (coherentpointdrift.cpp:152-155) and the
-            # FGT-mode constant from the current sigma^2 (cpdutils.cpp:44)
-            sigma_e = torch.clamp_min(s.sigma2, 0.05)
-            if use_fgt:
-                return fgt_stats(transformed, sigma_e, s)
-            return exact_stats(transformed, sigma_e,
-                               uniform_constant(sigma_e, weight, m, n), False)
-        # Hybrid (coherentpointdrift.cpp:157-164)
-        if not fast:
-            return exact_stats(transformed, s.sigma2, c_init, True)
-        if use_fgt:
-            return fgt_stats(transformed, s.sigma2, s)
-        return exact_stats(transformed, s.sigma2,
-                           uniform_constant(s.sigma2, weight, m, n), False)
-
-    if resume is None:
-        s = CPDState(
-            rotation=torch.eye(3, dtype=torch.float32, device=device),
-            translation=t0,
-            scale=f32(1.0),
-            sigma2=sigma2_0,
-            log_likelihood=f32(0.0),
-            ntol=tolerance + 10.0,
-            iterations=0,
-        )
-    else:
-        s = CPDState(
-            rotation=f32(resume.rotation),
-            translation=f32(resume.translation),
-            scale=f32(resume.scale),
-            sigma2=f32(resume.sigma2),
-            log_likelihood=f32(resume.log_likelihood),
-            ntol=f32(resume.ntol),
-            iterations=0,
-        )
+    s = em.initial(resume)
     history = None
     if record_history:
         history = torch.full((history_length, 4), float("nan"),
-                             dtype=torch.float32, device=device)
+                             dtype=torch.float32, device=em.device)
 
     while s.iterations < max_iterations:
-        # the one read back of the iteration: the stop condition (a
-        # non-finite sigma^2 or ntol fails its comparison) and the phase
-        go, fast = torch.stack([
-            torch.isfinite(s.log_likelihood) & (s.ntol > tolerance) & (s.sigma2 > eps),
-            s.sigma2 > switch,
-        ]).tolist()
+        # the one read back of the iteration: the stop condition and the phase
+        go, fast = em.flags(s).tolist()
         if not go:
             break
-        stats = estep(s, fast)
-        ntol = torch.abs((stats.error - s.log_likelihood) / stats.error)
-        mres = cpd_mstep(moving, target, stats, const_scale, s.scale)
+        stats = em.estep(s, fast)
         done = s.iterations + iter_offset
-        s = CPDState(
-            rotation=mres.rotation,
-            translation=mres.translation,
-            scale=mres.scale,
-            sigma2=mres.sigma2,
-            log_likelihood=stats.error,
-            ntol=ntol,
-            iterations=s.iterations + 1,
-        )
+        s = em.advance(s, stats, const_scale)
         if record_history:
             history[done % history_length] = torch.stack(
                 [s.sigma2, s.ntol, s.log_likelihood, s.scale])
@@ -558,3 +598,132 @@ def hybrid_fast_threshold(
         moving = moving + _centroid_shift(moving, mask_b, target, mask_a,
                                           torch.sum(mask_b), torch.sum(mask_a))
     return HYBRID_SWITCH * sigma_squared_init(moving, mask_b, target, mask_a)
+
+
+def _morton_sort_cloud(cloud: Cloud) -> Cloud:
+    """The cloud's rows in Morton order, invalid rows last, so the sorted
+    Cloud's ``mask()`` still holds: the chunked driver sorts once where
+    ``cpd_register`` would sort in every chunk."""
+    perm = morton_permutation(cloud.points, cloud.mask()).long()
+    return Cloud(points=cloud.points[perm].contiguous(), count=cloud.count)
+
+
+def cpd_register_chunked(
+    before: Cloud,
+    after: Cloud,
+    max_iterations: int = -1,
+    chunk: int = 5,
+    chunk_fast: Optional[int] = None,
+    checkpoint_path: Optional[str] = None,
+    **kwargs,
+) -> RegistrationResult:
+    """``cpd_register`` run ``chunk`` EM iterations at a time (port of the
+    JAX package's ``cpd_register_chunked``), the whole loop state carried
+    across chunks (``CPDResume``): the same trajectory as one whole run,
+    bit for bit.  With the kernels, both clouds are Morton-sorted once
+    here and every chunk runs with ``assume_sorted``.
+
+    ``chunk_fast`` sizes the chunks of Hybrid's FGT fast phase: the phase
+    is read at each boundary from the carried sigma^2 against
+    ``hybrid_fast_threshold``; a chunk that crosses the switch finishes in
+    the slow phase, and the next one is sized by it.  It changes no
+    result.  ``max_iterations < 0`` runs zero iterations, as
+    ``cpd_register`` does (``coherentpointdrift.cpp:104``).
+    ``record_history`` raises: each chunk would restart the ring.
+
+    ``checkpoint_path`` saves every boundary, the last one included
+    (``harness/checkpoint.py``).  A file whose metadata (shapes, cloud
+    fingerprints, every EM parameter that determines the trajectory) does
+    not match is ignored with a notice and overwritten; a matching one
+    whose progress meets ``max_iterations`` is returned as it is."""
+    if chunk < 1:
+        raise ValueError(f"chunk must be >= 1, got {chunk}")
+    if kwargs.get("record_history"):
+        raise ValueError("record_history is unsupported with chunked dispatch")
+    if max_iterations < 0:
+        return cpd_register(before, after, max_iterations=max_iterations, **kwargs)
+    device = before.points.device
+    approx = kwargs.get("approximation_type", ApproximationType.NONE)
+    total = 0
+    resume = None
+    ckpt_meta = None
+    if checkpoint_path is not None:
+        from tpuslam_torch.harness.checkpoint import cloud_fingerprint, load_resume_or_none
+
+        ckpt_meta = {
+            "n_pad": int(before.points.shape[0]),
+            "m_pad": int(after.points.shape[0]),
+            "n": int(before.count),
+            "m": int(after.count),
+            "eps": float(kwargs.get("eps", 1e-3)),
+            "tolerance": float(kwargs.get("tolerance", 1e-3)),
+            "weight": float(kwargs.get("weight", 0.3)),
+            "const_scale": bool(kwargs.get("const_scale", False)),
+            "approximation_type": str(getattr(approx, "value", approx)),
+            "use_fgt": resolve_use_fgt(kwargs.get("use_fgt"), approx, before.padded_size,
+                                       after.padded_size),
+            "fgt_k": int(kwargs.get("fgt_k", 128)),
+            "order_of_truncation": int(kwargs.get("order_of_truncation", 8)),
+            "ratio_of_far_field": float(kwargs.get("ratio_of_far_field", 10.0)),
+            "centroid_init": bool(kwargs.get("centroid_init", False)),
+            "fp_before": cloud_fingerprint(before.points, before.mask()),
+            "fp_after": cloud_fingerprint(after.points, after.mask()),
+        }
+        resume = load_resume_or_none(checkpoint_path, "cpd", ckpt_meta, device=device)
+        if resume is not None:
+            total = int(resume.done_before)
+            if total >= max_iterations:
+                if total > max_iterations:
+                    print(f"[tpuslam] checkpoint already holds {total} EM iterations "
+                          f"(requested {max_iterations}); returning its state")
+                return RegistrationResult(
+                    transform=RigidTransform(resume.rotation, resume.translation,
+                                             resume.scale),
+                    iterations=total,
+                    error=resume.sigma2,
+                )
+    # sort once for every chunk: the fingerprints above are of the caller's
+    # rows, and the EM state carries nothing per row
+    if not kwargs.get("assume_sorted") and resolve_use_kernels(kwargs.get("use_kernels"),
+                                                               device):
+        before, after = _morton_sort_cloud(before), _morton_sort_cloud(after)
+        kwargs = dict(kwargs, assume_sorted=True)
+    phase_aware = (
+        chunk_fast is not None
+        and chunk_fast != chunk
+        and approx == ApproximationType.Hybrid
+        and resolve_use_fgt(kwargs.get("use_fgt"), approx, before.padded_size,
+                            after.padded_size)
+    )
+    if phase_aware:
+        thr = float(hybrid_fast_threshold(
+            before, after, centroid_init=bool(kwargs.get("centroid_init", False))))
+    while True:
+        in_fast = phase_aware and (resume is None or float(resume.sigma2) > thr)
+        k = min(chunk_fast if in_fast else chunk, max_iterations - total)
+        result = cpd_register(before, after, max_iterations=k, resume=resume, **kwargs)
+        did = int(result.iterations)
+        total += did
+        s = result.em
+        resume = CPDResume(
+            rotation=s.rotation,
+            translation=s.translation,
+            scale=s.scale,
+            sigma2=s.sigma2,
+            log_likelihood=s.log_likelihood,
+            ntol=s.ntol,
+            done_before=total,
+        )
+        if checkpoint_path is not None:
+            from tpuslam_torch.harness.checkpoint import save_cpd_checkpoint
+
+            save_cpd_checkpoint(checkpoint_path, resume, ckpt_meta)
+        # the loop stops early (converged, sigma^2 floor, non-finite) only
+        # by running fewer than the k iterations it was allowed
+        if did < k or total >= max_iterations:
+            break
+    return RegistrationResult(
+        transform=result.transform,
+        iterations=total,
+        error=result.error,
+    )

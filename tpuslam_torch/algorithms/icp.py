@@ -30,6 +30,11 @@ Unlike the JAX ``lax.while_loop``, this loop runs eagerly and reads the
 ``done`` flag (and, with ``patience``, the improvement flag) back to the
 host once per iteration; the hierarchical arm adds one read of its two
 overflow flags.
+
+``icp_register_chunked`` runs the loop a chunk of iterations at a time
+along the same trajectory, and checkpoints each boundary to disk when
+asked (``harness/checkpoint.py``); ``icp_register_prealigned`` seeds it
+with one NICP shot.
 """
 
 from __future__ import annotations
@@ -390,6 +395,125 @@ def icp_register(
     )
 
 
+def _icp_ckpt_meta(
+    before: Cloud,
+    after: Cloud,
+    eps: float,
+    max_distance_squared: float,
+    divergence_guard: bool,
+    extra: Optional[dict] = None,
+) -> dict:
+    """Checkpoint metadata of a chunked ICP run, the JAX package's keys:
+    shapes, cloud fingerprints and every loop parameter that determines
+    the trajectory, ``prealign`` among them (False here, set by
+    ``icp_register_prealigned``), so a cold-start file never resumes a
+    prealigned run or the reverse.  The NN arm is not among them: every
+    arm is exact."""
+    from tpuslam_torch.harness.checkpoint import cloud_fingerprint
+
+    meta = {
+        "n_pad": int(before.points.shape[0]),
+        "m_pad": int(after.points.shape[0]),
+        "n": int(before.count),
+        "m": int(after.count),
+        "eps": float(eps),
+        "max_distance_squared": float(max_distance_squared),
+        "divergence_guard": bool(divergence_guard),
+        "prealign": False,
+        "fp_before": cloud_fingerprint(before.points, before.mask()),
+        "fp_after": cloud_fingerprint(after.points, after.mask()),
+    }
+    meta.update(extra or {})
+    return meta
+
+
+def icp_register_chunked(
+    before: Cloud,
+    after: Cloud,
+    eps: float = 1e-3,
+    max_distance_squared: float = 1000.0,
+    max_iterations: int = 50,
+    chunk: int = 10,
+    resume: Optional[ICPResume] = None,
+    checkpoint_path: Optional[str] = None,
+    checkpoint_extra_meta: Optional[dict] = None,
+    **kwargs,
+) -> RegistrationResult:
+    """``icp_register`` run ``chunk`` iterations at a time (port of the JAX
+    package's ``icp_register_chunked``), the transform, its error and the
+    hierarchical arm's warm state carried across chunks on the device
+    (``ICPResume``).  The trajectory is the whole run's, bit for bit: each
+    boundary holds what the loop would hold had it continued (the guard
+    is seeded from the carried error, as the loop's ``prev_error`` equals
+    it after an accepted step).
+
+    ``checkpoint_path`` saves every boundary, the last one included
+    (``harness/checkpoint.py``), so a killed run continues from its last
+    boundary in a new process.  A file that does not match this run
+    (cloud fingerprints, shapes, loop parameters) is ignored with a notice
+    and overwritten; a matching one whose progress already meets
+    ``max_iterations`` is returned as it is (an idempotent re-run), with a
+    notice when it holds more.  ``kwargs`` go to ``icp_register``."""
+    if chunk < 1:
+        raise ValueError(f"chunk must be >= 1, got {chunk}")
+    device = before.points.device
+    total = 0
+    ckpt_meta = None
+    if checkpoint_path is not None:
+        from tpuslam_torch.harness.checkpoint import load_resume_or_none
+
+        ckpt_meta = _icp_ckpt_meta(
+            before, after, eps, max_distance_squared,
+            divergence_guard=bool(kwargs.get("divergence_guard", True)),
+            extra=checkpoint_extra_meta,
+        )
+        loaded = load_resume_or_none(checkpoint_path, "icp", ckpt_meta, device=device)
+        if loaded is not None:
+            resume = loaded
+            total = int(loaded.done_before)
+        if resume is not None and max_iterations != -1 and total >= max_iterations:
+            if total > max_iterations:
+                print(f"[tpuslam] checkpoint already holds {total} iterations "
+                      f"(requested {max_iterations}); returning its state")
+            return RegistrationResult(
+                transform=RigidTransform(
+                    torch.as_tensor(resume.rotation, dtype=torch.float32, device=device),
+                    torch.as_tensor(resume.translation, dtype=torch.float32, device=device),
+                    torch.ones((), dtype=torch.float32, device=device),
+                ),
+                iterations=total,
+                error=torch.as_tensor(resume.error, dtype=torch.float32, device=device),
+            )
+    while True:
+        k = chunk if max_iterations == -1 else min(chunk, max_iterations - total)
+        result = icp_register(
+            before, after, eps=eps, max_distance_squared=max_distance_squared,
+            max_iterations=k, resume=resume, **kwargs,
+        )
+        did = int(result.iterations)
+        total += did
+        resume = ICPResume(
+            rotation=result.transform.rotation,
+            translation=result.transform.translation,
+            error=result.error,
+            done_before=total,
+            nn=result.nn,
+        )
+        if checkpoint_path is not None:
+            from tpuslam_torch.harness.checkpoint import save_icp_checkpoint
+
+            save_icp_checkpoint(checkpoint_path, resume, ckpt_meta)
+        # the loop does not count the iteration it stops at, so fewer than
+        # k iterations means it stopped (converged, diverged, no match)
+        if did < k or (max_iterations != -1 and total >= max_iterations):
+            break
+    return RegistrationResult(
+        transform=result.transform,
+        iterations=total,
+        error=result.error,
+    )
+
+
 def icp_register_prealigned(
     before: Cloud,
     after: Cloud,
@@ -414,24 +538,45 @@ def icp_register_prealigned(
     point set, and an absolute threshold would abort the first iteration
     on large-unit clouds.
 
-    ``chunk`` and ``checkpoint_path`` need the chunked driver, which is
-    not ported (ROADMAP Queue 1 item 2): either raises."""
-    if chunk or checkpoint_path:
-        raise NotImplementedError(
-            "chunked or checkpointed prealigned ICP needs icp_register_chunked: "
-            "ROADMAP Queue 1 item 2"
-        )
-    from tpuslam_torch.algorithms.nicp import nicp_register
+    ``chunk`` or ``checkpoint_path`` runs the loop through
+    ``icp_register_chunked`` (``chunk`` 0 means 10 there), with the
+    ``prealign``, ``prealign_subcloud`` and ``prealign_seed`` metadata.  A
+    matching checkpoint holds progress past the seed, so it is loaded
+    first and the NICP shot is skipped."""
+    from tpuslam_torch.algorithms import nicp
 
-    pre = nicp_register(before, after, eps=eps, subcloud_size=subcloud_size, seed=seed)
+    extra_meta = {
+        "prealign": True,
+        "prealign_subcloud": int(subcloud_size),
+        "prealign_seed": int(seed),
+    }
     device = before.points.device
-    resume = ICPResume(
-        rotation=pre.transform.rotation,
-        translation=pre.transform.translation,
-        error=torch.tensor(1e5, dtype=torch.float32, device=device),
-        prev_error=torch.tensor(FLT_MAX, dtype=torch.float32, device=device),
-    )
-    return icp_register(
-        before, after, eps=eps, max_distance_squared=max_distance_squared,
-        max_iterations=max_iterations, resume=resume, **kwargs,
-    )
+    resume = None
+    if checkpoint_path is not None:
+        from tpuslam_torch.harness.checkpoint import load_resume_or_none
+
+        # quiet: the chunked driver checks the same file again and prints
+        # any mismatch notice
+        resume = load_resume_or_none(
+            checkpoint_path, "icp",
+            _icp_ckpt_meta(before, after, eps, max_distance_squared,
+                           divergence_guard=bool(kwargs.get("divergence_guard", True)),
+                           extra=extra_meta),
+            quiet=True, device=device,
+        )
+    if resume is None:
+        pre = nicp.nicp_register(before, after, eps=eps, subcloud_size=subcloud_size, seed=seed)
+        resume = ICPResume(
+            rotation=pre.transform.rotation,
+            translation=pre.transform.translation,
+            error=torch.tensor(1e5, dtype=torch.float32, device=device),
+            prev_error=torch.tensor(FLT_MAX, dtype=torch.float32, device=device),
+        )
+    common = dict(eps=eps, max_distance_squared=max_distance_squared,
+                  max_iterations=max_iterations, resume=resume, **kwargs)
+    if chunk or checkpoint_path:
+        return icp_register_chunked(
+            before, after, chunk=chunk or 10, checkpoint_path=checkpoint_path,
+            checkpoint_extra_meta=extra_meta, **common,
+        )
+    return icp_register(before, after, **common)

@@ -4,15 +4,23 @@
 ``run_with_configuration(before, after, config, device=None) ->
 (rotation, translation, iterations, error)`` is the reference's
 ``SlamFunc`` contract (``testrunner.h:8``).  ICP (cold or
-NICP-prealigned), NICP and CPD are ported.  ICP and CPD run in one
-piece: the JAX package chunks them only on the TPU (``icp_chunk_size``
-and ``cpd_chunk_size`` are 0 elsewhere, and a chunked run follows the
-same trajectory) or when asked to checkpoint (``TPUSLAM_ICP_CKPT``,
-``TPUSLAM_CPD_CKPT``), which is not ported yet and raises.  ICP's NN arm
-is ``icp_register``'s default: the hierarchical search on CUDA from
-8,192 target rows, the dense search otherwise.  CPD's exact E-step is
+NICP-prealigned), NICP and CPD are ported.  ICP's NN arm is
+``icp_register``'s default: the hierarchical search on CUDA from 8,192
+target rows, the dense search otherwise.  CPD's exact E-step is
 ``cpd_register``'s default: kernels K5 and K4 on CUDA, the blocked
 oracle on the CPU.
+
+ICP and CPD run in one piece unless the environment asks for the
+chunked drivers, as in the JAX package:
+
+* ``TPUSLAM_ICP_CHUNK`` / ``TPUSLAM_CPD_CHUNK`` = N runs N iterations a
+  chunk, 0 runs whole; a malformed value prints a notice and falls back
+  to the automatic gate (``icp_chunk_size``, ``cpd_chunk_size``);
+* ``TPUSLAM_ICP_CKPT`` / ``TPUSLAM_CPD_CKPT`` = path forces the chunked
+  driver (10 iterations a chunk unless set) and checkpoints every
+  boundary there, so a killed run continues from the file.
+
+A chunked run follows the whole run's trajectory bit for bit.
 """
 
 from __future__ import annotations
@@ -48,6 +56,33 @@ def get_slam_func(method: ComputationMethod) -> SlamFunc:
     return _REGISTRY[method]
 
 
+def _chunk_size(chunk_env: Optional[str], var: str) -> int:
+    """Iterations per chunk (0: the whole loop at once): ``chunk_env``, the
+    value of ``var``, as given (negative values as 0); when it is unset or
+    malformed (with a notice: a typo must not silently change the run),
+    the automatic gate, which is 0.  The JAX package chunks by work only
+    on the TPU, whose relayed workers die under minutes-long programs, and
+    returns 0 on every other backend; the card has no such limit."""
+    if chunk_env is not None:
+        try:
+            return max(0, int(chunk_env))
+        except ValueError:
+            print(f"[tpuslam] ignoring malformed {var}={chunk_env!r}; using the automatic gate")
+    return 0
+
+
+def icp_chunk_size(chunk_env: Optional[str] = None) -> int:
+    """ICP iterations per chunk from ``TPUSLAM_ICP_CHUNK`` (``_chunk_size``)."""
+    return _chunk_size(chunk_env, "TPUSLAM_ICP_CHUNK")
+
+
+def cpd_chunk_size(chunk_env: Optional[str] = None) -> int:
+    """CPD EM iterations per chunk from ``TPUSLAM_CPD_CHUNK``
+    (``_chunk_size``).  The JAX package's separate size for Hybrid's FGT
+    phase comes from its gate too, so here it is the forced size, as there."""
+    return _chunk_size(chunk_env, "TPUSLAM_CPD_CHUNK")
+
+
 def run_with_configuration(
     before: np.ndarray,
     after: np.ndarray,
@@ -70,14 +105,12 @@ def _run_icp(
 ) -> SlamResult:
     """Mirrors ``CalculateICPWithConfiguration`` (``basicicp.cpp:12-21``);
     with ``icp_prealign``, the NICP-seeded loop."""
-    from tpuslam_torch.algorithms.icp import icp_register, icp_register_prealigned
+    from tpuslam_torch.algorithms.icp import (
+        icp_register,
+        icp_register_chunked,
+        icp_register_prealigned,
+    )
 
-    if os.environ.get("TPUSLAM_ICP_CKPT"):
-        what = "NICP-prealigned ICP" if config.icp_prealign else "ICP"
-        raise NotImplementedError(
-            f"{what} checkpointing (TPUSLAM_ICP_CKPT) needs icp_register_chunked: "
-            "ROADMAP Queue 1 item 2"
-        )
     max_iterations = (
         int(config.max_iterations) if config.max_iterations is not None else -1
     )
@@ -86,13 +119,18 @@ def _run_icp(
         max_distance_squared=config.max_distance_squared,
         max_iterations=max_iterations,
     )
+    chunk = icp_chunk_size(os.environ.get("TPUSLAM_ICP_CHUNK"))
+    ckpt = os.environ.get("TPUSLAM_ICP_CKPT") or None
     before_c, after_c = pad_cloud(before, device=device), pad_cloud(after, device=device)
     if config.icp_prealign:
         result = icp_register_prealigned(
             before_c, after_c, subcloud_size=config.nicp_subcloud_size,
             seed=config.random_seed if config.random_seed is not None else 0,
-            **common,
+            chunk=chunk, checkpoint_path=ckpt, **common,
         )
+    elif chunk or ckpt:
+        result = icp_register_chunked(before_c, after_c, chunk=chunk or 10,
+                                      checkpoint_path=ckpt, **common)
     else:
         result = icp_register(before_c, after_c, **common)
     return (
@@ -161,19 +199,12 @@ def _run_cpd(
     (``coherentpointdrift.cpp:43-65``).  A missing ``max-iterations`` maps
     to -1, and the EM loop then runs zero iterations (identity result),
     as the reference's does (``coherentpointdrift.cpp:104``)."""
-    from tpuslam_torch.algorithms.cpd import cpd_register
+    from tpuslam_torch.algorithms.cpd import cpd_register, cpd_register_chunked
 
-    if os.environ.get("TPUSLAM_CPD_CKPT"):
-        raise NotImplementedError(
-            "CPD checkpointing (TPUSLAM_CPD_CKPT) needs cpd_register_chunked: "
-            "ROADMAP Queue 1 item 2"
-        )
     max_iterations = (
         int(config.max_iterations) if config.max_iterations is not None else -1
     )
-    result = cpd_register(
-        pad_cloud(before, device=device),
-        pad_cloud(after, device=device),
+    common = dict(
         eps=config.convergence_epsilon,
         weight=config.cpd_weight,
         const_scale=config.cpd_const_scale,
@@ -185,6 +216,14 @@ def _run_cpd(
         use_fgt=config.cpd_use_fgt,
         centroid_init=config.cpd_centroid_init,
     )
+    chunk = cpd_chunk_size(os.environ.get("TPUSLAM_CPD_CHUNK"))
+    ckpt = os.environ.get("TPUSLAM_CPD_CKPT") or None
+    before_c, after_c = pad_cloud(before, device=device), pad_cloud(after, device=device)
+    if chunk or ckpt:
+        result = cpd_register_chunked(before_c, after_c, chunk=chunk or 10,
+                                      checkpoint_path=ckpt, **common)
+    else:
+        result = cpd_register(before_c, after_c, **common)
     # the reference returns (scale * R, t) (coherentpointdrift.cpp:123)
     rotation = result.transform.scale * result.transform.rotation
     return (

@@ -35,21 +35,25 @@ launch the kernels, or raise.  There is no other path.
 from __future__ import annotations
 
 import math
+from collections import Counter
 from typing import NamedTuple
 
 import torch
 
 from tpuslam_torch.core.types import Sufficient, round_up
 from tpuslam_torch.kernels.nn_dense import fma_sq_dist
+from tpuslam_torch.ops.geometry import per_pair
 
 TILE = 1024  # rows per block of the running totals, the JAX _TILE
 # padded moving rows: far enough that the Gaussian underflows to 0, near
 # enough that d^2 stays finite in float32
 SENTINEL = 1e15
 
-# kernel launches made by the wrappers below (CPU calls do not count)
+# kernel launches made by the wrappers below (CPU calls do not count),
+# and the launches of both passes by batch size
 DENOM_LAUNCHES = 0
 MOMENTS_LAUNCHES = 0
+BATCH_LAUNCHES: Counter = Counter()
 
 THREADS = 64  # threads a CTA: kCpdThreads of csrc/cpd_gauss.cuh
 # a grid of at least this many threads keeps 8 warps on each of the H100's
@@ -251,6 +255,7 @@ def denom_pass_batch(scalars: torch.Tensor, ty: torch.Tensor,
            target.data_ptr(), b, n, m, geo.threads, geo.rows_per_thread,
            geo.splits, 0 if parts is None else parts.data_ptr(), denom.data_ptr())
     DENOM_LAUNCHES += 1
+    BATCH_LAUNCHES[b] += 1
     return denom
 
 
@@ -276,6 +281,7 @@ def moments_pass_batch(scalars: torch.Tensor, ty: torch.Tensor,
            geo.rows_per_thread, geo.splits, 0 if parts is None else parts.data_ptr(),
            acc.data_ptr())
     MOMENTS_LAUNCHES += 1
+    BATCH_LAUNCHES[b] += 1
     return acc
 
 
@@ -307,19 +313,25 @@ def moment_weights(denom: torch.Tensor, target: torch.Tensor,
     return pt1, weights4
 
 
+def _log_likelihood(denom: torch.Tensor, target_mask: torch.Tensor,
+                    sigma2: torch.Tensor) -> torch.Tensor:
+    """One pair's negative log-likelihood from its denominators."""
+    return (-torch.sum(torch.log(denom) * target_mask)
+            + 3.0 * torch.sum(target_mask) * torch.log(sigma2) / 2.0)
+
+
 def sufficient_from(acc: torch.Tensor, denom: torch.Tensor, pt1: torch.Tensor,
                     moving_mask: torch.Tensor, target_mask: torch.Tensor,
                     sigma2: torch.Tensor, m0: int, n0: int) -> Sufficient:
     """The batched statistics from the two passes (the tail of
     ``cpd_estep_pallas_batch``), cut back to ``m0`` and ``n0`` rows.  K5's
-    wrapper uses it too, so equal passes give equal bits."""
+    wrapper uses it too, so equal passes give equal bits.  The
+    log-likelihood sums each pair's rows by itself (``per_pair``): a sum
+    over the batch may split a pair's rows otherwise, so a pair of a batch
+    gets the bits of its B = 1 call."""
     p1 = acc[:, 0, :] * moving_mask
     px = torch.transpose(acc[:, 1:4, :], 1, 2) * moving_mask[:, :, None]
-    n_valid = torch.sum(target_mask, dim=1)
-    err = (
-        -torch.sum(torch.log(denom) * target_mask, dim=1)
-        + 3.0 * n_valid * torch.log(sigma2) / 2.0
-    )
+    err = per_pair(_log_likelihood, denom, target_mask, sigma2)
     return Sufficient(p1=p1[:, :m0], pt1=pt1[:, :n0], px=px[:, :m0], error=err)
 
 

@@ -128,12 +128,19 @@ def prepare_hier_target(
     mask: torch.Tensor,
     count: torch.Tensor,
     g: int = DEFAULT_G,
+    presorted: bool = False,
 ) -> HierTarget:
     """Morton-sort the target, cut it into tiles of ``g`` rows and build
     the bound and rescore operands.  Rows past ``count`` (sorted last)
     get far-sentinel coordinates (1e19) and index 3.4e38, so they never
     win a fold.  Raises for ``M`` not a multiple of ``g`` and for
-    ``M >= 2**24`` rows, where float32 indices stop being exact."""
+    ``M >= 2**24`` rows, where float32 indices stop being exact.
+
+    ``presorted=True`` skips the sort: the rows must already be in Morton
+    order with invalid rows last (``ops/spatial.py::host_morton_order``,
+    as the sequence drivers sort each scan once for both of its roles).
+    The packed tie-break index is then the sorted row position, so the
+    returned indices and ``original_points`` live in the sorted order."""
     m = points.shape[0]
     if m % g:
         raise ValueError(f"padded target length {m} must divide the tile size {g}")
@@ -144,7 +151,10 @@ def prepare_hier_target(
         )
     # python scalars meet float32 tensors as float32 values, as the JAX
     # package's jnp.float32 constants do
-    perm = morton_permutation(points, mask)
+    if presorted:
+        perm = torch.arange(m, dtype=torch.int32, device=points.device)
+    else:
+        perm = morton_permutation(points, mask)
     sorted_points = points[perm]
     bounds = tile_bounds(sorted_points, mask[perm], g)
     # conservative inflation, rounded as XLA contracts it on the CPU:
