@@ -173,6 +173,36 @@ exits non-zero without printing a result:
    ``cpd_register_batch`` had before its pair-axis loop) in the same call;
    K4's two passes alone at 16 x 16,384^2 (CUDA events), then against the
    plain running totals on the same operands.
+19. the front end — (a) ``python3 -m tpuslam_torch cfg.json`` in a new
+   process with no ``--device`` (the card by default): ICP on
+   ``synthetic://102400`` (spread 10, motion ranges (0.2, 10), seed 19, 50
+   iterations) saving the moved cloud; rc 0, the result on stdout, the card
+   named on stderr, the saved cloud read back equal to
+   ``transform_cloud(before, R, t)`` of the same parsed config run in this
+   process bit for bit, R within 1 degree of the truth, K1, K2 and K3
+   launched by the CLI process (which runs the module through ``runpy``
+   and prints its own launch counts on stderr as it ends); its wall beside
+   a bare torch start-up's; then
+   ``--device cuda`` with no visible card must exit non-zero; (b)
+   ``cli.run_serve`` in this process on ICP at 102,400 twice (cold, warm),
+   NICP at 200,000, CPD Hybrid on noise config 38's parameters, a malformed
+   line and an unknown method: one response a request, the bad ones
+   ``{"ok": false}``, each good one equal to ``run_with_configuration`` bit
+   for bit, K1-K3 launched by each ICP request, K1 by NICP, K4 or K5 by
+   CPD; ms a request; (c) ``main(["--test-set", "sizes", "--methods",
+   "icp,nicp,cpd", ...])`` in full (25, 50 and 10 rows): the CSV header,
+   the row counts, finite errors, K1-K3 launched by the ICP rows, K1 by
+   NICP, K4 by CPD; wall and median ``time(ms)`` a method; (d) the
+   performance set's top rungs (ICP at 1,300,000, NICP at 300,000) through
+   ``TestRunner`` with the warm-up: one row each, finite, K2 and K3 (ICP)
+   or K1 (NICP) launched; (e) ``--test-set noise --methods cpd`` in full:
+   39 CSV rows and 39 tier rows, K4 or K5 launched, and on the
+   ``synthetic://`` fixture of the JAX package's table (its verdicts at full
+   size on the CPU, ``tpuslam_torch/harness/data/noise_suite_reference.jsonl``,
+   made by ``tests/test_torch_noise_reference.py``) each config's verdict
+   equal to the table's and its ground-truth MSE within 1e-2 of the
+   table's, relative, or 1e-3 of its identity MSE, whichever is larger;
+   on a fixture the table does not hold, every config ``ok``.
 
 The launch counts each path is checked by are set to 0 just before it
 runs and read just after.
@@ -185,7 +215,8 @@ for K1, K2 and K3 the launches per warm headline iteration and per
 sequence pair of phase 15; for K1 also its launches per NICP run of
 phase 12 and its time at the rescore shape; for K4 its launches per
 iteration of phase 18's batched loop, its time at 16 x 16,384^2 and its
-error there; for K5 its launches in each run of phase 18), and
+error there; for K5 its launches in each run of phase 18; for every
+kernel its launches in phase 19, ``front_end_launches``), and
 ``{"ok": true, "device": {...}}``.
 """
 
@@ -206,7 +237,8 @@ FULL = dict(headline=102_400, small=8192, large=1_048_576, large_iters=20,
             batch_small=2048, batch_large=16_384, cpd_batch=2048, seq_scans=20,
             seq_points=102_400, stream_large=1_048_576, stream_large_scans=5,
             stream_large_iters=300, batch_hybrid_iters=60, batch_mid=102_400,
-            batch_mid_pairs=4, batch_cand=376_401, batch_cand_pairs=2)
+            batch_mid_pairs=4, batch_cand=376_401, batch_cand_pairs=2,
+            front_icp=102_400, front_nicp=200_000, front_perf=("icp", "nicp"))
 
 # the H100 SXM's published peaks (NVIDIA's data sheet, at 700 W): float32
 # outside the tensor cores and HBM3; and the special-function units' exp2,
@@ -1604,6 +1636,428 @@ def drivers_phases(dev, smi, kind, sizes, time_ms, phase6, phase10) -> dict:
     return out
 
 
+FRONT_KERNELS = ("nn_dense (K1)", "bound_pass (K2)", "nn_cand (K3)", "cpd_denom (K4)",
+                 "cpd_moments (K4)", "cpd_denom_cand (K5)", "cpd_moments_cand (K5)")
+
+
+# phase 19(a)'s CLI process: ``python3 -m tpuslam_torch`` run through
+# runpy, which then prints the process's own launch counts on stderr
+CLI_LAUNCHES = "[chip_smoke] CLI launches "
+CLI_CHILD = (
+    "import json, runpy, sys\n"
+    "sys.argv = ['tpuslam_torch', *sys.argv[1:]]\n"
+    "try:\n"
+    "    runpy.run_module('tpuslam_torch', run_name='__main__')\n"
+    "finally:\n"
+    "    from chip_smoke import CLI_LAUNCHES, front_launches\n"
+    "    print(CLI_LAUNCHES + json.dumps(front_launches()), file=sys.stderr)\n"
+)
+
+
+def front_launches() -> dict:
+    """Each kernel's launch count, by its name in the kernels line."""
+    from tpuslam_torch.kernels import bound, cpd_cand, cpd_dense, nn_cand, nn_dense
+
+    return dict(zip(FRONT_KERNELS, (
+        nn_dense.LAUNCHES, bound.LAUNCHES, nn_cand.LAUNCHES, cpd_dense.DENOM_LAUNCHES,
+        cpd_dense.MOMENTS_LAUNCHES, cpd_cand.DENOM_LAUNCHES, cpd_cand.MOMENTS_LAUNCHES)))
+
+
+def reset_launches() -> None:
+    from tpuslam_torch.kernels import bound, cpd_cand, cpd_dense, nn_cand, nn_dense
+
+    nn_dense.LAUNCHES = bound.LAUNCHES = nn_cand.LAUNCHES = 0
+    cpd_dense.DENOM_LAUNCHES = cpd_dense.MOMENTS_LAUNCHES = 0
+    cpd_cand.DENOM_LAUNCHES = cpd_cand.MOMENTS_LAUNCHES = 0
+
+
+class TestTap:
+    """A text sink for the runner's stdout that records the wall clock and
+    the kernels' launch counts where each test begins (its ``Running
+    test`` line), so that a test-set run through ``main`` can be split by
+    test."""
+
+    def __init__(self, fh):
+        self.fh, self.marks = fh, []
+
+    def write(self, s: str) -> int:
+        if s.startswith("Running test"):
+            self.marks.append((time.perf_counter(), front_launches()))
+        return self.fh.write(s)
+
+    def flush(self) -> None:
+        self.fh.flush()
+
+
+def config_values(config) -> dict:
+    """A ``Configuration``'s fields, numbers as floats and arrays as tuples
+    of float32 values, so that a parsed 400.0 equals a table's 400."""
+    import dataclasses
+    import enum
+
+    def norm(v):
+        if v is None or isinstance(v, (bool, str, enum.Enum)):
+            return v
+        if isinstance(v, (tuple, list)):
+            return tuple(norm(x) for x in v)
+        if isinstance(v, np.ndarray):
+            return tuple(v.astype(np.float32).reshape(-1).tolist())
+        return float(v)
+
+    return {f.name: norm(getattr(config, f.name)) for f in dataclasses.fields(config)}
+
+
+def read_csv(path: str) -> tuple:
+    with open(path) as fh:
+        lines = [ln.rstrip("\n") for ln in fh if ln.strip()]
+    return lines[0], [ln.split(";") for ln in lines[1:]]
+
+
+def front_end_phases(dev, smi, kind, sizes) -> dict:
+    """Phase 19 (module docstring): the front end's entry points on the
+    card.  Returns each kernel's launches in the phase and the figures
+    printed."""
+    import contextlib
+    import io
+    import os
+    import tempfile
+
+    import torch
+
+    from tpuslam_torch.algorithms.registry import run_with_configuration
+    from tpuslam_torch.config.configuration import ComputationMethod
+    from tpuslam_torch.config.parser import ConfigParser
+    from tpuslam_torch.data.loader import load_cloud, synthetic_fixture
+    from tpuslam_torch.data.synthesis import get_clouds_from_config, transform_cloud
+    from tpuslam_torch.harness import cli, noise, testsets
+    from tpuslam_torch.harness.runner import CSV_HEADER, TestRunner
+    from tpuslam_torch.native import bindings
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    total = dict.fromkeys(FRONT_KERNELS, 0)
+    figures = {}
+
+    def counted(launches: dict) -> dict:
+        for k, v in launches.items():
+            total[k] += v
+        return launches
+
+    def quiet_parse(request: dict):
+        with contextlib.redirect_stdout(io.StringIO()):
+            parser = ConfigParser.from_dict(request)
+        check(parser.is_correct(), f"front: request does not parse: {request}")
+        return parser.get_configuration()
+
+    def k45(launches: dict) -> int:
+        return sum(launches[k] for k in FRONT_KERNELS[3:])
+
+    t0 = time.perf_counter()
+    native = bindings.available()
+    log(f"[front] native OBJ/OFF reader and writer (host c++): available {native}, "
+        f"{time.perf_counter() - t0:.3f} s")
+    n_icp = sizes["front_icp"]
+    icp_request = {
+        "method": "icp", "before-path": f"synthetic://{n_icp}",
+        "after-path": f"synthetic://{n_icp}", "cloud-spread": 10.0,
+        "rotation-range": 0.2, "translation-range": 10.0, "random-seed": 19,
+        "max-iterations": 50,
+    }
+    with tempfile.TemporaryDirectory() as tmp:
+        # 19a. one-shot CLI in a subprocess, on the default device ------------------
+        out_obj = os.path.join(tmp, "out.obj")
+        cfg_path = os.path.join(tmp, "cfg.json")
+        with open(cfg_path, "w") as fh:
+            json.dump({**icp_request, "save-output-path": out_obj}, fh)
+        t0 = time.perf_counter()
+        start = subprocess.run(
+            [sys.executable, "-c", "import torch; torch.zeros(1, device='cuda'); "
+             "torch.cuda.synchronize()"], cwd=root, capture_output=True, text=True,
+            timeout=300)
+        start_s = time.perf_counter() - t0
+        check(start.returncode == 0, f"front: torch start-up failed: {start.stderr[-2000:]}")
+        t0 = time.perf_counter()
+        proc = subprocess.run([sys.executable, "-c", CLI_CHILD, cfg_path], cwd=root,
+                              capture_output=True, text=True, timeout=600)
+        cli_s = time.perf_counter() - t0
+        log(f"[front] CLI stdout tail: {proc.stdout.strip().splitlines()[-8:]}")
+        log(f"[front] CLI stderr: {proc.stderr.strip()[-1500:]}")
+        check(proc.returncode == 0, f"front: the CLI exited {proc.returncode}")
+        check("Results for the icp method" in proc.stdout, "front: no CLI result on stdout")
+        check(f"device: cuda:0 ({kind})" in proc.stderr, "front: the CLI did not name the card")
+        reported = [ln[len(CLI_LAUNCHES):] for ln in proc.stderr.splitlines()
+                    if ln.startswith(CLI_LAUNCHES)]
+        check(len(reported) == 1, "front: the CLI process did not report its launches")
+        launches = counted(json.loads(reported[0]))
+        # the same registration in this process, for the saved cloud and the
+        # registration's share of the wall; its launches are not counted
+        with contextlib.redirect_stdout(io.StringIO()):
+            config = ConfigParser([cfg_path]).get_configuration()
+        before, after, (r_true, _) = get_clouds_from_config(config)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        rot, trans, iters, err = run_with_configuration(before, after, config, device=dev)
+        reg_s = time.perf_counter() - t0
+        saved = load_cloud(out_obj)
+        want = transform_cloud(before, rot, trans)
+        deg = rotation_error_deg(rot, r_true)
+        same = saved.shape == want.shape and bool(np.array_equal(saved, want))
+        log(f"[front] (a) python3 -m tpuslam_torch on {n_icp} points, {kind} ({smi}): "
+            f"wall {cli_s:.3f} s with process start and kernel load (a bare torch start-up "
+            f"with a CUDA context: {start_s:.3f} s); the same registration in this process "
+            f"{reg_s * 1e3:.1f} ms ({reg_s / cli_s * 100:.1f} % of the CLI wall), "
+            f"{iters} iterations, error {err}, rotation off by {deg:.4f} deg; the saved "
+            f"cloud equals transform_cloud(before, R, t) bit for bit: {same}; the CLI "
+            f"process's launches {launches}")
+        check(same, "front: the CLI's saved cloud differs from the in-process result")
+        check(deg < 1.0, f"front: CLI registration off by {deg} deg")
+        check(launches["nn_dense (K1)"] > 0 and launches["bound_pass (K2)"] > 0
+              and launches["nn_cand (K3)"] > 0, "front: the CLI's ICP did not launch K1-K3")
+        env = dict(os.environ, CUDA_VISIBLE_DEVICES="")
+        refused = subprocess.run([sys.executable, "-m", "tpuslam_torch", "--device", "cuda",
+                                  cfg_path], cwd=root, capture_output=True, text=True,
+                                 env=env, timeout=300)
+        log(f"[front] --device cuda without a visible card: rc {refused.returncode}, "
+            f"stderr {refused.stderr.strip()[-300:]!r}")
+        check(refused.returncode != 0 and "Results for" not in refused.stdout,
+              "front: the CLI ran without a card")
+        figures["cli"] = {"wall_s": cli_s, "torch_start_s": start_s,
+                          "registration_ms": reg_s * 1e3, "iterations": iters}
+
+        # 19b. --serve in process ---------------------------------------------------
+        entry = next(e for e in noise.load_entries() if e["id"] == 38)
+        c38 = noise.build_configuration(entry)
+        cpd_request = {
+            "method": "cpd", "before-path": c38.before_path, "after-path": c38.after_path,
+            "approximation-type": c38.approximation_type.value,
+            "max-iterations": c38.max_iterations,
+            "rotation": c38.transformation[0].reshape(-1).tolist(),
+            "translation": c38.transformation[1].tolist(),
+            "cloud-spread": c38.cloud_spread, "random-seed": c38.random_seed,
+            "max-distance-squared": c38.max_distance_squared,
+            "cpd-weight": c38.cpd_weight, "cpd-const-scale": c38.cpd_const_scale,
+            "cpd-tolerance": c38.cpd_tolerance,
+            "convergence-epsilon": c38.convergence_epsilon,
+            "noise-affected-points-before": c38.noise_affected_points_before,
+            "noise-affected-points-after": c38.noise_affected_points_after,
+            "noise-intensity-before": c38.noise_intensity_before,
+            "noise-intensity-after": c38.noise_intensity_after,
+            "additional-outliers-before": c38.additional_outliers_before,
+            "additional-outliers-after": c38.additional_outliers_after,
+            "nicp-batch-size": c38.nicp_batch_size, "nicp-iterations": c38.nicp_iterations,
+            "nicp-subcloud-size": c38.nicp_subcloud_size,
+        }
+        for key, value in (("cloud-before-resize", c38.cloud_before_resize),
+                           ("cloud-after-resize", c38.cloud_after_resize)):
+            if value is not None:
+                cpd_request[key] = value
+        check(config_values(quiet_parse(cpd_request)) == config_values(c38),
+              "front: the CPD request is not noise config 38")
+        n_nicp = sizes["front_nicp"]
+        nicp_request = {**icp_request, "method": "nicp", "before-path": f"synthetic://{n_nicp}",
+                        "after-path": f"synthetic://{n_nicp}", "random-seed": 5}
+        good = [("icp cold", icp_request), ("icp warm", icp_request),
+                ("nicp", nicp_request), ("cpd hybrid (noise config 38)", cpd_request)]
+        lines = [json.dumps(r) for _, r in good]
+        lines += ["not json {", json.dumps({**icp_request, "method": "supericp"})]
+        names = [n for n, _ in good] + ["malformed", "unknown method"]
+
+        class Lines:
+            """The request stream; it notes the time and the launch counts
+            each time the loop asks for the next request."""
+
+            def __init__(self):
+                self.marks = []
+
+            def __iter__(self):
+                for line in lines:
+                    self.marks.append((time.perf_counter(), front_launches()))
+                    yield line + "\n"
+                self.marks.append((time.perf_counter(), front_launches()))
+
+        reset_launches()
+        stream, out = Lines(), io.StringIO()
+        torch.cuda.synchronize()
+        check(cli.run_serve(iter(stream), out, device=str(dev)) == 0, "front: serve failed")
+        serve_launches = counted(front_launches())
+        responses = [json.loads(ln) for ln in out.getvalue().splitlines()]
+        check(len(responses) == len(lines), f"front: {len(responses)} responses to "
+              f"{len(lines)} requests")
+        serve_ms = {}
+        for i, name in enumerate(names):
+            (t_a, c_a), (t_b, c_b) = stream.marks[i], stream.marks[i + 1]
+            per = {k: c_b[k] - c_a[k] for k in FRONT_KERNELS}
+            serve_ms[name] = (t_b - t_a) * 1e3
+            log(f"[front] (b) serve {name}: {serve_ms[name]:.1f} ms, ok "
+                f"{responses[i]['ok']}, launches {per}")
+            if name.startswith("icp"):
+                check(all(per[k] > 0 for k in FRONT_KERNELS[:3]),
+                      f"front: serve {name} did not launch K1-K3")
+            elif name == "nicp":
+                check(per["nn_dense (K1)"] > 0, "front: serve nicp did not launch K1")
+            elif name.startswith("cpd"):
+                check(k45(per) > 0, "front: serve cpd did not launch K4 or K5")
+        check(responses[4]["ok"] is False and responses[5]["ok"] is False,
+              "front: a bad request was answered ok")
+        for i, (name, request) in enumerate(good):
+            config = quiet_parse(request)
+            before, after, _ = get_clouds_from_config(config)
+            rot, trans, iters, err = run_with_configuration(before, after, config, device=dev)
+            resp = responses[i]
+            same = (resp["ok"] is True
+                    and np.array_equal(np.asarray(resp["rotation"], np.float32), rot)
+                    and np.array_equal(np.asarray(resp["translation"], np.float32), trans)
+                    and resp["iterations"] == iters and resp["error"] == float(err))
+            log(f"[front] (b) serve {name} against run_with_configuration: equal bit for "
+                f"bit {same} ({iters} iterations, error {err})")
+            check(same, f"front: serve {name} differs from run_with_configuration")
+        log(f"[front] (b) serve launches in all: {serve_launches}")
+        figures["serve_ms"] = serve_ms
+
+        # 19c. the sizes set through main, in full -----------------------------------
+        sizes_dir = os.path.join(tmp, "sizes")
+        reset_launches()
+        with open(os.path.join(tmp, "sizes.log"), "w") as fh:
+            tap = TestTap(fh)
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(tap):
+                rc = cli.main(["--device", str(dev), "--test-set", "sizes", "--methods",
+                               "icp,nicp,cpd", "--out", sizes_dir])
+            tap.marks.append((time.perf_counter(), front_launches()))
+        counted(front_launches())
+        sizes_wall = time.perf_counter() - t0
+        check(rc == 0, "front: --test-set sizes failed")
+        want_rows = {"icp": 25, "nicp": 50, "cpd": 10}
+        figures["sizes"], first = {}, 0
+        for method, n_rows in want_rows.items():
+            header, rows = read_csv(os.path.join(sizes_dir, f"sizes-{method}.csv"))
+            check(header + "\n" == CSV_HEADER, f"front: sizes-{method}.csv header {header!r}")
+            check(len(rows) == n_rows, f"front: sizes-{method}.csv has {len(rows)} rows")
+            errors = [float(r[6]) for r in rows]
+            check(all(np.isfinite(errors)), f"front: sizes-{method}: a non-finite error")
+            (t_a, c_a), (t_b, c_b) = tap.marks[first], tap.marks[first + len(rows)]
+            first += len(rows)
+            per = {k: c_b[k] - c_a[k] for k in FRONT_KERNELS}
+            ms = [int(r[4]) for r in rows]
+            figures["sizes"][method] = {"wall_s": t_b - t_a, "median_ms": float(np.median(ms)),
+                                       "rows": len(rows), "launches": per}
+            log(f"[front] (c) sizes-{method}: {len(rows)} rows ({rows[0][1]}..{rows[-1][1]} "
+                f"points), wall {t_b - t_a:.3f} s, time(ms) median {np.median(ms)} max "
+                f"{max(ms)}, iterations median {np.median([int(r[5]) for r in rows])}, "
+                f"launches {per}")
+            if method == "icp":
+                check(all(per[k] > 0 for k in FRONT_KERNELS[:3]),
+                      "front: the ICP sizes rows did not launch K1-K3")
+            elif method == "nicp":
+                check(per["nn_dense (K1)"] > 0, "front: the NICP sizes rows did not launch K1")
+            else:
+                check(per["cpd_denom (K4)"] > 0 and per["cpd_moments (K4)"] > 0,
+                      "front: the CPD sizes rows did not launch K4")
+        log(f"[front] (c) the sizes set through main: {sizes_wall:.3f} s")
+
+        # 19d. the performance set's top rungs, with the warm-up ----------------------
+        figures["performance"] = {}
+        for method in map(ComputationMethod, sizes["front_perf"]):
+            cfg = testsets.get_performance_test_set(method)[-1]
+            path = os.path.join(tmp, f"performance-{method.value}.csv")
+            reset_launches()
+            t0 = time.perf_counter()
+            with open(os.path.join(tmp, "performance.log"), "a") as fh, \
+                    contextlib.redirect_stdout(fh):
+                runner = TestRunner(output_file=path, warmup=True, device=dev)
+                runner.add_test(cfg)
+                runner.run_all()
+                runner.close()
+            wall = time.perf_counter() - t0
+            per = counted(front_launches())
+            _, rows = read_csv(path)
+            check(len(rows) == 1 and np.isfinite(float(rows[0][6])),
+                  f"front: performance {method.value} row {rows}")
+            figures["performance"][method.value] = {
+                "points": int(rows[0][1]), "time_ms": int(rows[0][4]),
+                "iterations": int(rows[0][5])}
+            log(f"[front] (d) performance {method.value} at {rows[0][1]} points with the "
+                f"warm-up: time(ms) {rows[0][4]}, iterations {rows[0][5]}, error {rows[0][6]}, "
+                f"wall with the warm-up and synthesis {wall:.3f} s, launches {per}")
+            if method == ComputationMethod.Icp:
+                check(per["bound_pass (K2)"] > 0 and per["nn_cand (K3)"] > 0,
+                      "front: the 1.3M ICP rung did not launch K2, K3")
+            else:
+                check(per["nn_dense (K1)"] > 0, "front: the NICP rung did not launch K1")
+
+        # 19e. the noise suite through main, in full -----------------------------------
+        os.environ.pop("TPUSLAM_NOISE_CAP", None)
+        noise_dir = os.path.join(tmp, "noise")
+        reset_launches()
+        t0 = time.perf_counter()
+        with open(os.path.join(tmp, "noise.log"), "w") as fh, contextlib.redirect_stdout(fh):
+            rc = cli.main(["--device", str(dev), "--test-set", "noise", "--methods", "cpd",
+                           "--out", noise_dir])
+        noise_wall = time.perf_counter() - t0
+        per = counted(front_launches())
+        check(rc == 0, "front: --test-set noise failed")
+        _, rows = read_csv(os.path.join(noise_dir, "noise-cpd.csv"))
+        with open(os.path.join(noise_dir, "noise-tiers-cpd.jsonl")) as fh:
+            tiers = [json.loads(ln) for ln in fh if ln.strip()]
+        for t in tiers:
+            log(f"[front] (e) noise config{t['id']:2d} {t['tier']:11s} "
+                f"{'ok  ' if t['ok'] else 'FAIL'} n {t['n_before']} gt_mse {t['gt_mse']:.6g} "
+                f"identity {t['identity_mse']:.6g} bar {t['bar']} iterations "
+                f"{t['iterations']}")
+        tier_counts = {}
+        for t in tiers:
+            key = f"{t['tier']} {'ok' if t['ok'] else 'failed'}"
+            tier_counts[key] = tier_counts.get(key, 0) + 1
+        ms = [int(r[4]) for r in rows]
+        figures["noise"] = {"wall_s": noise_wall, "tiers": tier_counts,
+                            "median_ms": float(np.median(ms)), "launches": per}
+        log(f"[front] (e) noise suite, {len(rows)} CSV rows, {len(tiers)} tier rows: "
+            f"{tier_counts}; wall {noise_wall:.3f} s, time(ms) median {np.median(ms)} max "
+            f"{max(ms)}; launches {per}")
+        check(len(rows) == 39 and len(tiers) == 39, "front: the noise suite is not 39 configs")
+        check(k45(per) > 0, "front: the noise suite launched neither K4 nor K5")
+        # the bar: on the fixture of the JAX package's table (its verdicts at
+        # full size on the CPU, tests/test_torch_noise_reference.py), parity
+        # with the table on every config: the same verdict, and gt_mse within
+        # 1e-2 relative or 1e-3 * identity_mse, whichever is larger; on
+        # another fixture, every config ok
+        fixture = synthetic_fixture()
+        with open(os.path.join(os.path.dirname(noise.TABLE), "noise_suite_reference.jsonl")) as fh:
+            rows_ref = [json.loads(ln) for ln in fh if ln.strip() and not ln.startswith("#")]
+        reference = {r["id"]: r for r in rows_ref if r["fixture"] == fixture}
+        figures["noise"]["fixture"] = fixture
+        if reference:
+            check(sorted(reference) == sorted(t["id"] for t in tiers),
+                  f"front: the JAX table on {fixture} does not hold the suite's 39 configs")
+            missed = [t["id"] for t in tiers if not t["ok"] and reference[t["id"]]["ok"]]
+            beyond = [t["id"] for t in tiers if t["ok"] and not reference[t["id"]]["ok"]]
+            worst, apart = 0.0, []
+            for t in tiers:
+                ref = reference[t["id"]]
+                tol = max(1e-2 * ref["gt_mse"], 1e-3 * ref["identity_mse"])
+                share = abs(t["gt_mse"] - ref["gt_mse"]) / tol
+                worst = max(worst, share)
+                if not share <= 1.0:
+                    apart.append((t["id"], t["gt_mse"], ref["gt_mse"]))
+            figures["noise"]["jax_ok"] = sum(r["ok"] for r in reference.values())
+            figures["noise"]["gt_mse_worst_share_of_tolerance"] = worst
+            log(f"[front] (e) fixture {fixture}: the JAX package passes "
+                f"{figures['noise']['jax_ok']} of the 39 configs on it; missed here but "
+                f"passed there: {missed}; passed here but missed there: {beyond}; gt_mse "
+                f"against the table's: worst {worst:.4f} of the tolerance, outside it "
+                f"{apart}")
+            check(not missed and not beyond,
+                  f"front: noise verdicts differ from the JAX package's: missed {missed}, "
+                  f"passed beyond {beyond}")
+            check(not apart, f"front: noise gt_mse outside the tolerance: {apart}")
+        else:
+            failed = [t["id"] for t in tiers if not t["ok"]]
+            log(f"[front] (e) fixture {fixture}: no JAX table; configs that missed: {failed}")
+            check(not failed, f"front: noise configs {failed} missed their tier")
+    figures["launches"] = total
+    log(f"[front] phase 19 launches by kernel: {total}")
+    return figures
+
+
 def main(dev=None, sizes=FULL) -> int:
     import torch
 
@@ -2076,6 +2530,8 @@ def main(dev=None, sizes=FULL) -> int:
     log(f"[nicp] summary: {json.dumps(slice7)}")
     slice8 = drivers_phases(dev, smi, kind, sizes, time_ms, phase6, phase10)
     log(f"[drivers] summary: {json.dumps(slice8)}")
+    front = front_end_phases(dev, smi, kind, sizes)
+    log(f"[front] summary: {json.dumps(front)}")
     per_pair = slice8["sequence"]["scan seeded"]["launches_per_pair"]
     for entry, name in zip(cpd_kernels[:2], ("denom", "moments")):
         entry["launches_per_batched_iter"] = slice8["k4"]["launches_per_batched_iter"]
@@ -2088,8 +2544,7 @@ def main(dev=None, sizes=FULL) -> int:
         entry["launches_pair_axis"] = {
             name: v["k5_launches"][k] for name, v in slice8["pair_cpd"].items()}
 
-    log(smi)
-    log(json.dumps({"kernels": [
+    kernels = [
         {
             "name": "nn_dense (K1)",
             "route": "cuda",
@@ -2136,7 +2591,11 @@ def main(dev=None, sizes=FULL) -> int:
             "launches_per_sequence_pair": per_pair["K3"],
         },
         *cpd_kernels,
-    ]}))
+    ]
+    for entry in kernels:
+        entry["front_end_launches"] = front["launches"][entry["name"]]
+    log(smi)
+    log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count(),
     }}))

@@ -988,3 +988,95 @@ def test_sequence_on_card_follows_the_truth(rng, cuda, lowering):
             stream.push(s)
         for p, q in zip(stream.absolute, out.absolute):
             np.testing.assert_array_equal(p.rotation, q.rotation)
+
+
+def _front_request(method, n, **extra):
+    return {"method": method, "before-path": f"synthetic://{n}",
+            "after-path": f"synthetic://{n}", "cloud-spread": 10.0, "random-seed": 19,
+            "rotation-range": 0.2, "translation-range": 1.0, "max-iterations": 50, **extra}
+
+
+def test_cli_one_shot_on_card_saves_the_in_process_result(tmp_path, cuda):
+    """``python -m tpuslam_torch cfg.json`` takes the card by default; the
+    cloud it saves equals ``transform_cloud(before, R, t)`` of the same
+    registration run in this process on the card, bit for bit."""
+    import contextlib
+    import io
+    import json
+    import os
+    import subprocess
+    import sys
+
+    from tpuslam_torch.algorithms.registry import run_with_configuration
+    from tpuslam_torch.config.parser import ConfigParser
+    from tpuslam_torch.data.loader import load_cloud
+    from tpuslam_torch.data.synthesis import get_clouds_from_config, transform_cloud
+
+    out = tmp_path / "out.obj"
+    cfg = tmp_path / "cfg.json"
+    cfg.write_text(json.dumps(_front_request("icp", 16_384, **{"save-output-path": str(out)})))
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    proc = subprocess.run([sys.executable, "-m", "tpuslam_torch", str(cfg)], cwd=root,
+                          capture_output=True, text=True, timeout=600)
+    assert proc.returncode == 0, proc.stderr
+    assert "Results for the icp method:" in proc.stdout
+    assert f"device: cuda:0 ({torch.cuda.get_device_name(0)})" in proc.stderr
+    with contextlib.redirect_stdout(io.StringIO()):
+        config = ConfigParser([str(cfg)]).get_configuration()
+    before, after, _ = get_clouds_from_config(config)
+    rot, trans, _, _ = run_with_configuration(before, after, config, device=cuda)
+    np.testing.assert_array_equal(load_cloud(str(out)), transform_cloud(before, rot, trans))
+
+
+def test_serve_on_card_launches_the_kernels(cuda):
+    """``--serve`` on the card at 16,384 points: ICP launches K2 and K3 (the
+    hierarchical arm; at this size the cold query need not overflow to K1),
+    ICP at 4,096 points K1 (the dense arm below 8,192 rows), NICP K1, CPD
+    K4 or K5; bad lines answer ``{"ok": false}`` and the loop goes on;
+    each answer equals ``run_with_configuration`` on the same config bit
+    for bit."""
+    import contextlib
+    import io
+    import json
+
+    from tpuslam_torch.algorithms.registry import run_with_configuration
+    from tpuslam_torch.config.parser import ConfigParser
+    from tpuslam_torch.data.synthesis import get_clouds_from_config
+    from tpuslam_torch.harness import cli
+
+    n = 16_384
+    good = [_front_request("icp", n), _front_request("icp", 4096), _front_request("nicp", n),
+            _front_request("cpd", n, **{"approximation-type": "hybrid", "cpd-weight": 0.1,
+                                        "cpd-const-scale": True})]
+    lines = [json.dumps(r) for r in good] + ["not json {",
+                                             json.dumps({**good[0], "method": "supericp"})]
+    launches = []
+
+    def counts():  # K1, K2, K3, K4, K5
+        return [nn_dense.LAUNCHES, bound.LAUNCHES, nn_cand.LAUNCHES,
+                cpd_dense.DENOM_LAUNCHES + cpd_dense.MOMENTS_LAUNCHES,
+                cpd_cand.DENOM_LAUNCHES + cpd_cand.MOMENTS_LAUNCHES]
+
+    def stream():
+        for line in lines:
+            launches.append(counts())
+            yield line + "\n"
+        launches.append(counts())
+
+    out = io.StringIO()
+    assert cli.run_serve(stream(), out, device="cuda") == 0
+    answers = [json.loads(ln) for ln in out.getvalue().splitlines()]
+    assert [a["ok"] for a in answers] == [True, True, True, True, False, False]
+    per = [[b - a for a, b in zip(launches[i], launches[i + 1])] for i in range(len(lines))]
+    assert per[0][1] > 0 and per[0][2] > 0  # ICP at 16,384: K2, K3
+    assert per[1][0] > 0 and per[1][1] == per[1][2] == 0  # ICP at 4,096: K1 alone
+    assert per[2][0] > 0  # NICP: K1
+    assert per[3][3] + per[3][4] > 0  # CPD: K4 or K5
+    for request, answer in zip(good, answers):
+        with contextlib.redirect_stdout(io.StringIO()):
+            config = ConfigParser.from_dict(request).get_configuration()
+        before, after, _ = get_clouds_from_config(config)
+        rot, trans, iters, err = run_with_configuration(before, after, config, device=cuda)
+        np.testing.assert_array_equal(np.asarray(answer["rotation"], np.float32), rot)
+        np.testing.assert_array_equal(np.asarray(answer["translation"], np.float32), trans)
+        assert answer["iterations"] == iters and answer["error"] == err

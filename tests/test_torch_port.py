@@ -6,6 +6,7 @@ Whole-registration tolerances are those of ``test_torch_icp.py``: equal
 iterations, R and t within 1e-4, the error within 1e-4 relative.
 """
 
+import json
 import os
 import subprocess
 import sys
@@ -117,9 +118,15 @@ def test_measure_reads_n_points_from_the_pair():
     assert result["n_points"] == 1024  # not the 102,400 default
 
 
-def test_package_imports_neither_jax_nor_tpuslam():
+def test_package_imports_neither_jax_nor_tpuslam(tmp_path):
+    cfg = tmp_path / "tiny.json"
+    cfg.write_text(json.dumps({
+        "method": "icp", "before-path": "synthetic://256", "after-path": "synthetic://256",
+        "cloud-spread": 10.0, "random-seed": 7, "rotation-range": 0.2,
+        "translation-range": 1.0, "max-iterations": 5,
+        "save-output-path": str(tmp_path / "out.obj")}))
     code = (
-        "import sys, numpy as np\n"
+        "import runpy, sys, numpy as np\n"
         "import tpuslam_torch\n"
         "rng = np.random.default_rng(0)\n"
         "b = rng.random((256, 3)).astype(np.float32)\n"
@@ -129,6 +136,15 @@ def test_package_imports_neither_jax_nor_tpuslam():
         "assert np.isfinite(err)\n"
         "import tpuslam_torch.interop, tpuslam_torch.harness.measure\n"
         "import tpuslam_torch.kernels.build\n"
+        "import tpuslam_torch.harness.cli, tpuslam_torch.harness.runner\n"
+        "import tpuslam_torch.harness.noise, tpuslam_torch.harness.testsets\n"
+        "import tpuslam_torch.native.bindings, tpuslam_torch.viz.webgl\n"
+        "import tpuslam_torch.viz.view, tpuslam_torch.data.writer\n"
+        f"sys.argv = ['tpuslam_torch', '--device', 'cpu', {str(cfg)!r}]\n"
+        "try:\n"
+        "    runpy.run_module('tpuslam_torch', run_name='__main__')\n"
+        "except SystemExit as stop:\n"
+        "    assert stop.code == 0, stop.code\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in"
         " ('jax', 'jaxlib', 'tpuslam'))\n"
         "assert not bad, bad\n"
@@ -139,7 +155,9 @@ def test_package_imports_neither_jax_nor_tpuslam():
         text=True, timeout=120,
     )
     assert proc.returncode == 0, proc.stderr
-    assert proc.stdout.strip() == "ok"
+    out = proc.stdout.strip().splitlines()
+    assert "Results for the icp method:" in out and out[-1] == "ok"
+    assert (tmp_path / "out.obj").exists()
 
 
 def test_build_without_nvcc_raises(monkeypatch):

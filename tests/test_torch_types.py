@@ -141,8 +141,8 @@ def test_obj_and_off_readers_bit_identical(tmp_path):
     off.write_text("OFF\n# comment\n3 0 0\n1 2 3\n\n4 5 6 # tail\n7 8 9.5\n")
     bad = tmp_path / "bad.off"
     bad.write_text("OFF 99999999 0 0\n1 2 3\n")
-    # the JAX package's Python readers (its load_cloud may take the native
-    # C++ reader instead, which the port does not use)
+    # the JAX package's Python readers (both packages' load_cloud may take
+    # their native C++ readers instead, which equal them)
     for path, ref in ((obj, jax_loader._load_obj_python),
                       (off, jax_loader._load_off), (bad, jax_loader._load_off)):
         np.testing.assert_array_equal(loader.load_cloud(str(path)), ref(str(path)))
@@ -152,10 +152,15 @@ def test_obj_and_off_readers_bit_identical(tmp_path):
 
 
 def test_unported_format_loads_empty(tmp_path, capsys):
+    # every format of the JAX package is ported; any other loads empty, loudly
+    other = tmp_path / "cloud.3ds"
+    other.write_text("3ds\n")
+    assert loader.load_cloud(str(other)).shape == (0, 3)
+    assert "unsupported cloud format" in capsys.readouterr().err
     ply = tmp_path / "cloud.ply"
     ply.write_text("ply\n")
-    assert loader.load_cloud(str(ply)).shape == (0, 3)
-    assert "unsupported cloud format" in capsys.readouterr().err
+    assert loader.load_cloud(str(ply)).shape == (0, 3)  # malformed: empty, quietly
+    assert "unsupported" not in capsys.readouterr().err
 
 
 def test_resolve_path_matches_original(same_search_roots):

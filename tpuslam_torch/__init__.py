@@ -19,7 +19,10 @@ forms of K1, K2 and K3, and of K4 for CPD.  ``register_sequence`` and
 and the environment's ``TPUSLAM_{ICP,CPD}_{CHUNK,CKPT}`` run ICP and CPD
 in chunks with disk checkpoints (``algorithms/registry.py``).  The
 kernels are hand-written CUDA for an NVIDIA Hopper card; on the CPU
-their plain PyTorch versions run.  The CLI and the sharded layer are not
+their plain PyTorch versions run.  The front end is ``python -m
+tpuslam_torch`` (``harness/cli.py``): a JSON config, the reference's test
+sets with their CSV, the noise suite and the ``--serve`` loop, on the
+card unless ``--device cpu`` asks for the CPU.  The sharded layer is not
 ported yet.
 """
 

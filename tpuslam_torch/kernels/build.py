@@ -8,23 +8,24 @@ loaded with ``ctypes``.  The sources include no PyTorch header, so a
 build takes seconds.  It happens at first use in a process and is
 skipped when the library on disk was built from the same sources: a
 hash of every file under ``csrc/`` (the shared ``*.cuh`` headers
-included) is kept beside it.  Nothing here runs at import time: the
-package imports where there is no ``nvcc`` and no card.
+included) is kept beside it (``core/build_cache.py``).  Nothing here
+runs at import time: the package imports where there is no ``nvcc`` and
+no card.
 """
 
 from __future__ import annotations
 
 import ctypes
-import hashlib
 import os
 import shutil
 import subprocess
-import tempfile
 import time
 from pathlib import Path
 from typing import Optional
 
 import torch
+
+from tpuslam_torch.core import build_cache
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
@@ -62,11 +63,8 @@ def _sources() -> list[Path]:
 
 def _digest(csrc: Path = CSRC) -> str:
     """Hash of the build flags and of every file under ``csrc``."""
-    h = hashlib.sha256(" ".join(ARCH_FLAGS).encode())
-    for f in sorted(p for p in csrc.rglob("*") if p.is_file()):
-        h.update(str(f.relative_to(csrc)).encode())
-        h.update(f.read_bytes())
-    return h.hexdigest()
+    return build_cache.digest(ARCH_FLAGS, csrc,
+                              sorted(p for p in csrc.rglob("*") if p.is_file()))
 
 
 def _run_all(cmds: list[list[str]]) -> list[subprocess.CompletedProcess]:
@@ -88,31 +86,22 @@ def build(force: bool = False) -> Path:
     returns its path.  Raises with nvcc's output when the build fails."""
     digest = _digest()
     lib_path = BUILD_DIR / LIB_NAME
-    stamp = BUILD_DIR / (LIB_NAME + ".sha256")
-    if (
-        not force
-        and lib_path.exists()
-        and stamp.exists()
-        and stamp.read_text().strip() == digest
-    ):
+    if not force and build_cache.current(lib_path, digest):
         last_build.update(seconds=0.0, log="(current)", path=str(lib_path))
         return lib_path
     nvcc = _nvcc()
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
     t0 = time.perf_counter()
-    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp_dir:
-        objs = [Path(tmp_dir) / (src.stem + ".o") for src in _sources()]
+    log = []
+
+    def compile_(tmp_dir: Path, tmp_lib: Path) -> None:
+        objs = [tmp_dir / (src.stem + ".o") for src in _sources()]
         compiles = [
             [nvcc, *ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
              "-Xptxas", "-v", "-c", str(src), "-o", str(obj)]
             for src, obj in zip(_sources(), objs)
         ]
-        # link beside the target and rename, so a concurrent loader never
-        # sees a half-written library
-        tmp_lib = Path(tmp_dir) / LIB_NAME
         link = [nvcc, *ARCH_FLAGS, "-shared", "-o", str(tmp_lib),
                 *map(str, objs)]
-        log = []
         for proc in _run_all(compiles) + _run_all([link]):
             log.append(proc.stdout)
             if proc.returncode != 0:
@@ -120,8 +109,8 @@ def build(force: bool = False) -> Path:
                     f"nvcc failed ({proc.returncode}): "
                     f"{' '.join(proc.args)}\n{proc.stdout}"
                 )
-        os.replace(tmp_lib, lib_path)
-    stamp.write_text(digest + "\n")
+
+    build_cache.build_into(lib_path, digest, compile_)
     last_build.update(
         seconds=time.perf_counter() - t0, log="".join(log), path=str(lib_path)
     )
