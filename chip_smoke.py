@@ -203,9 +203,34 @@ exits non-zero without printing a result:
    equal to the table's and its ground-truth MSE within 1e-2 of the
    table's, relative, or 1e-3 of its identity MSE, whichever is larger;
    on a fixture the table does not hold, every config ``ok``.
+20. the sharded layer (``tpuslam_torch.parallel``) — two worlds started
+   by ``parallel/launch.py::run_world``, each case against a solo run of
+   this process on the same inputs: (a) one rank under NCCL, dense ICP on
+   the headline pair (50 iterations, eps 0, no guard) equal to solo
+   ``icp_register(use_spatial=False)`` bit for bit with 2,048,000 bytes of
+   collectives an iteration (``comm_model.icp_comm_bytes``); (b) four
+   ranks under gloo on one card: (1) the same dense ICP, bit for bit, every
+   rank equal; (2) hierarchical ICP on phase 6's 1,048,576-point box, 20
+   iterations, R and t within 1e-4 of phase 6's run and, at the final
+   state, the sharded NN equal to K1 on the whole cloud; (3) chunked dense
+   ICP (chunk 5) equal to the unchunked sharded run, prealigned ICP at
+   102,400 from (2.0 rad, 30) within 1 degree; (4) NICP at 1,048,576
+   (anisotropic, subcloud 1000, seed 1) within 1 degree; (5) the E-step's
+   reduced statistics at 376,401^2, sigma^2 0.002, exact (K4 on every
+   block) and truncated (K5, or, where no block takes it, K5 in the solo
+   E-step), within 1e-5 relative of solo ``cpd_estep_auto``, each block's
+   route printed; Hybrid CPD at 102,400 (phase 18's boxes, weight 0.1,
+   const scale, tolerance 0, 60 iterations: FGT then K5/K4 per block)
+   within 1 degree of the truth and 2e-4 in R of solo ``cpd_register``,
+   and chunked (chunk 5) equal to it bit for bit; (6)
+   ``icp_register_pairs_sharded`` on 16 x 16,384 pairs, 4 a rank, each
+   equal to its solo run bit for bit.  Each case prints ms per iteration,
+   collectives and bytes per iteration beside the model, gloo's host ms
+   inside collectives per rank and each kernel's launches per rank; K1-K4
+   must launch on the ranks.
 
 The launch counts each path is checked by are set to 0 just before it
-runs and read just after.
+runs and read just after (on the ranks of phase 20, before each case).
 
 The last lines are the card's name and power limit, one JSON object
 describing each kernel (with its bound: the larger of its float32
@@ -216,7 +241,8 @@ sequence pair of phase 15; for K1 also its launches per NICP run of
 phase 12 and its time at the rescore shape; for K4 its launches per
 iteration of phase 18's batched loop, its time at 16 x 16,384^2 and its
 error there; for K5 its launches in each run of phase 18; for every
-kernel its launches in phase 19, ``front_end_launches``), and
+kernel its launches in phase 19, ``front_end_launches``, and on the
+ranks of phase 20, ``launches_sharded``), and
 ``{"ok": true, "device": {...}}``.
 """
 
@@ -238,7 +264,9 @@ FULL = dict(headline=102_400, small=8192, large=1_048_576, large_iters=20,
             seq_points=102_400, stream_large=1_048_576, stream_large_scans=5,
             stream_large_iters=300, batch_hybrid_iters=60, batch_mid=102_400,
             batch_mid_pairs=4, batch_cand=376_401, batch_cand_pairs=2,
-            front_icp=102_400, front_nicp=200_000, front_perf=("icp", "nicp"))
+            front_icp=102_400, front_nicp=200_000, front_perf=("icp", "nicp"),
+            shard_ranks=4, shard_estep=376_401, shard_cpd=102_400, shard_cpd_iters=60,
+            shard_pairs=16, shard_pair_points=16_384)
 
 # the H100 SXM's published peaks (NVIDIA's data sheet, at 700 W): float32
 # outside the tensor cores and HBM3; and the special-function units' exp2,
@@ -2058,6 +2086,325 @@ def front_end_phases(dev, smi, kind, sizes) -> dict:
     return figures
 
 
+SHARD_KERNELS = ("K1", "K2", "K3", "K4_denom", "K4_moments", "K5_denom", "K5_moments")
+
+
+def sharded_phases(dev, smi, kind, sizes, phase6) -> dict:
+    """Phase 20 (module docstring): the sharded layer in a one-rank NCCL
+    world and a four-rank gloo world on the card, each case against a
+    solo run of this process on the same inputs.  Returns each kernel's
+    launches on the ranks and the figures printed."""
+    import torch
+
+    from tpuslam_torch.algorithms.cpd import cpd_estep_auto, cpd_register
+    from tpuslam_torch.algorithms.icp import icp_register
+    from tpuslam_torch.config.configuration import ApproximationType
+    from tpuslam_torch.core.types import pad_cloud, unpad
+    from tpuslam_torch.data.synthesis import (
+        get_random_rotation_matrix,
+        get_random_translation_vector,
+    )
+    from tpuslam_torch.harness.measure import build_headline_pair
+    from tpuslam_torch.kernels import cpd_cand, nn_dense
+    from tpuslam_torch.ops.spatial import morton_permutation
+    from tpuslam_torch.parallel import comm_model
+    from tpuslam_torch.parallel.launch import run_cases, run_world
+
+    rng = np.random.Generator(np.random.PCG64(2020))
+    on_card = dev.type == "cuda"
+    timeout = 300.0
+    ranks = sizes["shard_ranks"]
+
+    def moved(before, angle, trans, noise=0.0):
+        r = get_random_rotation_matrix(rng, angle)
+        t = get_random_translation_vector(rng, trans)
+        after = before @ r.T + t
+        if noise:
+            after = after + rng.normal(0, noise, after.shape)
+        return after.astype(np.float32)[rng.permutation(len(before))], r, t
+
+    def sync():
+        if on_card:
+            torch.cuda.synchronize(dev)
+
+    # --- inputs and the solo runs of this process ----------------------------
+    n_head = sizes["headline"]
+    cb, ca = build_headline_pair(n_head, device=dev)
+    head_b, head_a = unpad(cb), unpad(ca)
+    dense_kw = dict(eps=0.0, max_distance_squared=1e18, max_iterations=50,
+                    divergence_guard=False)
+    solo_dense = icp_register(cb, ca, use_spatial=False, **dense_kw)
+    n_warm = min(8192, n_head)
+    warm = [("icp", dict(before=head_b[:n_warm], after=head_b[:n_warm] + 0.01,
+                         max_iterations=2)),
+            ("cpd", dict(before=head_b[:n_warm // 2], after=head_b[:n_warm // 2] + 0.01,
+                         max_iterations=2))]
+
+    pre_b = (rng.random((sizes["prealign"], 3)) * np.array([40.0, 20.0, 10.0])).astype(
+        np.float32)
+    pre_a, pre_r, _ = moved(pre_b, 2.0, 30.0, noise=0.01)
+    nicp_b = (rng.random((sizes["nicp_large"], 3)) * np.array([40.0, 20.0, 10.0])).astype(
+        np.float32)
+    nicp_a, nicp_r, _ = moved(nicp_b, 2.0, 30.0)
+
+    n_e = sizes["shard_estep"]
+
+    def sorted_box(n):
+        p = torch.from_numpy((rng.random((n, 3)) * 10).astype(np.float32)).to(dev)
+        return p[morton_permutation(p, torch.ones(n, device=dev)).long()].contiguous()
+
+    e_mov, e_tgt = sorted_box(n_e), sorted_box(n_e)
+    e_kw = dict(moving=e_mov.cpu().numpy(), target=e_tgt.cpu().numpy(), sigma2=0.002,
+                constant=0.3)
+
+    n_c = sizes["shard_cpd"]
+    cpd_b = (rng.random((n_c, 3)) * 10).astype(np.float32)
+    cpd_a, cpd_r, _ = moved(cpd_b, 0.1, 0.5, noise=0.01)
+    cpd_kw = dict(weight=0.1, const_scale=True, max_iterations=sizes["shard_cpd_iters"],
+                  tolerance=0.0, eps=1e-6, approximation_type=ApproximationType.Hybrid)
+
+    n_p = sizes["shard_pair_points"]
+    p_befores = [(rng.random((n_p, 3)) * 10).astype(np.float32)
+                 for _ in range(sizes["shard_pairs"])]
+    p_afters = [moved(b, 0.2, 1.0)[0] for b in p_befores]
+
+    big_b, big_a = phase6["before"], phase6["after"]
+    cases = {
+        "dense": ("icp", dict(before=head_b, after=head_a, **dense_kw)),
+        "dense chunked": ("icp", dict(before=head_b, after=head_a, chunk=5, **dense_kw)),
+        "hier": ("icp", dict(before=big_b, after=big_a, max_iterations=phase6["max_iterations"],
+                             use_spatial=True, final_nn=True)),
+        "prealigned": ("icp", dict(before=pre_b, after=pre_a, prealign=True, max_iterations=60,
+                                   max_distance_squared=1e9, eps=1e-6, seed=1)),
+        "nicp": ("nicp", dict(before=nicp_b, after=nicp_a, subcloud_size=1000, seed=1)),
+        "estep exact": ("estep", dict(trunc=False, **e_kw)),
+        "estep truncated": ("estep", dict(trunc=True, **e_kw)),
+        "cpd hybrid": ("cpd", dict(before=cpd_b, after=cpd_a, **cpd_kw)),
+        "cpd hybrid chunked": ("cpd", dict(before=cpd_b, after=cpd_a, chunk=5, **cpd_kw)),
+        "pairs": ("pairs", dict(befores=p_befores, afters=p_afters)),
+    }
+
+    def world(name, size, backend, device, names):
+        sync()
+        t0, epoch0 = time.perf_counter(), time.time()
+        _, per_rank = run_world(run_cases, size, backend, device, timeout,
+                                warm + [cases[k] for k in names])
+        wall = time.perf_counter() - t0
+        started = min(r[0]["wall"][0] for r in per_rank) - epoch0
+        cases_s = {k: max(r[len(warm) + i]["wall"][1] - r[len(warm) + i]["wall"][0]
+                          for r in per_rank) for i, k in enumerate(names)}
+        log(f"[sharded] {name}: {size} rank(s) under {backend} on {device or 'the card'}, "
+            f"{wall:.3f} s for the world, of which {started:.3f} s before the first case "
+            f"(spawn, imports, CUDA start-up, inputs), the cases (set-up included) "
+            f"{json.dumps(cases_s)}")
+        return {k: [r[len(warm) + i] for r in per_rank] for i, k in enumerate(names)}
+
+    def same_on_ranks(name, recs, keys=("rotation", "translation", "iterations", "error")):
+        for rec in recs[1:]:
+            for k in keys:
+                check(np.array_equal(rec["result"][k], recs[0]["result"][k]),
+                      f"{name}: ranks differ in {k}")
+
+    def report(name, recs, steps=None, model=None):
+        """ms per iteration, collectives and bytes per iteration against
+        the model, host ms inside collectives and launches, per rank;
+        ``steps`` None counts an ICP loop's steps by its two ``pmin``s."""
+        res = recs[0]["result"]
+        colls = recs[0]["collectives"]
+        if steps is None:
+            steps = sum(c.op == "pmin" for c in colls) // 2
+        per_iter = sum(c.nbytes for c in colls) / max(steps, 1)
+        host_ms = [sum(c.seconds for c in r["collectives"]) * 1e3 / max(steps, 1) for r in recs]
+        fig = {"ms_per_iter": res["seconds"] * 1e3 / max(steps, 1), "steps": steps,
+               "collectives_per_iter": len(colls) / max(steps, 1),
+               "bytes_per_iter": per_iter, "model_bytes_per_iter": model,
+               "host_ms_in_collectives_per_iter": host_ms,
+               "launches_per_rank": [r["launches"] for r in recs],
+               "routes_per_rank": [sorted(set(r["routes"])) for r in recs]}
+        log(f"[sharded] {name} on {smi}: " + json.dumps(fig))
+        return fig
+
+    def solo_equal(name, got, solo):
+        same = (np.array_equal(got["rotation"], solo.transform.rotation.cpu().numpy())
+                and np.array_equal(got["translation"], solo.transform.translation.cpu().numpy())
+                and np.array_equal(got["error"], solo.error.cpu().numpy())
+                and int(got["iterations"]) == int(solo.iterations))
+        log(f"[sharded] {name}: equal to the solo run bit for bit: {same} (tolerance 0)")
+        check(same, f"{name}: differs from the solo run")
+
+    figs = {}
+    launches = {"nccl_1_rank": dict.fromkeys(SHARD_KERNELS, 0),
+                "gloo_4_ranks": dict.fromkeys(SHARD_KERNELS, 0)}
+
+    def add(which, recs):
+        for r in recs:
+            for k in SHARD_KERNELS:
+                launches[which][k] += r["launches"][k]
+
+    # (a) one rank under NCCL ----------------------------------------------------
+    one = world("(a)", 1, "nccl" if on_card else "gloo", None if on_card else str(dev),
+                ["dense"])
+    recs = one["dense"]
+    solo_equal("(a) dense ICP", recs[0]["result"], solo_dense)
+    model = comm_model.icp_comm_bytes(cb.points.shape[0])["total"]
+    figs["(a) dense"] = report("(a) dense ICP at headline size", recs, solo_dense.iterations,
+                               model)
+    check(figs["(a) dense"]["bytes_per_iter"] == model,
+          "(a): bytes per iteration differ from icp_comm_bytes")
+    add("nccl_1_rank", recs)
+    check(launches["nccl_1_rank"]["K1"] > 0, "(a): K1 was not launched on the rank")
+
+    # (b) four ranks under gloo, all on one card -----------------------------------
+    four = world("(b)", ranks, "gloo", str(dev), list(cases))
+    for recs in four.values():
+        add("gloo_4_ranks", recs)
+
+    recs = four["dense"]
+    solo_equal("(b1) dense ICP", recs[0]["result"], solo_dense)
+    same_on_ranks("(b1) dense ICP", recs)
+    figs["dense"] = report("(b1) dense ICP at headline size", recs, solo_dense.iterations, model)
+    check(figs["dense"]["bytes_per_iter"] == model,
+          "(b1): bytes per iteration differ from icp_comm_bytes")
+
+    recs = four["hier"]
+    res = recs[0]["result"]
+    same_on_ranks("(b2) hierarchical ICP", recs)
+    r6, t6, it6, _ = phase6["result"]
+    d_r = float(np.abs(res["rotation"] - r6).max())
+    d_t = float(np.abs(res["translation"] - t6).max())
+    valid = res["final_mask"] > 0
+    lb = pad_cloud(big_a, device=dev)
+    k1_idx, k1_dist = nn_dense.nearest_neighbors_dense(
+        torch.from_numpy(res["final_src"]).to(dev), lb.points, lb.count)
+    bad = int(((k1_idx.cpu().numpy() != res["final_index"])
+               | (k1_dist.cpu().numpy() != res["final_dist"]))[valid].sum())
+    log(f"[sharded] (b2) hierarchical ICP at {len(big_b)} points: iterations "
+        f"{int(res['iterations'])} (solo {it6}), |dR| {d_r}, |dt| {d_t} against the solo "
+        f"hierarchical run (tolerance 1e-4); final-state NN rows differing from K1 on the whole "
+        f"cloud {bad} of {int(valid.sum())} (tolerance 0)")
+    check(d_r <= 1e-4 and d_t <= 1e-4, "(b2): the hierarchical run differs from solo")
+    check(bad == 0, "(b2): the sharded hierarchical NN differs from K1")
+    for r in recs:
+        check(np.array_equal(r["result"]["final_index"], res["final_index"]),
+              "(b2): ranks differ in the final NN")
+    figs["hier"] = report("(b2) hierarchical ICP", recs,
+                          model=comm_model.icp_comm_bytes(len(res["final_src"]))["total"])
+
+    recs = four["dense chunked"]
+    whole = four["dense"][0]["result"]
+    same = all(np.array_equal(recs[0]["result"][k], whole[k])
+               for k in ("rotation", "translation", "error", "iterations"))
+    log(f"[sharded] (b3) chunked dense ICP (chunk 5): equal to the unchunked sharded run bit "
+        f"for bit: {same}")
+    check(same, "(b3): the chunked run differs from the unchunked one")
+    same_on_ranks("(b3) chunked ICP", recs)
+    figs["dense chunked"] = report("(b3) chunked dense ICP", recs, solo_dense.iterations, model)
+
+    recs = four["prealigned"]
+    ang = rotation_error_deg(recs[0]["result"]["rotation"], pre_r)
+    log(f"[sharded] (b3) prealigned ICP at {len(pre_b)} points moved by (2.0 rad, 30): "
+        f"{int(recs[0]['result']['iterations'])} iterations, rotation off by {ang} deg "
+        f"(bound 1)")
+    check(ang < 1.0, f"(b3): prealigned rotation {ang} deg from the truth")
+    same_on_ranks("(b3) prealigned ICP", recs)
+    figs["prealigned"] = report("(b3) prealigned ICP", recs)
+
+    recs = four["nicp"]
+    ang = rotation_error_deg(recs[0]["result"]["rotation"], nicp_r)
+    log(f"[sharded] (b4) NICP at {len(nicp_b)} points moved by (2.0 rad, 30), subcloud 1000, "
+        f"seed 1: {int(recs[0]['result']['iterations'])} candidates, rotation off by {ang} deg "
+        f"(bound 1)")
+    check(ang < 1.0, f"(b4): NICP rotation {ang} deg from the truth")
+    same_on_ranks("(b4) NICP", recs)
+    figs["nicp"] = report("(b4) NICP", recs, 1, comm_model.nicp_comm_bytes(1000)["total"])
+
+    # (b5) the E-step's reduced statistics at n_e^2, exact and truncated
+    m1 = torch.ones(n_e, device=dev)
+    e_model = comm_model.cpd_comm_bytes(len(four["estep exact"][0]["result"]["p1"]))["total"]
+    k5_ranks = 0
+    for label, trunc in (("exact", False), ("truncated", True)):
+        recs = four[f"estep {label}"]
+        cpd_cand.ROUTE_TRACE.clear()
+        solo = cpd_estep_auto(e_mov, m1, e_tgt, m1, 0.002, 0.3,
+                              torch.tensor(trunc, device=dev) if trunc else False)
+        route = list(cpd_cand.ROUTE_TRACE)
+        want = {"p1": solo.p1, "px": solo.px, "error": solo.error,
+                "t_pt1_a2": torch.sum(solo.pt1 * torch.sum(e_tgt * e_tgt, -1)),
+                "s_pt1_a": torch.matmul(solo.pt1, e_tgt)}
+        rel = {}
+        for k, v in want.items():
+            v = v.double().cpu().numpy()
+            g = recs[0]["result"][k]
+            g = g[:n_e] if k in ("p1", "px") else g  # the moving cloud's padded rows weigh 0
+            rel[k] = float(np.abs(g - v).max() / max(np.abs(v).max(), 1e-30))
+        shard_routes = [r["routes"] for r in recs]
+        log(f"[sharded] (b5) E-step {label} at {n_e}^2, sigma^2 0.002: relative error "
+            f"against solo cpd_estep_auto (route {route}) {rel} (tolerance 1e-5); K5 routes "
+            f"by shard {shard_routes}")
+        check(max(rel.values()) <= 1e-5, f"(b5): {label} statistics differ from solo")
+        for k in want:
+            for r in recs:
+                check(np.array_equal(r["result"][k], recs[0]["result"][k]),
+                      f"(b5): ranks differ in {k}")
+        if trunc:
+            k5_ranks = sum(r["launches"]["K5_denom"] > 0 for r in recs)
+            if k5_ranks == 0:
+                log("[sharded] (b5) no shard took K5 at sigma^2 0.002 (admission overflow on "
+                    "every block); K5 is required of the solo truncated E-step instead")
+                check(route == ["k5"], "(b5): the solo truncated E-step did not take K5")
+        else:
+            check(all(r["launches"]["K4_denom"] > 0 for r in recs),
+                  "(b5): K4 was not launched on every rank")
+        figs[f"estep {label}"] = report(f"(b5) E-step {label}", recs, 1, e_model)
+    figs["k5_shards"] = k5_ranks
+
+    recs = four["cpd hybrid"]
+    res = recs[0]["result"]
+    solo = cpd_register(pad_cloud(cpd_b, device=dev), pad_cloud(cpd_a, device=dev), **cpd_kw)
+    d_r = float(np.abs(res["rotation"] - solo.transform.rotation.cpu().numpy()).max())
+    ang = rotation_error_deg(res["rotation"], cpd_r)
+    log(f"[sharded] (b5) Hybrid CPD at {n_c} points moved by (0.1 rad, 0.5): "
+        f"{int(res['iterations'])} iterations (solo {int(solo.iterations)}), sigma^2 "
+        f"{float(res['error'])} (solo {float(solo.error)}), |dR| against solo {d_r} (tolerance "
+        f"2e-4), rotation off by {ang} deg (bound 1); routes {recs[0]['routes'][-3:]}")
+    check(d_r <= 2e-4, "(b5): the Hybrid run differs from solo")
+    check(ang < 1.0, f"(b5): Hybrid rotation {ang} deg from the truth")
+    same_on_ranks("(b5) Hybrid CPD", recs)
+    figs["cpd hybrid"] = report("(b5) Hybrid CPD", recs, int(res["iterations"]))
+
+    recs = four["cpd hybrid chunked"]
+    same = all(np.array_equal(recs[0]["result"][k], res[k])
+               for k in ("rotation", "translation", "error", "iterations"))
+    log(f"[sharded] (b5) chunked Hybrid CPD (chunk 5): equal to the unchunked sharded run bit "
+        f"for bit: {same}")
+    check(same, "(b5): the chunked CPD differs from the unchunked one")
+    figs["cpd hybrid chunked"] = report("(b5) chunked Hybrid CPD", recs, int(res["iterations"]))
+
+    recs = four["pairs"]
+    res = recs[0]["result"]
+    worst = 0
+    for i, (b, a) in enumerate(zip(p_befores, p_afters)):
+        solo = icp_register(pad_cloud(b, device=dev), pad_cloud(a, device=dev),
+                            use_spatial=False)
+        same = (np.array_equal(res["rotation"][i], solo.transform.rotation.cpu().numpy())
+                and np.array_equal(res["translation"][i],
+                                   solo.transform.translation.cpu().numpy())
+                and int(res["iterations"][i]) == int(solo.iterations)
+                and np.array_equal(res["error"][i], solo.error.cpu().numpy()))
+        worst += not same
+    log(f"[sharded] (b6) {len(p_befores)} x {n_p} pairs, {len(p_befores) // ranks} a rank: "
+        f"pairs differing from their solo runs {worst} (tolerance 0)")
+    check(worst == 0, "(b6): a pair differs from its solo run")
+    same_on_ranks("(b6) pairs", recs)
+    figs["pairs"] = report("(b6) pairs", recs, int(res["iterations"].max()))
+
+    gl = launches["gloo_4_ranks"]
+    log(f"[sharded] launches on the ranks of phase 20: {json.dumps(launches)}")
+    for k in ("K1", "K2", "K3", "K4_denom", "K4_moments"):
+        check(gl[k] > 0, f"phase 20: {k} was not launched on the ranks")
+    return {"launches": launches, "figures": figs}
+
+
 def main(dev=None, sizes=FULL) -> int:
     import torch
 
@@ -2532,6 +2879,8 @@ def main(dev=None, sizes=FULL) -> int:
     log(f"[drivers] summary: {json.dumps(slice8)}")
     front = front_end_phases(dev, smi, kind, sizes)
     log(f"[front] summary: {json.dumps(front)}")
+    sharded = sharded_phases(dev, smi, kind, sizes, phase6)
+    log(f"[sharded] summary: {json.dumps(sharded)}")
     per_pair = slice8["sequence"]["scan seeded"]["launches_per_pair"]
     for entry, name in zip(cpd_kernels[:2], ("denom", "moments")):
         entry["launches_per_batched_iter"] = slice8["k4"]["launches_per_batched_iter"]
@@ -2592,8 +2941,10 @@ def main(dev=None, sizes=FULL) -> int:
         },
         *cpd_kernels,
     ]
-    for entry in kernels:
+    for entry, key in zip(kernels, SHARD_KERNELS):
         entry["front_end_launches"] = front["launches"][entry["name"]]
+        entry["launches_sharded"] = {world: counts[key]
+                                     for world, counts in sharded["launches"].items()}
     log(smi)
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {

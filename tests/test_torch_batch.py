@@ -45,6 +45,9 @@ from tpuslam_torch.core.types import Cloud, pad_cloud
 from tpuslam_torch.ops import nn_hier
 from tpuslam_torch.ops.nn import nearest_neighbors, nearest_neighbors_batch
 
+# the port runs on the card unless asked for the CPU; these tests ask
+CPU = "cpu"
+
 
 @pytest.fixture(autouse=True)
 def _one_thread():
@@ -88,10 +91,10 @@ def _truth_mse(b, rot, tr, r, t):
 
 def test_icp_batch_matches_solo(rng):
     befores, afters, truths = make_pairs(rng, [300, 450, 200])
-    batch = icp_register_batch(stack_clouds(befores), stack_clouds(afters), max_iterations=30)
+    batch = icp_register_batch(stack_clouds(befores, device=CPU), stack_clouds(afters, device=CPU), max_iterations=30)
     assert batch.iterations.dtype == torch.int32 and batch.iterations.shape == (3,)
     for i, (b, a) in enumerate(zip(befores, afters)):
-        solo = icp_register(pad_cloud(b, multiple=512), pad_cloud(a, multiple=512),
+        solo = icp_register(pad_cloud(b, multiple=512, device=CPU), pad_cloud(a, multiple=512, device=CPU),
                             max_iterations=30)
         np.testing.assert_allclose(batch.transform.rotation[i].numpy(),
                                    solo.transform.rotation.numpy(), atol=1e-5)
@@ -107,7 +110,7 @@ def test_icp_batch_matches_solo(rng):
 
 def test_icp_batch_unrolled_matches_vmapped(rng):
     befores, afters, _ = make_pairs(rng, [300, 450, 200])
-    bb, ba = stack_clouds(befores), stack_clouds(afters)
+    bb, ba = stack_clouds(befores, device=CPU), stack_clouds(afters, device=CPU)
     vmapped = icp_register_batch(bb, ba, max_iterations=30, unroll=False)
     unrolled = icp_register_batch(bb, ba, max_iterations=30, unroll=True)
     for k in range(3):
@@ -120,14 +123,14 @@ def test_icp_batch_unrolled_matches_vmapped(rng):
 
 def test_icp_batch_unrolled_hier_matches_vmapped(rng):
     befores, afters, _ = make_pairs(rng, [300, 450, 200])
-    bb, ba = stack_clouds(befores), stack_clouds(afters)
+    bb, ba = stack_clouds(befores, device=CPU), stack_clouds(afters, device=CPU)
     vmapped = icp_register_batch(bb, ba, max_iterations=12, unroll=False)
     hier = icp_register_batch(bb, ba, max_iterations=12, unroll=True, use_spatial=True)
     # against the dense arm: the hier arm sums in Morton order
     np.testing.assert_allclose(hier.transform.rotation.numpy(),
                                vmapped.transform.rotation.numpy(), atol=1e-4)
     for i, (b, a) in enumerate(zip(befores, afters)):
-        solo = icp_register(pad_cloud(b, multiple=512), pad_cloud(a, multiple=512),
+        solo = icp_register(pad_cloud(b, multiple=512, device=CPU), pad_cloud(a, multiple=512, device=CPU),
                             max_iterations=12, use_spatial=True)
         np.testing.assert_allclose(hier.transform.rotation[i].numpy(),
                                    solo.transform.rotation.numpy(), atol=1e-6)
@@ -145,7 +148,7 @@ def test_batch_vmap_equals_solo_bit_for_bit(rng, use_spatial):
     on both NN arms: pairs of different live sizes, bit for bit."""
     sizes = [700, 1024, 512]
     befores, afters, _ = make_pairs(rng, sizes, angle=0.15, trans=2.0)
-    bb, ba = stack_clouds(befores), stack_clouds(afters)
+    bb, ba = stack_clouds(befores, device=CPU), stack_clouds(afters, device=CPU)
     kw = dict(eps=0.0, max_distance_squared=1e18, max_iterations=8, divergence_guard=False,
               use_spatial=use_spatial)
     out = icp_register_batch(bb, ba, unroll=False, **kw)
@@ -164,7 +167,7 @@ def test_batch_freezes_stopped_pairs(rng, use_spatial):
     befores = [moving, moving, moving, make_cloud(rng, n)]
     afters = [(moving @ r.T + t).astype(np.float32), moving.copy(), moving + 1000.0,
               (befores[3] @ r.T + t).astype(np.float32)]
-    bb, ba = stack_clouds(befores), stack_clouds(afters)
+    bb, ba = stack_clouds(befores, device=CPU), stack_clouds(afters, device=CPU)
     kw = dict(eps=1e-4, max_distance_squared=50.0, max_iterations=25, use_spatial=use_spatial)
     out = icp_register_batch(bb, ba, unroll=False, **kw)
     iters = out.iterations.tolist()
@@ -180,7 +183,7 @@ def test_nicp_batch_recovers(rng):
     befores, afters, truths = make_pairs(rng, [400, 350], angle=0.3)
     befores = [b * np.array([1.0, 0.5, 0.2], np.float32) for b in befores]
     afters = [(b @ r.T + t).astype(np.float32) for b, (r, t) in zip(befores, truths)]
-    batch = nicp_register_batch(stack_clouds(befores), stack_clouds(afters))
+    batch = nicp_register_batch(stack_clouds(befores, device=CPU), stack_clouds(afters, device=CPU))
     want = jbatch.nicp_register_batch(jbatch.stack_clouds(befores), jbatch.stack_clouds(afters))
     _close(batch, want)
     np.testing.assert_array_equal(batch.iterations.numpy(), np.asarray(want.iterations))
@@ -189,7 +192,7 @@ def test_nicp_batch_recovers(rng):
     for i, (b, (r, t)) in enumerate(zip(befores, truths)):
         assert _truth_mse(b, batch.transform.rotation[i], batch.transform.translation[i],
                           r, t) < 1e-3
-        solo = nicp_register(pad_cloud(b), pad_cloud(afters[i]))
+        solo = nicp_register(pad_cloud(b, device=CPU), pad_cloud(afters[i], device=CPU))
         np.testing.assert_allclose(batch.transform.rotation[i].numpy(),
                                    solo.transform.rotation.numpy(), rtol=0, atol=1e-5)
         assert int(batch.iterations[i]) == solo.iterations == 4
@@ -198,7 +201,7 @@ def test_nicp_batch_recovers(rng):
 def test_cpd_batch_recovers(rng):
     befores, afters, truths = make_pairs(rng, [200, 250], angle=0.2, trans=0.5)
     kw = dict(weight=0.1, max_iterations=60, tolerance=1e-6, const_scale=True)
-    bb, ba = stack_clouds(befores), stack_clouds(afters)
+    bb, ba = stack_clouds(befores, device=CPU), stack_clouds(afters, device=CPU)
     batch = cpd_register_batch(bb, ba, **kw)
     for i, (b, (r, t)) in enumerate(zip(befores, truths)):
         s = float(batch.transform.scale[i])
@@ -341,12 +344,12 @@ def test_cpd_pair_axis_matches_jax_batch(rng, mode):
 
 def test_stack_clouds_padding(rng):
     clouds = [rng.random((n, 3)).astype(np.float32) for n in (50, 300)]
-    stacked = stack_clouds(clouds)
+    stacked = stack_clouds(clouds, device=CPU)
     assert stacked.points.shape == (2, 384, 3)
     assert stacked.count.tolist() == [50, 300]
     assert stacked.mask().shape == (2, 384) and stacked.mask().sum(1).tolist() == [50, 300]
     with pytest.raises(ValueError, match="empty"):
-        stack_clouds([])
+        stack_clouds([], device=CPU)
 
 
 def _pairs_for_api(rng, k=3):
@@ -403,25 +406,25 @@ def _anisotropic_pairs(rng, sizes, angle=2.0, trans=30.0):
 def test_prealigned_matches_jax(rng, tmp_path):
     (b,), (a,), ((r, t),) = _anisotropic_pairs(rng, [600])
     kw = dict(eps=1e-6, max_distance_squared=1e9, max_iterations=40, seed=2)
-    got = icp_register_prealigned(pad_cloud(b), pad_cloud(a), **kw)
+    got = icp_register_prealigned(pad_cloud(b, device=CPU), pad_cloud(a, device=CPU), **kw)
     want = jax_prealigned(jax_pad_cloud(b), jax_pad_cloud(a), use_pallas=False, **kw)
     assert got.iterations == int(want.iterations)
     _close(got, want)
     np.testing.assert_allclose(float(got.error), float(want.error), rtol=1e-4, atol=1e-9)
     assert _truth_mse(b, got.transform.rotation, got.transform.translation, r, t) < 1e-3
     # the cold loop from identity does not find this pair
-    cold = icp_register(pad_cloud(b), pad_cloud(a), eps=1e-6, max_distance_squared=1e9,
+    cold = icp_register(pad_cloud(b, device=CPU), pad_cloud(a, device=CPU), eps=1e-6, max_distance_squared=1e9,
                         max_iterations=40)
     assert _truth_mse(b, cold.transform.rotation, cold.transform.translation, r, t) > 1.0
     # chunked and checkpointed, the prealigned loop follows the same path
     for extra in (dict(chunk=10), dict(checkpoint_path=str(tmp_path / "x.npz"))):
-        _equal_solo(icp_register_prealigned(pad_cloud(b), pad_cloud(a), **extra, **kw), got)
+        _equal_solo(icp_register_prealigned(pad_cloud(b, device=CPU), pad_cloud(a, device=CPU), **extra, **kw), got)
 
 
 def test_prealign_batch_matches_solo(rng):
     befores, afters, truths = _anisotropic_pairs(rng, [300, 450, 200])
     kw = dict(eps=1e-6, max_distance_squared=1e9, max_iterations=40)
-    bb, ba = stack_clouds(befores), stack_clouds(afters)
+    bb, ba = stack_clouds(befores, device=CPU), stack_clouds(afters, device=CPU)
     batch = icp_register_prealigned_batch(bb, ba, **kw)
     unrolled = icp_register_prealigned_batch(bb, ba, unroll=True, **kw)
     assert torch.equal(unrolled.transform.rotation, batch.transform.rotation)
@@ -431,7 +434,7 @@ def test_prealign_batch_matches_solo(rng):
     _close(batch, want)
     np.testing.assert_array_equal(batch.iterations.numpy(), np.asarray(want.iterations))
     for i, (b, a) in enumerate(zip(befores, afters)):
-        solo = icp_register_prealigned(pad_cloud(b, multiple=512), pad_cloud(a, multiple=512),
+        solo = icp_register_prealigned(pad_cloud(b, multiple=512, device=CPU), pad_cloud(a, multiple=512, device=CPU),
                                        **kw)
         np.testing.assert_allclose(batch.transform.rotation[i].numpy(),
                                    solo.transform.rotation.numpy(), atol=1e-5)
@@ -504,7 +507,7 @@ def test_hier_batch_equals_solo_queries(rng, noise, arm):
     n, m, gsrc = 2048, 32_768, 256
     targets, states, moved, masks = [], [], [], []
     for k in range(2):
-        cloud = pad_cloud(make_cloud(rng, m - 100), multiple=m)
+        cloud = pad_cloud(make_cloud(rng, m - 100), multiple=m, device=CPU)
         targets.append(nn_hier.prepare_hier_target(cloud.points, cloud.mask(), cloud.count))
         src = torch.from_numpy(make_cloud(rng, n))
         src = src[morton_permutation(src, torch.ones(n)).long()].contiguous()
@@ -535,9 +538,9 @@ def test_hier_batch_equals_solo_queries(rng, noise, arm):
 
 
 def test_pad_cloud_places_host_arrays_by_resolve_device(rng, monkeypatch):
-    """A numpy array goes where ``resolve_device(None)`` says (the card
-    when there is one); an explicit device and a tensor's own device
-    stand."""
+    """A numpy array goes where ``resolve_device(None)`` says: the card,
+    and an error where there is none; an explicit device and a tensor's
+    own device stand."""
     asked = []
 
     def fake(device=None):
@@ -550,8 +553,12 @@ def test_pad_cloud_places_host_arrays_by_resolve_device(rng, monkeypatch):
     assert pad_cloud(pts, device="cpu").points.device.type == "cpu"
     assert pad_cloud(torch.from_numpy(pts)).points.device.type == "cpu"
     monkeypatch.undo()
-    assert pad_cloud(pts).points.device == tpuslam_torch.core.device.resolve_device(None)
-    assert stack_clouds([pts]).points.device == tpuslam_torch.core.device.resolve_device(None)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        pad_cloud(pts)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        stack_clouds([pts])
+    assert stack_clouds([pts], device="cpu").points.device.type == "cpu"
 
 
 def test_icp_checkpoint_env_raises(rng, monkeypatch, tmp_path):

@@ -33,13 +33,16 @@ from tpuslam_torch.ops import nn_hier
 from tpuslam_torch.ops.nn import nearest_neighbors_ref
 from tpuslam_torch.ops.spatial import morton_permutation
 
+# the port runs on the card unless asked for the CPU; these tests ask
+CPU = "cpu"
+
 
 def _problem(rng, n, m, count, g=128):
     """Sorted sources, their mask, the prepared target and the Cloud."""
     src = torch.from_numpy((rng.random((n, 3)) * 10).astype(np.float32))
     mask = torch.ones(n)
     src = src[morton_permutation(src, mask).long()].contiguous()
-    cloud = pad_cloud((rng.random((count, 3)) * 10).astype(np.float32), multiple=m)
+    cloud = pad_cloud((rng.random((count, 3)) * 10).astype(np.float32), multiple=m, device=CPU)
     target = nn_hier.prepare_hier_target(cloud.points, cloud.mask(), cloud.count, g=g)
     return src, mask, target, cloud
 

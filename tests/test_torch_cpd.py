@@ -33,6 +33,9 @@ from tpuslam_torch.core.types import pad_cloud
 from tpuslam_torch.interop import from_numpy_state, to_numpy_state
 from tpuslam_torch.kernels import cpd_cand
 
+# the port runs on the card unless asked for the CPU; these tests ask
+CPU = "cpu"
+
 MODES = {"none": (ApproximationType.NONE, JaxApprox.NONE),
          "full": (ApproximationType.Full, JaxApprox.Full),
          "hybrid": (ApproximationType.Hybrid, JaxApprox.Hybrid)}
@@ -73,7 +76,7 @@ def _run_both(before, after, mode, use_kernels=None, multiple=128, resume=None, 
         approximation_type=japprox, use_pallas=use_kernels, resume=resume, **kw)
     port_resume = None if resume is None else from_numpy_state(to_numpy_state(resume), "cpu")
     port = cpd.cpd_register(
-        pad_cloud(before, multiple=multiple), pad_cloud(after, multiple=multiple),
+        pad_cloud(before, multiple=multiple, device=CPU), pad_cloud(after, multiple=multiple, device=CPU),
         approximation_type=approx, use_kernels=use_kernels, resume=port_resume, **kw)
     return port, ref
 
@@ -129,7 +132,7 @@ def test_hybrid_fast_threshold_matches_jax(rng, centroid_init):
     after = (before[rng.permutation(300)] + 0.5).astype(np.float32)
     want = jcpd.hybrid_fast_threshold(jax_pad_cloud(before), jax_pad_cloud(after),
                                       centroid_init=centroid_init)
-    got = cpd.hybrid_fast_threshold(pad_cloud(before), pad_cloud(after),
+    got = cpd.hybrid_fast_threshold(pad_cloud(before, device=CPU), pad_cloud(after, device=CPU),
                                     centroid_init=centroid_init)
     np.testing.assert_allclose(float(got), float(want), rtol=1e-5)
 
@@ -237,9 +240,9 @@ def test_centroid_init_matches_jax(rng):
 
 def test_padding_invariance(rng):
     before, after, _, _ = _pair(rng, n=150)
-    a = cpd.cpd_register(pad_cloud(before, multiple=128), pad_cloud(after, multiple=128),
+    a = cpd.cpd_register(pad_cloud(before, multiple=128, device=CPU), pad_cloud(after, multiple=128, device=CPU),
                          weight=0.1, max_iterations=30)
-    b = cpd.cpd_register(pad_cloud(before, multiple=512), pad_cloud(after, multiple=512),
+    b = cpd.cpd_register(pad_cloud(before, multiple=512, device=CPU), pad_cloud(after, multiple=512, device=CPU),
                          weight=0.1, max_iterations=30)
     assert a.iterations == b.iterations
     np.testing.assert_allclose(a.transform.rotation.numpy(), b.transform.rotation.numpy(),
@@ -253,7 +256,7 @@ def test_history_ring_matches_jax(rng):
     before, after, _, _ = _pair(rng, n=150)
     kw = dict(weight=0.1, max_iterations=12, tolerance=0.0, record_history=True)
     full, ref = _run_both(before, after, "none", history_length=64, **kw)
-    ring = cpd.cpd_register(pad_cloud(before), pad_cloud(after), approximation_type=
+    ring = cpd.cpd_register(pad_cloud(before, device=CPU), pad_cloud(after, device=CPU), approximation_type=
                             ApproximationType.NONE, history_length=8, **kw)
     assert full.iterations == ring.iterations == 12
     assert full.history.shape == (64, 4)
@@ -285,7 +288,7 @@ def test_verbose_prints_reference_trace(rng, capsys):
     resume = cpd.CPDResume(torch.eye(3), torch.zeros(3), torch.tensor(1.0),
                            torch.tensor(1.0), torch.tensor(0.0), torch.tensor(11.0),
                            done_before=7)
-    cpd.cpd_register(pad_cloud(before), pad_cloud(after), max_iterations=3,
+    cpd.cpd_register(pad_cloud(before, device=CPU), pad_cloud(after, device=CPU), max_iterations=3,
                      tolerance=0.0, verbose=True, resume=resume)
     lines = capsys.readouterr().out.splitlines()
     assert [ln.split(",")[0] for ln in lines] == ["loop_nr 8", "loop_nr 9", "loop_nr 10"]
@@ -338,14 +341,14 @@ def test_interop_round_trips(rng):
     again = to_numpy_state(state)
     for k, v in to_numpy_state(res.em).items():
         np.testing.assert_array_equal(again[k], v)
-    resume = from_numpy_state(to_numpy_state(jcpd.CPDResume(*res.em[:6], done_before=4)))
+    resume = from_numpy_state(to_numpy_state(jcpd.CPDResume(*res.em[:6], done_before=4)), device=CPU)
     assert isinstance(resume, cpd.CPDResume) and resume.done_before == 4
     from tpuslam.ops.fgt import compute_fgt_model
 
     model = compute_fgt_model(jnp.asarray(before), jnp.ones(100), jnp.float32(1.0), 8, 4)
-    port_model = from_numpy_state(to_numpy_state(model))
+    port_model = from_numpy_state(to_numpy_state(model), device=CPU)
     assert type(port_model).__name__ == "FGTModel"
     np.testing.assert_array_equal(port_model.ak.numpy(), np.asarray(model.ak))
     stats = from_numpy_state(to_numpy_state(jcpd.Sufficient(
-        p1=jnp.ones(3), pt1=jnp.ones(2), px=jnp.ones((3, 3)), error=jnp.float32(2.0))))
+        p1=jnp.ones(3), pt1=jnp.ones(2), px=jnp.ones((3, 3)), error=jnp.float32(2.0))), device=CPU)
     assert isinstance(stats, cpd.Sufficient) and float(stats.error) == 2.0

@@ -23,6 +23,9 @@ from tpuslam.ops import fgt as jfgt
 from tpuslam_torch.algorithms.cpd import cpd_estep_fgt
 from tpuslam_torch.ops import fgt
 
+# the port runs on the card unless asked for the CPU; these tests ask
+CPU = "cpu"
+
 RTOL, ATOL = 1e-4, 1e-5
 
 
@@ -189,7 +192,7 @@ def test_clustering_cache_carries_the_order(rng, monkeypatch):
     real = fgt.segment_order
     monkeypatch.setattr(fgt, "segment_order", lambda *a: sorts.append(1) or real(*a))
     b = (rng.random((600, 3)) * 4.0).astype(np.float32)
-    out = cpd_register(pad_cloud(b), pad_cloud(b + 0.05), weight=0.1, max_iterations=4,
+    out = cpd_register(pad_cloud(b, device=CPU), pad_cloud(b + 0.05, device=CPU), weight=0.1, max_iterations=4,
                        tolerance=0.0, approximation_type=ApproximationType.Full,
                        use_fgt=True, fgt_k=16)
     assert out.iterations == 4 and len(sorts) == 2  # one per cloud's clustering

@@ -26,13 +26,16 @@ from tpuslam.ops.spatial import morton_permutation as jax_morton
 from tpuslam_torch.core.types import pad_cloud
 from tpuslam_torch.ops import nn_hier
 
+# the port runs on the card unless asked for the CPU; these tests ask
+CPU = "cpu"
+
 
 class Both:
     """One target prepared by both packages, and both packages' states."""
 
     def __init__(self, tgt_points, count, m, n, g=128):
         self.jt = jax_pad_cloud(tgt_points[:count], multiple=m)
-        self.tt = pad_cloud(tgt_points[:count], multiple=m)
+        self.tt = pad_cloud(tgt_points[:count], multiple=m, device=CPU)
         self.jax_target = jax_hier.prepare_hier_target(
             self.jt.points, self.jt.mask(), self.jt.count, g=g)
         self.target = nn_hier.prepare_hier_target(

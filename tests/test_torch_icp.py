@@ -26,6 +26,9 @@ from tpuslam_torch.algorithms.icp import icp_register, resolve_use_spatial
 from tpuslam_torch.core.types import pad_cloud
 from tpuslam_torch.interop import from_numpy_state, to_numpy_state
 
+# the port runs on the card unless asked for the CPU; these tests ask
+CPU = "cpu"
+
 N = 2048
 
 
@@ -38,7 +41,7 @@ def _run_both(before, after, resume=None, **kw):
     if resume is not None:
         port_resume = from_numpy_state(to_numpy_state(resume), "cpu")
     port_res = icp_register(
-        pad_cloud(before), pad_cloud(after), resume=port_resume, **kw
+        pad_cloud(before, device=CPU), pad_cloud(after, device=CPU), resume=port_resume, **kw
     )
     return jax_res, port_res
 
@@ -128,13 +131,13 @@ def test_divergence_guard_reverts(rng):
     _assert_agree(jax_res, port_res)
     assert 0 < port_res.iterations < 40  # stopped by the guard, not the cap
     capped = icp_register(
-        pad_cloud(before), pad_cloud(after),
+        pad_cloud(before, device=CPU), pad_cloud(after, device=CPU),
         max_iterations=port_res.iterations, **kw
     )
     assert torch.equal(capped.transform.rotation, port_res.transform.rotation)
     assert torch.equal(capped.error, port_res.error)
     unguarded = icp_register(
-        pad_cloud(before), pad_cloud(after), max_iterations=40,
+        pad_cloud(before, device=CPU), pad_cloud(after, device=CPU), max_iterations=40,
         divergence_guard=False, **kw
     )
     assert unguarded.iterations == 40
@@ -212,7 +215,7 @@ def test_resume_from_jax_mid_run_state(rng):
 def test_verbose_prints_each_iteration(rng, capsys):
     before, after, _, _ = _pair(rng, 0.1, 0.5, n=256)
     res = icp_register(
-        pad_cloud(before), pad_cloud(after), max_iterations=3,
+        pad_cloud(before, device=CPU), pad_cloud(after, device=CPU), max_iterations=3,
         eps=0.0, divergence_guard=False, verbose=True,
     )
     lines = capsys.readouterr().out.splitlines()
@@ -223,7 +226,7 @@ def test_verbose_prints_each_iteration(rng, capsys):
 
 
 def test_clouds_on_two_devices_raise(rng):
-    cloud = pad_cloud(make_cloud(rng, 128))
+    cloud = pad_cloud(make_cloud(rng, 128), device=CPU)
     other = cloud._replace(points=cloud.points.to("meta"))
     with pytest.raises(ValueError, match="one device"):
         icp_register(cloud, other)
@@ -237,11 +240,11 @@ def test_spatial_arm_matches_jax_spatial_arm(rng, n):
     kw = dict(max_iterations=25)
     jax_res = jax_icp_register(
         jax_pad_cloud(before), jax_pad_cloud(after), use_spatial=True, **kw)
-    port_res = icp_register(pad_cloud(before), pad_cloud(after), use_spatial=True, **kw)
+    port_res = icp_register(pad_cloud(before, device=CPU), pad_cloud(after, device=CPU), use_spatial=True, **kw)
     _assert_agree(jax_res, port_res)
     assert port_res.nn is not None and bool(port_res.nn.warm)
     assert port_res.nn.prev_target.shape == (2048, 3)
-    dense = icp_register(pad_cloud(before), pad_cloud(after), use_spatial=False, **kw)
+    dense = icp_register(pad_cloud(before, device=CPU), pad_cloud(after, device=CPU), use_spatial=False, **kw)
     assert dense.nn is None
     assert abs(dense.iterations - port_res.iterations) <= 2
 
@@ -270,7 +273,7 @@ def test_spatial_resume_from_jax_mid_run_state(rng):
         jax_pad_cloud(before), jax_pad_cloud(after), use_spatial=True,
         resume=resume, max_iterations=30, **kw)
     port_res = icp_register(
-        pad_cloud(before), pad_cloud(after), use_spatial=True,
+        pad_cloud(before, device=CPU), pad_cloud(after, device=CPU), use_spatial=True,
         resume=port_resume, max_iterations=30, **kw)
     _assert_agree(jax_res, port_res)
 
@@ -303,8 +306,8 @@ def test_resolve_use_spatial_gate(use_spatial, rows, device, expected):
 
 
 def test_spatial_arm_refuses_2_24_target_rows():
-    big = pad_cloud(np.zeros((2**24, 3), np.float32))
-    small = pad_cloud(np.zeros((1024, 3), np.float32))
+    big = pad_cloud(np.zeros((2**24, 3), np.float32), device=CPU)
+    small = pad_cloud(np.zeros((1024, 3), np.float32), device=CPU)
     with pytest.raises(ValueError, match="2\\^24"):
         icp_register(small, big, use_spatial=True)
 

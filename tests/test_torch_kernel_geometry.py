@@ -29,6 +29,9 @@ from tpuslam_torch.ops import nn_hier
 from tpuslam_torch.ops.nn import nearest_neighbors_ref
 from tpuslam_torch.ops.spatial import morton_permutation, sqrt_rn
 
+# the port runs on the card unless asked for the CPU; these tests ask
+CPU = "cpu"
+
 
 @pytest.mark.parametrize("batch,ts,width,gsrc,want", [
     (1, 100, 192, 1024, (2, 8)),  # 100k, fine table
@@ -179,7 +182,7 @@ def test_running_bound_marks_cover_the_admitted_tiles(rng, warm, splits):
     n, m, gsrc = 1024, 4096, 256
     src = torch.from_numpy((rng.random((n, 3)) * 10).astype(np.float32))
     src = src[morton_permutation(src, torch.ones(n)).long()].contiguous()
-    cloud = pad_cloud((rng.random((3900, 3)) * 10).astype(np.float32), multiple=m)
+    cloud = pad_cloud((rng.random((3900, 3)) * 10).astype(np.float32), multiple=m, device=CPU)
     target = nn_hier.prepare_hier_target(cloud.points, cloud.mask(), cloud.count)
     idx, _ = nearest_neighbors_ref(src, cloud.points, cloud.count)
     state = nn_hier.HierState(cloud.points[idx.long()], torch.tensor(warm), torch.tensor(False))

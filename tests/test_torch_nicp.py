@@ -20,6 +20,8 @@ Tolerances, with their reasons:
   thresholds, not to the JAX package.
 """
 
+import functools
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -36,6 +38,9 @@ from tpuslam.core.types import pad_cloud as jax_pad_cloud
 from tpuslam_torch.algorithms import nicp, prng
 from tpuslam_torch.config.configuration import ApproximationType, ComputationMethod
 from tpuslam_torch.core.types import pad_cloud
+
+# the port runs on the card unless asked for the CPU; these tests ask
+CPU = "cpu"
 
 SPREAD = 10.0  # the anisotropic cloud's largest extent
 
@@ -89,7 +94,7 @@ def test_top_k_order_equals_lax_top_k(case):
 @pytest.mark.parametrize("seed", [1, 7])
 def test_subcloud_indices_equal_jax(rng, seed):
     """The rows NICP scores: JAX's draw, masked, then ``lax.top_k``."""
-    cloud = pad_cloud(anisotropic_cloud(rng, 3000))
+    cloud = pad_cloud(anisotropic_cloud(rng, 3000), device=CPU)
     k = 1024
     mask = cloud.mask()
     scores = torch.where(mask > 0, prng.uniform(seed, cloud.padded_size), -1.0)
@@ -120,7 +125,7 @@ def test_spectrum_gaps_and_degenerate_axes_bit_equal(rng):
 @pytest.mark.parametrize("n", [500, 3000])
 def test_principal_axes(rng, n):
     cloud_np = anisotropic_cloud(rng, n) + np.float32(3.0)
-    cloud, jcloud = pad_cloud(cloud_np, multiple=512), jax_pad_cloud(cloud_np, multiple=512)
+    cloud, jcloud = pad_cloud(cloud_np, multiple=512, device=CPU), jax_pad_cloud(cloud_np, multiple=512)
     u, ev = nicp.principal_axes(cloud.points, cloud.mask())
     ju, jev = jnicp.principal_axes(jcloud.points, jcloud.mask())
     np.testing.assert_allclose(ev.numpy(), np.asarray(jev), rtol=1e-5)
@@ -144,7 +149,8 @@ def test_candidate_set_equal_up_to_order(rng, angles, axes):
     r, t = random_rigid(rng, 0.5, 3.0)
     a = (b @ r.T + t).astype(np.float32)
     port, jax_ = [], []
-    for mod, pad, out in ((nicp, pad_cloud, port), (jnicp, jax_pad_cloud, jax_)):
+    port_pad = functools.partial(pad_cloud, device=CPU)
+    for mod, pad, out in ((nicp, port_pad, port), (jnicp, jax_pad_cloud, jax_)):
         cb, ca = pad(b), pad(a)
         ub, _ = mod.principal_axes(cb.points, cb.mask())
         ua, _ = mod.principal_axes(ca.points, ca.mask())
@@ -179,7 +185,7 @@ def test_nicp_register_matches_jax(rng, mode, n, shuffle):
     kw = dict(seed=3, subcloud_size=1000)
     want = jnicp.nicp_register(jax_pad_cloud(before), jax_pad_cloud(after),
                                approximation_type=JaxApprox[mode], **kw)
-    got = nicp.nicp_register(pad_cloud(before), pad_cloud(after),
+    got = nicp.nicp_register(pad_cloud(before, device=CPU), pad_cloud(after, device=CPU),
                              approximation_type=ApproximationType[mode], **kw)
     assert got.iterations == int(want.iterations) == 4
     np.testing.assert_allclose(got.transform.rotation.numpy(),
@@ -194,8 +200,8 @@ def test_nicp_small_cloud_and_padding(rng):
     """A cloud smaller than the subcloud is used whole, and the padded
     size does not change the result (the draw depends on the row alone)."""
     before, after, r, t = _noisy_pair(rng, 300, 0.3, 2.0)
-    a = nicp.nicp_register(pad_cloud(before, multiple=128), pad_cloud(after, multiple=128))
-    b = nicp.nicp_register(pad_cloud(before, multiple=512), pad_cloud(after, multiple=512))
+    a = nicp.nicp_register(pad_cloud(before, multiple=128, device=CPU), pad_cloud(after, multiple=128, device=CPU))
+    b = nicp.nicp_register(pad_cloud(before, multiple=512, device=CPU), pad_cloud(after, multiple=512, device=CPU))
     np.testing.assert_allclose(a.transform.rotation.numpy(), b.transform.rotation.numpy(),
                                rtol=0, atol=1e-5)
     np.testing.assert_allclose(a.transform.translation.numpy(),
@@ -209,7 +215,7 @@ def test_nicp_cylinder_widened_recovers_the_truth(rng):
     grid.  Subcloud 1000 instead of 2000 (half the plain version's rows on
     the CPU); the determinism check is the sphere's below."""
     before, after, r, t = degenerate_pair(rng)
-    cb, ca = pad_cloud(before), pad_cloud(after)
+    cb, ca = pad_cloud(before, device=CPU), pad_cloud(after, device=CPU)
     kw = dict(degenerate_angles=16, degenerate_axes=(0,), seed=1, subcloud_size=1000)
     widened = nicp.nicp_register(cb, ca, **kw)
     rot = widened.transform.rotation.numpy()
@@ -232,7 +238,7 @@ def test_nicp_sphere_widened_deterministic_and_on_the_shell(rng):
     before = v / np.linalg.norm(v, axis=1, keepdims=True)
     r, t = random_rigid(rng, angle=1.0, trans=2.0)
     after = (before @ r.T + t)[rng.permutation(len(before))].astype(np.float32)
-    cb, ca = pad_cloud(before), pad_cloud(after)
+    cb, ca = pad_cloud(before, device=CPU), pad_cloud(after, device=CPU)
     kw = dict(degenerate_angles=16, degenerate_axes=(0, 2), seed=1, subcloud_size=256)
     res1 = nicp.nicp_register(cb, ca, **kw)
     res2 = nicp.nicp_register(cb, ca, **kw)

@@ -13,6 +13,7 @@ import sys
 
 import numpy as np
 import pytest
+import torch
 
 import tpuslam
 import tpuslam_torch
@@ -118,6 +119,26 @@ def test_measure_reads_n_points_from_the_pair():
     assert result["n_points"] == 1024  # not the 102,400 default
 
 
+@pytest.mark.parametrize("entry", [
+    "register", "register_pairs", "register_sequence", "pad_cloud", "measure_icp_100k"])
+def test_entry_points_refuse_the_cpu_unasked(entry, monkeypatch):
+    """With no card and no device named, every entry point raises: the
+    port runs on the CPU only when the caller asks for it."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    rng = np.random.default_rng(3)
+    pts = rng.random((64, 3)).astype(np.float32)
+    calls = {
+        "register": lambda: tpuslam_torch.register(pts, pts, max_iterations=1),
+        "register_pairs": lambda: tpuslam_torch.register_pairs([pts], [pts], max_iterations=1),
+        "register_sequence": lambda: tpuslam_torch.register_sequence([pts, pts],
+                                                                     max_iterations=1),
+        "pad_cloud": lambda: tpuslam_torch.pad_cloud(pts),
+        "measure_icp_100k": lambda: measure.measure_icp_100k(n_points=256, iters=1, reps=1),
+    }
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        calls[entry]()
+
+
 def test_package_imports_neither_jax_nor_tpuslam(tmp_path):
     cfg = tmp_path / "tiny.json"
     cfg.write_text(json.dumps({
@@ -140,6 +161,17 @@ def test_package_imports_neither_jax_nor_tpuslam(tmp_path):
         "import tpuslam_torch.harness.noise, tpuslam_torch.harness.testsets\n"
         "import tpuslam_torch.native.bindings, tpuslam_torch.viz.webgl\n"
         "import tpuslam_torch.viz.view, tpuslam_torch.data.writer\n"
+        "import tpuslam_torch.parallel.distributed, tpuslam_torch.parallel.mesh\n"
+        "import tpuslam_torch.parallel.collectives, tpuslam_torch.parallel.nn\n"
+        "import tpuslam_torch.parallel.icp, tpuslam_torch.parallel.nicp\n"
+        "import tpuslam_torch.parallel.cpd, tpuslam_torch.parallel.batch\n"
+        "import tpuslam_torch.parallel.comm_model\n"
+        "from tpuslam_torch.parallel.launch import run_cases, run_world\n"
+        "if __name__ == '__main__':\n"
+        "    rank0, _ = run_world(run_cases, 2, 'gloo', 'cpu', 30.0, [('modules', {})])\n"
+        "    child = set(rank0[0]['result']['modules'])\n"
+        "    assert 'tpuslam_torch' in child, sorted(child)\n"
+        "    assert not child & {'jax', 'jaxlib', 'tpuslam', 'tests'}, sorted(child)\n"
         f"sys.argv = ['tpuslam_torch', '--device', 'cpu', {str(cfg)!r}]\n"
         "try:\n"
         "    runpy.run_module('tpuslam_torch', run_name='__main__')\n"

@@ -277,8 +277,9 @@ def test_pair_zero_semantics(rng):
 
 
 def test_host_arrays_go_to_resolve_device(rng, monkeypatch):
-    """Host scans land where ``resolve_device`` puts them: the card when
-    there is one; ``device="cpu"`` keeps them on the CPU."""
+    """Host scans land where ``resolve_device`` puts them: the card, and
+    an error where there is none; ``device="cpu"`` keeps them on the
+    CPU."""
     seen = []
     real = tpuslam_torch.algorithms.sequence.resolve_device
 
@@ -292,3 +293,8 @@ def test_host_arrays_go_to_resolve_device(rng, monkeypatch):
     tpuslam_torch.register_sequence(scans, device="cpu", max_iterations=3)
     SequenceStream(scans[0], device="cpu")
     assert [d.type for d in seen] == ["cpu", "cpu"]
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        tpuslam_torch.register_sequence(scans, max_iterations=3)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        SequenceStream(scans[0])

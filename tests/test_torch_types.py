@@ -25,6 +25,9 @@ from tpuslam_torch.core.device import resolve_device
 from tpuslam_torch.data import loader, synthesis
 from tpuslam_torch.interop import from_numpy_state, to_numpy_state
 
+# the port runs on the card unless asked for the CPU; these tests ask
+CPU = "cpu"
+
 
 @pytest.fixture
 def same_search_roots(monkeypatch):
@@ -38,7 +41,7 @@ def same_search_roots(monkeypatch):
 @pytest.mark.parametrize("n,multiple", [(0, 128), (1, 128), (130, 128), (300, 512)])
 def test_pad_cloud_matches_jax(rng, n, multiple):
     pts = make_cloud(rng, n)
-    ours = types.pad_cloud(pts, multiple=multiple)
+    ours = types.pad_cloud(pts, multiple=multiple, device=CPU)
     ref = jax_types.pad_cloud(pts, multiple=multiple)
     np.testing.assert_array_equal(ours.points.numpy(), np.asarray(ref.points))
     assert ours.count.dtype == torch.int32 and ours.count.dim() == 0
@@ -82,7 +85,9 @@ def test_resolve_device_cuda_without_cuda_raises(monkeypatch):
         resolve_device("cuda")
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         resolve_device(torch.device("cuda", 0))
-    assert resolve_device(None) == torch.device("cpu")
+    # no device named is the card, never the CPU
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        resolve_device(None)
     assert resolve_device("cpu") == torch.device("cpu")
 
 

@@ -22,8 +22,10 @@ kernels are hand-written CUDA for an NVIDIA Hopper card; on the CPU
 their plain PyTorch versions run.  The front end is ``python -m
 tpuslam_torch`` (``harness/cli.py``): a JSON config, the reference's test
 sets with their CSV, the noise suite and the ``--serve`` loop, on the
-card unless ``--device cpu`` asks for the CPU.  The sharded layer is not
-ported yet.
+card unless ``--device cpu`` asks for the CPU.  The sharded layer,
+``tpuslam_torch.parallel``, splits one registration's target cloud over
+the ranks of a ``torch.distributed`` world, or a batch of pairs; its
+entry points are imported from its modules, as in the JAX package.
 """
 
 __version__ = "0.1.0"
@@ -44,8 +46,8 @@ def register(before, after, config=None, device=None, **overrides):
 
     ``config`` defaults to an ICP ``Configuration``; keyword overrides are
     applied on top.  ``device`` is where the registration runs
-    (``tpuslam_torch.core.device.resolve_device``: None picks CUDA when
-    there is a card)."""
+    (``tpuslam_torch.core.device.resolve_device``: None is the card, and
+    raises where there is none; ``"cpu"`` asks for the CPU)."""
     from dataclasses import replace
 
     from tpuslam_torch.algorithms.registry import run_with_configuration
@@ -61,7 +63,7 @@ def register_sequence(clouds, device=None, **kwargs):
     """Sequential scan odometry: register consecutive clouds pairwise and
     compose absolute poses (``algorithms/sequence.py::register_sequence``,
     whose keywords ``kwargs`` are).  Host arrays go to ``device`` (None:
-    CUDA when there is a card; pass ``"cpu"`` for the CPU)."""
+    the card, raising where there is none; pass ``"cpu"`` for the CPU)."""
     from tpuslam_torch.algorithms.sequence import register_sequence as _register_sequence
 
     return _register_sequence(clouds, device=device, **kwargs)
@@ -82,7 +84,7 @@ def register_pairs(befores, afters, config=None, device=None, **overrides):
     iterations i32[B], errors f32[B]) as numpy arrays out.
 
     Same configuration contract as :func:`register`, and the same
-    ``device`` (None: CUDA when there is a card); each pair's result
+    ``device`` (None: the card, raising where there is none); each pair's result
     equals its solo :func:`register` run (``algorithms/batch.py`` says
     how closely)."""
     from dataclasses import replace

@@ -99,7 +99,8 @@ def stack_clouds(
 ) -> Cloud:
     """Pad host ``f32[N_i, 3]`` arrays to one ``multiple``-aligned size and
     stack them: ``points`` f32[B, Npad, 3], ``count`` i32[B], on
-    ``device`` (``resolve_device``: the card when there is one)."""
+    ``device`` (``resolve_device``: None is the card, and raises where
+    there is none)."""
     if not len(clouds):
         raise ValueError("empty cloud batch")
     device = resolve_device(device)

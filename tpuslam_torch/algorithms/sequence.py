@@ -277,7 +277,8 @@ class SequenceStream:
     Each scan is staged once (module docstring).  Every scan must fit one
     padded size, ``max_points`` (default: the first scan's size, rounded
     to 128 rows); a larger one raises ``ValueError``.  ``device`` as
-    ``core.device.resolve_device``: the card when there is one."""
+    ``core.device.resolve_device``: None is the card, and raises where
+    there is none."""
 
     def __init__(
         self,
@@ -341,7 +342,8 @@ def register_sequence(
     ``SEED_PATIENCE`` when seeded, 0 and the guard on when not; the
     per-pair lowering's pair 0 always runs cold).  ``pairs_per_dispatch``
     is accepted and ignored (module docstring).  ``device`` as
-    ``core.device.resolve_device``: the card when there is one."""
+    ``core.device.resolve_device``: None is the card, and raises where
+    there is none."""
     del pairs_per_dispatch
     if len(clouds) < 2:
         raise ValueError("register_sequence needs at least two clouds")

@@ -13,11 +13,17 @@ import torch
 
 
 def resolve_device(device: Optional[torch.device | str] = None) -> torch.device:
-    """``None`` picks the first CUDA device when there is one and the CPU
-    otherwise.  An explicit CUDA request where CUDA is not available
-    raises: it never falls back to the CPU."""
+    """``None`` is the card: the first CUDA device, and an error where
+    CUDA is not available.  The port never picks the CPU for a caller who
+    did not ask for it; a caller who wants the CPU passes ``"cpu"``.  An
+    explicit CUDA request where CUDA is not available raises too."""
     if device is None:
-        return torch.device("cuda" if torch.cuda.is_available() else "cpu")
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                "no CUDA device: tpuslam_torch runs on the card unless the "
+                "caller asks for the CPU (pass device=\"cpu\")"
+            )
+        return torch.device("cuda")
     device = torch.device(device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(

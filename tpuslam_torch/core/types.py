@@ -118,9 +118,10 @@ def pad_cloud(
 
     ``points`` is a numpy array or a tensor.  The Cloud lies on
     ``device``; when that is None, on the tensor's own device, and for a
-    numpy array where ``core.device.resolve_device`` puts it: on the card
-    when there is one, as the JAX package's ``pad_cloud`` places a host
-    array on JAX's default device.  A caller that wants the CPU says so."""
+    numpy array where ``core.device.resolve_device`` puts it: on the card,
+    as the JAX package's ``pad_cloud`` places a host array on JAX's
+    default device, and an error where there is no card.  A caller that
+    wants the CPU says so."""
     if isinstance(points, torch.Tensor):
         if device is None:
             device = points.device

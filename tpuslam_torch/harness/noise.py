@@ -264,7 +264,7 @@ def run_noise_test_set(
     all written paths.  ``size_cap``/``only_ids`` bound the run for
     CPU-sized smoke tests; the CLI runs full size, all configs (or set
     ``TPUSLAM_NOISE_CAP=<points>`` for a bounded smoke run).  The
-    registrations run on ``device`` (None: the card when there is one)."""
+    registrations run on ``device`` (None: the card; it raises where there is none)."""
     from tpuslam_torch.core.device import resolve_device
     from tpuslam_torch.harness.runner import run_test_set
 

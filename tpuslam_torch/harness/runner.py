@@ -161,7 +161,7 @@ def run_test_set(
 ) -> List[str]:
     """``Tests::RunTestSet`` (``testutils.cpp:64-88``): one CSV per method,
     named ``<name>-<method>.csv``, registered on ``device`` (None: the
-    card when there is one).  Returns the written file paths.
+    card; it raises where there is none).  Returns the written file paths.
 
     ``resume=True`` continues an interrupted run: rows already present in
     the output CSV are kept and their configurations skipped."""
