@@ -228,6 +228,23 @@ exits non-zero without printing a result:
    collectives and bytes per iteration beside the model, gloo's host ms
    inside collectives per rank and each kernel's launches per rank; K1-K4
    must launch on the ranks.
+21. the measurement programs (``tpuslam_torch/harness/``), each once at its
+   full size with 2 repeats: ``python -m tpuslam_torch.harness.bench`` in a
+   new process (rc 0, its last stdout line one JSON object with the keys
+   metric, value, unit and vs_baseline, the metric ending ``_gpu``, the
+   value > 0), then ``bench_report``, ``cpd_large`` (376,401),
+   ``cpd_crossover`` at one rung (376,401), ``sweep_hier`` at one triple
+   (``auto_tile_params``' own), ``batch_diag``, ``sequence_bench``,
+   ``scaling_bench`` (the one-rank NCCL rung, within 1e-4 of the solo run)
+   and ``convergence_study`` at the first rung of each method with one
+   repeat, each through its ``main`` in this process, each writing into a
+   temporary directory; every row it writes must name the card and its
+   power limit, not have ``failed``, and show a launch of each kernel it names
+   (``expects``: K1 on the NN and dense rows, K2 and K3 on the
+   hierarchical ones and the sweep, K4 on the exact E-steps and the
+   crossover's exact arm, K5 on ``cpd_large``'s truncated E-step at 0.002
+   x sigma^2_0); K1-K5 must each launch in the phase.  Printed: each
+   program's rows, wall and launches, and the phase's wall.
 
 The launch counts each path is checked by are set to 0 just before it
 runs and read just after (on the ranks of phase 20, before each case).
@@ -241,8 +258,9 @@ sequence pair of phase 15; for K1 also its launches per NICP run of
 phase 12 and its time at the rescore shape; for K4 its launches per
 iteration of phase 18's batched loop, its time at 16 x 16,384^2 and its
 error there; for K5 its launches in each run of phase 18; for every
-kernel its launches in phase 19, ``front_end_launches``, and on the
-ranks of phase 20, ``launches_sharded``), and
+kernel its launches in phase 19, ``front_end_launches``, on the
+ranks of phase 20, ``launches_sharded``, and in phase 21 by program,
+``launches_bench``), and
 ``{"ok": true, "device": {...}}``.
 """
 
@@ -266,7 +284,7 @@ FULL = dict(headline=102_400, small=8192, large=1_048_576, large_iters=20,
             batch_mid_pairs=4, batch_cand=376_401, batch_cand_pairs=2,
             front_icp=102_400, front_nicp=200_000, front_perf=("icp", "nicp"),
             shard_ranks=4, shard_estep=376_401, shard_cpd=102_400, shard_cpd_iters=60,
-            shard_pairs=16, shard_pair_points=16_384)
+            shard_pairs=16, shard_pair_points=16_384, bench_reps=2)
 
 # the H100 SXM's published peaks (NVIDIA's data sheet, at 700 W): float32
 # outside the tensor cores and HBM3; and the special-function units' exp2,
@@ -1217,26 +1235,6 @@ def pose_errors(absolute, poses):
             for a, (r, t) in zip(absolute, poses)]
 
 
-def count_syncs(torch, fn):
-    """``fn()`` under torch's CUDA sync debug mode: every synchronising call
-    (a device-to-host read, a blocking host-to-device copy, a library call
-    that waits) warns once; returns (result, count, count by calling line)."""
-    import warnings
-    from collections import Counter
-
-    torch.cuda.synchronize()
-    torch.cuda.set_sync_debug_mode("warn")
-    try:
-        with warnings.catch_warnings(record=True) as caught:
-            warnings.simplefilter("always")
-            out = fn()
-    finally:
-        torch.cuda.set_sync_debug_mode("default")
-    hits = [w for w in caught if "synchroniz" in str(w.message)]
-    sites = Counter(f"{w.filename.rsplit('/', 2)[-1]}:{w.lineno}" for w in hits)
-    return out, len(hits), dict(sites.most_common(8))
-
-
 def resume_child(data_path: str, ckpt_path: str, out_path: str, device: str) -> None:
     """Phase 17's second process: continue the chunked 1,048,576-point
     registration from the checkpoint file on ``device`` and save its
@@ -1282,6 +1280,7 @@ def drivers_phases(dev, smi, kind, sizes, time_ms, phase6, phase10) -> dict:
         get_random_rotation_matrix,
         get_random_translation_vector,
     )
+    from tpuslam_torch.harness.benchkit import count_syncs
     from tpuslam_torch.kernels import bound, cpd_cand, cpd_dense, nn_cand, nn_dense
     from tpuslam_torch.ops import nn_hier
 
@@ -1325,7 +1324,7 @@ def drivers_phases(dev, smi, kind, sizes, time_ms, phase6, phase10) -> dict:
         errs = pose_errors(res.absolute, poses)
         drift = float(np.sqrt(np.mean([e[1] ** 2 for e in errs])))
         _, syncs, sites = count_syncs(
-            torch, lambda: tpuslam_torch.register_sequence(scans, device=dev, **lk, **kw))
+            lambda: tpuslam_torch.register_sequence(scans, device=dev, **lk, **kw))
         seq[name] = {"ms": ms, "scans_per_s": n_scans / (ms / 1e3),
                      "mean_iterations": float(np.mean(res.iterations)),
                      "drift_rms": drift, "worst_deg": max(e[0] for e in errs),
@@ -1363,7 +1362,7 @@ def drivers_phases(dev, smi, kind, sizes, time_ms, phase6, phase10) -> dict:
             arm_counts.append("".join(a[0] for a in nn_hier.ARM_TRACE))
         errs = pose_errors(stream.absolute, s_poses)
         probe = tpuslam_torch.sequence_stream(s_scans[0], device=dev, **s_kw)
-        _, syncs, sites = count_syncs(torch, lambda: [probe.push(s) for s in s_scans[1:]])
+        _, syncs, sites = count_syncs(lambda: [probe.push(s) for s in s_scans[1:]])
         streams[label] = {"n": len(s_scans[0]), "scans": len(s_scans), "push_ms": push_ms,
                           "median_ms_after_first": float(np.median(push_ms[1:])),
                           "max_ms_after_first": float(max(push_ms[1:])),
@@ -1684,19 +1683,15 @@ CLI_CHILD = (
 
 def front_launches() -> dict:
     """Each kernel's launch count, by its name in the kernels line."""
-    from tpuslam_torch.kernels import bound, cpd_cand, cpd_dense, nn_cand, nn_dense
+    from tpuslam_torch.kernels import launch_counts
 
-    return dict(zip(FRONT_KERNELS, (
-        nn_dense.LAUNCHES, bound.LAUNCHES, nn_cand.LAUNCHES, cpd_dense.DENOM_LAUNCHES,
-        cpd_dense.MOMENTS_LAUNCHES, cpd_cand.DENOM_LAUNCHES, cpd_cand.MOMENTS_LAUNCHES)))
+    return dict(zip(FRONT_KERNELS, launch_counts().values()))
 
 
 def reset_launches() -> None:
-    from tpuslam_torch.kernels import bound, cpd_cand, cpd_dense, nn_cand, nn_dense
+    from tpuslam_torch.kernels import reset_launch_counts
 
-    nn_dense.LAUNCHES = bound.LAUNCHES = nn_cand.LAUNCHES = 0
-    cpd_dense.DENOM_LAUNCHES = cpd_dense.MOMENTS_LAUNCHES = 0
-    cpd_cand.DENOM_LAUNCHES = cpd_cand.MOMENTS_LAUNCHES = 0
+    reset_launch_counts()
 
 
 class TestTap:
@@ -2405,6 +2400,103 @@ def sharded_phases(dev, smi, kind, sizes, phase6) -> dict:
     return {"launches": launches, "figures": figs}
 
 
+# phase 21: each measurement program of tpuslam_torch/harness/ at its full
+# size with the fewest repeats it allows; the headline in a new process
+BENCH_ARGS = {
+    "bench_report": [],
+    "cpd_large": [],
+    "cpd_crossover": ["376401"],
+    "sweep_hier": ["--triples", "auto"],
+    "batch_diag": [],
+    "sequence_bench": [],
+    "scaling_bench": [],
+    "convergence_study": ["--sizes", "icp=20000,nicp=250000,cpd=4000", "--repeats", "1"],
+}
+
+
+def bench_rows(path: str) -> list:
+    """The rows a program wrote: a JSON object's ``rows`` or a JSONL file's
+    lines."""
+    with open(path) as fh:
+        if path.endswith(".jsonl"):
+            return [json.loads(line) for line in fh if line.strip()]
+        return json.load(fh)["rows"]
+
+
+def bench_phases(dev, smi, kind, sizes) -> dict:
+    """Phase 21 (module docstring): the measurement programs on the card.
+    Returns each program's rows' kernel launches and wall."""
+    import importlib
+    import os
+    import tempfile
+
+    from tpuslam_torch.kernels import KERNELS
+
+    on_card = dev.type == "cuda"
+    device_args = [] if on_card else ["--device", str(dev)]
+    reps = ["--reps", str(sizes["bench_reps"])]
+    t_phase = time.perf_counter()
+    launches, walls = {}, {}
+    with tempfile.TemporaryDirectory(prefix="tpuslam_bench_") as tmp:
+        def held(name, path):
+            rows = bench_rows(path)
+            check(len(rows) > 0, f"phase 21: {name} wrote no row")
+            total = dict.fromkeys(KERNELS, 0)
+            for row in rows:
+                check("failed" not in row, f"phase 21: {name} row {row.get('name')}: "
+                      f"{row.get('failed')}")
+                check(row.get("device") == (kind if on_card else "cpu"),
+                      f"phase 21: {name} row {row.get('name')} names no device")
+                check(not on_card or isinstance(row.get("power_limit_w"), float),
+                      f"phase 21: {name} row {row.get('name')} has no power limit")
+                for k in row.get("expects", []):
+                    check(row["launches"][k] > 0,
+                          f"phase 21: {name} row {row['name']} launched no {k}")
+                for k in KERNELS:
+                    total[k] += row["launches"].get(k, 0)
+            launches[name] = total
+            log(f"[bench] {name}: {len(rows)} rows, {walls[name]:.3f} s, launches "
+                f"{json.dumps(total)}")
+            return rows
+
+        # (a) the headline, as a user runs it: a new process, one JSON line last
+        out = os.path.join(tmp, "headline.json")
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m", "tpuslam_torch.harness.bench", *device_args, *reps,
+             "--n-points", str(sizes["headline"]), "--out", out],
+            cwd=os.path.dirname(os.path.abspath(__file__)), capture_output=True, text=True,
+            timeout=600)
+        walls["bench"] = time.perf_counter() - t0
+        check(proc.returncode == 0, f"phase 21: the headline exited {proc.returncode}: "
+              f"{proc.stderr[-2000:]}")
+        line = json.loads(proc.stdout.strip().splitlines()[-1])
+        log(f"[bench] headline line: {json.dumps(line)}")
+        check(set(line) == {"metric", "value", "unit", "vs_baseline"},
+              "phase 21: the headline's last line has other keys")
+        check(line["metric"].endswith("_gpu" if on_card else "_cpu") and line["value"] > 0,
+              "phase 21: the headline's metric or value")
+        held("bench", out)
+        # (b) the other programs in this process, each through its main()
+        for name, args in BENCH_ARGS.items():
+            out = os.path.join(tmp, name + (".jsonl" if name == "convergence_study" else ".json"))
+            module = importlib.import_module(f"tpuslam_torch.harness.{name}")
+            t0 = time.perf_counter()
+            rc = module.main([*args, *device_args, *reps, "--out", out])
+            walls[name] = time.perf_counter() - t0
+            check(rc == 0, f"phase 21: {name} exited {rc}")
+            rows = held(name, out)
+            if name == "scaling_bench":
+                check(rows[0]["solo_max_abs_diff"] <= 1e-4,
+                      "phase 21: the one-rank rung is not the solo run")
+    for k in KERNELS:
+        check(sum(v[k] for v in launches.values()) > 0,
+              f"phase 21: no program launched {k}")
+    wall = time.perf_counter() - t_phase
+    log(f"[bench] phase 21: {wall:.3f} s on {smi}, by program {json.dumps(walls)}")
+    return {"launches": launches, "walls": walls, "wall": wall}
+
+
 def main(dev=None, sizes=FULL) -> int:
     import torch
 
@@ -2881,6 +2973,8 @@ def main(dev=None, sizes=FULL) -> int:
     log(f"[front] summary: {json.dumps(front)}")
     sharded = sharded_phases(dev, smi, kind, sizes, phase6)
     log(f"[sharded] summary: {json.dumps(sharded)}")
+    benches = bench_phases(dev, smi, kind, sizes)
+    log(f"[bench] summary: {json.dumps(benches)}")
     per_pair = slice8["sequence"]["scan seeded"]["launches_per_pair"]
     for entry, name in zip(cpd_kernels[:2], ("denom", "moments")):
         entry["launches_per_batched_iter"] = slice8["k4"]["launches_per_batched_iter"]
@@ -2945,6 +3039,8 @@ def main(dev=None, sizes=FULL) -> int:
         entry["front_end_launches"] = front["launches"][entry["name"]]
         entry["launches_sharded"] = {world: counts[key]
                                      for world, counts in sharded["launches"].items()}
+        entry["launches_bench"] = {name: counts[key]
+                                   for name, counts in benches["launches"].items()}
     log(smi)
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {

@@ -8,6 +8,7 @@ iterations, R and t within 1e-4, the error within 1e-4 relative.
 
 import json
 import os
+import re
 import subprocess
 import sys
 
@@ -103,8 +104,10 @@ def test_measure_icp_100k_runs_on_cpu():
     assert set(result) == {
         "n_points", "iters_per_call", "iterations_run", "reps",
         "iters_per_sec", "ms_per_iter", "vs_baseline", "device", "fixture",
-        "nn_arm",
+        "nn_arm", "call_ms", "launches",
     }
+    assert len(result["call_ms"]) == result["reps"] == 1
+    assert set(result["launches"].values()) == {0}  # the plain versions
     assert result["nn_arm"] == "dense"  # the CPU default, as in JAX
     assert result["n_points"] == 2048
     assert result["iterations_run"] == result["iters_per_call"] == 2
@@ -166,6 +169,12 @@ def test_package_imports_neither_jax_nor_tpuslam(tmp_path):
         "import tpuslam_torch.parallel.icp, tpuslam_torch.parallel.nicp\n"
         "import tpuslam_torch.parallel.cpd, tpuslam_torch.parallel.batch\n"
         "import tpuslam_torch.parallel.comm_model\n"
+        "import tpuslam_torch.harness.benchkit, tpuslam_torch.harness.bench\n"
+        "import tpuslam_torch.harness.bench_report, tpuslam_torch.harness.cpd_large\n"
+        "import tpuslam_torch.harness.cpd_crossover, tpuslam_torch.harness.sweep_hier\n"
+        "import tpuslam_torch.harness.batch_diag, tpuslam_torch.harness.sequence_bench\n"
+        "import tpuslam_torch.harness.scaling_bench\n"
+        "import tpuslam_torch.harness.convergence_study\n"
         "from tpuslam_torch.parallel.launch import run_cases, run_world\n"
         "if __name__ == '__main__':\n"
         "    rank0, _ = run_world(run_cases, 2, 'gloo', 'cpu', 30.0, [('modules', {})])\n"
@@ -190,6 +199,18 @@ def test_package_imports_neither_jax_nor_tpuslam(tmp_path):
     out = proc.stdout.strip().splitlines()
     assert "Results for the icp method:" in out and out[-1] == "ok"
     assert (tmp_path / "out.obj").exists()
+
+
+def test_no_module_of_the_port_imports_jax_or_tpuslam():
+    """Every file of the package, imported or not by the test above (the
+    measurement programs under ``harness/`` included)."""
+    pattern = re.compile(r"^\s*(import|from)\s+(jax|jaxlib|tpuslam)(\.|\s|$)")
+    files = [os.path.join(root, name)
+             for root, _, names in os.walk(os.path.join(REPO_ROOT, "tpuslam_torch"))
+             for name in names if name.endswith(".py")]
+    assert any(f.endswith(os.path.join("harness", "bench_report.py")) for f in files)
+    bad = [(f, i + 1) for f in files for i, line in enumerate(open(f)) if pattern.match(line)]
+    assert not bad, bad
 
 
 def test_build_without_nvcc_raises(monkeypatch):

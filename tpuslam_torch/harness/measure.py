@@ -6,7 +6,10 @@ spread 10, transformed by (0.2 rad, translation 10) and permuted, PCG64
 seed 666; ``eps=0``, ``max_distance_squared=1e18`` and no divergence
 guard, so every call runs exactly ``iters`` iterations (NN + weighted
 Procrustes/SVD + transform + error); 50 iterations per call, 3 timed
-calls after one untimed warm-up call.
+calls after one untimed warm-up call.  Each call is timed on its own and
+the rate is the median call's (the JAX package takes the mean of 3):
+``call_ms`` keeps every call's ms and ``launches`` each kernel's
+launches in the timed calls.
 
 ``use_spatial`` picks the NN arm as ``icp_register`` does (None: the
 hierarchical arm on CUDA from 8,192 target rows); the result names the
@@ -21,6 +24,7 @@ result cache); the result names the device and the fixture
 
 from __future__ import annotations
 
+import statistics
 import time
 from typing import Optional
 
@@ -72,9 +76,12 @@ def measure_icp_100k(
     headline pair (or a caller-supplied one, whose device is used).
     Returns a dict with ``iters_per_sec``, ``ms_per_iter`` and
     ``vs_baseline`` (against the reference CUDA implementation's 10
-    iterations/s), unrounded, plus the device, fixture, size and NN arm."""
+    iterations/s) of the median call, unrounded, every call's ms, the
+    kernels' launches in the timed calls, the device, fixture, size and
+    NN arm."""
     from tpuslam_torch.algorithms.icp import icp_register, resolve_use_spatial
     from tpuslam_torch.data.loader import synthetic_fixture
+    from tpuslam_torch.kernels import launch_counts, launch_delta
 
     if pair is None:
         pair = build_headline_pair(n_points, device=device)
@@ -97,11 +104,15 @@ def measure_icp_100k(
 
     run()  # warm-up: kernel build and load, allocator, cuSOLVER handles
     sync()
-    t0 = time.perf_counter()
+    before = launch_counts()
+    call_ms = []
     for _ in range(reps):
+        t0 = time.perf_counter()
         result = run()
-    sync()
-    dt = (time.perf_counter() - t0) / reps
+        sync()
+        call_ms.append((time.perf_counter() - t0) * 1e3)
+    launches = launch_delta(before)
+    dt = statistics.median(call_ms) / 1e3
     iters_per_sec = result.iterations / dt
     return {
         "n_points": int(cb.count),
@@ -111,6 +122,8 @@ def measure_icp_100k(
         "iters_per_sec": iters_per_sec,
         "ms_per_iter": dt / max(result.iterations, 1) * 1000,
         "vs_baseline": iters_per_sec / BASELINE_ITERS_PER_SEC,
+        "call_ms": call_ms,
+        "launches": launches,
         "device": (
             torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu"
         ),

@@ -291,20 +291,10 @@ CASES = {
 }
 
 
-def _launch_counts() -> dict:
-    from tpuslam_torch.kernels import bound, cpd_cand, cpd_dense, nn_cand, nn_dense
-
-    return {"K1": nn_dense.LAUNCHES, "K2": bound.LAUNCHES, "K3": nn_cand.LAUNCHES,
-            "K4_denom": cpd_dense.DENOM_LAUNCHES, "K4_moments": cpd_dense.MOMENTS_LAUNCHES,
-            "K5_denom": cpd_cand.DENOM_LAUNCHES, "K5_moments": cpd_cand.MOMENTS_LAUNCHES}
-
-
 def _reset_counts() -> None:
-    from tpuslam_torch.kernels import bound, cpd_cand, cpd_dense, nn_cand, nn_dense
+    from tpuslam_torch.kernels import cpd_cand, reset_launch_counts
 
-    nn_dense.LAUNCHES = bound.LAUNCHES = nn_cand.LAUNCHES = 0
-    cpd_dense.DENOM_LAUNCHES = cpd_dense.MOMENTS_LAUNCHES = 0
-    cpd_cand.DENOM_LAUNCHES = cpd_cand.MOMENTS_LAUNCHES = 0
+    reset_launch_counts()
     cpd_cand.ROUTE_TRACE.clear()
 
 
@@ -315,7 +305,7 @@ def run_cases(mesh, cases) -> List[dict]:
     after, ``collectives`` the case's ``collectives.Collective`` records,
     ``wall`` the case's start and end on the host's clock (epoch
     seconds)."""
-    from tpuslam_torch.kernels import cpd_cand
+    from tpuslam_torch.kernels import cpd_cand, launch_counts
     from tpuslam_torch.parallel.collectives import collective_log
 
     out = []
@@ -324,7 +314,7 @@ def run_cases(mesh, cases) -> List[dict]:
         start = time.time()
         with collective_log() as log:
             result = CASES[kind](mesh, **kwargs)
-        out.append({"result": result, "launches": _launch_counts(),
+        out.append({"result": result, "launches": launch_counts(),
                     "routes": list(cpd_cand.ROUTE_TRACE),
                     "collectives": list(log),
                     "wall": (start, time.time())})
