@@ -10,9 +10,10 @@ exits non-zero without printing a result:
 
 1. device — the card's name and power limit (nvidia-smi) and torch's view;
 2. build — kernels K1 (``csrc/nn_dense.cu``), K2 (``csrc/bound.cu``),
-   K3 (``csrc/nn_cand.cu``), K4 (``csrc/cpd_dense.cu``) and K5
-   (``csrc/cpd_cand.cu``) from source, one nvcc per source, started
-   together; ptxas's registers and spills per kernel;
+   K3 (``csrc/nn_cand.cu``), K4 (``csrc/cpd_dense.cu``), K5
+   (``csrc/cpd_cand.cu``) and P (``csrc/procrustes.cu``) from source, one
+   nvcc per source, started together; ptxas's registers and spills per
+   kernel;
 3. K1 against its plain PyTorch version on the card, bit for bit (idx and
    dist equal; tolerance 0), each case at the geometry (sources a thread,
    splits of the target range) ``dense_geometry`` gives it: the 102,400 x
@@ -35,9 +36,13 @@ exits non-zero without printing a result:
    times, with each kernel's bound (the pairs these inputs need: all
    sources x tiles for K2, each group's live rows x its sources for K3);
 5. the slice — ``tpuslam_torch.register`` on a 102,400-point uniform box
-   moved by (0.1 rad, 0.5), which takes the hierarchical arm; K1, K2 and
-   K3 must each have been launched, the error finite and the rotation
-   within 1 degree of the truth; the iterations on each arm; then one
+   moved by (0.1 rad, 0.5), which takes the hierarchical arm; K1, K2, K3
+   and P must each have been launched, the launches the wrappers counted
+   (the replayed CUDA graph's booked from the device) equal to those the
+   kernels counted on the device (``kernels.tally``), K3 must have done
+   work (a launch that was not skipped as an unselected arm), the error
+   finite and the rotation within 1 degree of the truth; the iterations
+   on each arm; then one
    8,192-point registration on the CPU (plain versions) and on the card
    (kernels), R and t within 1e-4, once by default and once on the
    hierarchical arm on both (equal iterations);
@@ -48,7 +53,8 @@ exits non-zero without printing a result:
    every true tile admitted), and K2's and K3's times there (fine table);
 7. headline — ``measure_icp_100k()`` on the hierarchical arm (the default
    on CUDA) and on the dense arm; both arms again at 8,192 points; the
-   launches of K1, K2 and K3 per headline call on each arm;
+   launches of K1, K2, K3 and P per headline call on each arm, and those
+   of K1 and K3 that were skipped as unselected arms;
 8. K4 against its plain version at 20,480 x 20,480 (the JAX records'
    E-step row): exact, truncated, ragged masks (20,000 and 17,000 valid
    rows) and a batch of two; each statistic within 1e-5 of the largest
@@ -115,7 +121,7 @@ exits non-zero without printing a result:
    boxes of sides (10, 5, 2.5) (the batched dense lowering: K1's batch
    form must launch with B = 16), each pair equal to its solo
    ``register`` bit for bit (iterations, R and t); 16 x 16,384 pairs on
-   the auto (unrolled) lowering and forced to the batched hierarchical
+   the auto lowering and forced to the batched hierarchical
    one (K2's and K3's batch forms must launch), each pair equal to its
    solo hierarchical run bit for bit;
    ms per call and per pair-iteration of the four lowerings (batched or
@@ -239,12 +245,33 @@ exits non-zero without printing a result:
    and ``convergence_study`` at the first rung of each method with one
    repeat, each through its ``main`` in this process, each writing into a
    temporary directory; every row it writes must name the card and its
-   power limit, not have ``failed``, and show a launch of each kernel it names
+   power limit, not have ``failed``, and show a launch that did its work
+   (not skipped as an unselected arm) of each kernel it names
    (``expects``: K1 on the NN and dense rows, K2 and K3 on the
    hierarchical ones and the sweep, K4 on the exact E-steps and the
    crossover's exact arm, K5 on ``cpd_large``'s truncated E-step at 0.002
-   x sigma^2_0); K1-K5 must each launch in the phase.  Printed: each
+   x sigma^2_0); K1-K5 and P must each launch in the phase.  Printed: each
    program's rows, wall and launches, and the phase's wall.
+22. the device-resident ICP loop and kernel P (``csrc/procrustes.cu``):
+   (a) P at the headline's shape (the rows of one dense query of the
+   102,400-point pair) against its plain version evaluated in float64 on
+   the same inputs, R within 1e-6 and t within 1e-6 x (1 + the largest
+   coordinate) (t's float32 rounding grows with the means), the error
+   entry within 1e-6 relative; on 16 x 2,048 random pairs each pair equal
+   to its solo call bit for bit; the SVD entry on 16 random 3x3 within
+   1e-6 in R, singular values descending and non-negative; (b) P's,
+   its plain version's and ``torch.linalg.svd``'s times; (c) at 102,400
+   on both arms, a registration run to its stop (eps 1e-4, the guard on)
+   by the device loop (``LOOP_CHUNK`` iterations a read, a replayed CUDA
+   graph, the second call of one ``graph_scope`` replaying the graph the
+   first captured) equal bit for bit to the eager loop of one iteration
+   a read (R, t, error, iterations, arms); (d) a 5-scan seeded sequence at
+   102,400 and (e) ``icp_register_batch`` on 16 x 2,048 (batched
+   lowering), each equal to its eager loop bit for bit; (f) a warm
+   headline registration (50 iterations, its graph captured by an
+   earlier call of the same scope) under ``count_syncs``: no
+   synchronising call in ``procrustes.py`` or ``nn_hier.py``, at most
+   ceil(50 / k) plus the set-up's (``prepare_spatial``'s, counted alone).
 
 The launch counts each path is checked by are set to 0 just before it
 runs and read just after (on the ranks of phase 20, before each case).
@@ -254,13 +281,19 @@ describing each kernel (with its bound: the larger of its float32
 operations, or for K4 and K5 the exponentials on the special-function
 units, over the card's peak rate and its bytes over the memory rate; and
 for K1, K2 and K3 the launches per warm headline iteration and per
-sequence pair of phase 15; for K1 also its launches per NICP run of
+sequence pair of phase 15; for K1 and K3 their launches that returned at
+once as an unselected arm, in phase 5 and per warm headline iteration
+(``launches_skipped``, ``launches_skipped_per_iter``); for K1 also its
+launches per NICP run of
 phase 12 and its time at the rescore shape; for K4 its launches per
 iteration of phase 18's batched loop, its time at 16 x 16,384^2 and its
 error there; for K5 its launches in each run of phase 18; for every
 kernel its launches in phase 19, ``front_end_launches``, on the
 ranks of phase 20, ``launches_sharded``, and in phase 21 by program,
-``launches_bench``), and
+``launches_bench``; for P its time at the headline's shape, its
+launches in phase 5's registration and per warm headline iteration, and
+``torch.linalg.svd``'s time on the same [1, 3, 3] batch as
+``library_ms``), and
 ``{"ok": true, "device": {...}}``.
 """
 
@@ -284,7 +317,7 @@ FULL = dict(headline=102_400, small=8192, large=1_048_576, large_iters=20,
             batch_mid_pairs=4, batch_cand=376_401, batch_cand_pairs=2,
             front_icp=102_400, front_nicp=200_000, front_perf=("icp", "nicp"),
             shard_ranks=4, shard_estep=376_401, shard_cpd=102_400, shard_cpd_iters=60,
-            shard_pairs=16, shard_pair_points=16_384, bench_reps=2)
+            shard_pairs=16, shard_pair_points=16_384, bench_reps=2, loop_scans=5)
 
 # the H100 SXM's published peaks (NVIDIA's data sheet, at 700 W): float32
 # outside the tensor cores and HBM3; and the special-function units' exp2,
@@ -1138,7 +1171,8 @@ def nicp_batch_phases(dev, smi, kind, sizes, time_ms) -> dict:
     l_befores, l_afters, _ = box_pairs(large)
     bb, ba = batch.stack_clouds(l_befores, device=dev), batch.stack_clouds(l_afters, device=dev)
     got = tpuslam_torch.register_pairs(l_befores, l_afters, device=dev, **reg)
-    log(f"[batch] register_pairs ICP on {b} x {large} (auto: unrolled): iterations "
+    log(f"[batch] register_pairs ICP on {b} x {large} (auto lowering, batched on the card "
+        f"since the device-resident loop): iterations "
         f"{got[2].tolist()}")
     icp_kw = dict(eps=reg["convergence_epsilon"], max_distance_squared=reg["max_distance_squared"],
                   max_iterations=reg["max_iterations"])
@@ -1281,11 +1315,11 @@ def drivers_phases(dev, smi, kind, sizes, time_ms, phase6, phase10) -> dict:
         get_random_translation_vector,
     )
     from tpuslam_torch.harness.benchkit import count_syncs
-    from tpuslam_torch.kernels import bound, cpd_cand, cpd_dense, nn_cand, nn_dense
+    from tpuslam_torch.kernels import bound, cpd_cand, cpd_dense, nn_cand, nn_dense, procrustes
     from tpuslam_torch.ops import nn_hier
 
     rng = np.random.Generator(np.random.PCG64(808))
-    nn_wrappers = {"K1": nn_dense, "K2": bound, "K3": nn_cand}
+    nn_wrappers = {"K1": nn_dense, "K2": bound, "K3": nn_cand, "P": procrustes}
 
     def reset():
         for w in nn_wrappers.values():
@@ -1664,7 +1698,8 @@ def drivers_phases(dev, smi, kind, sizes, time_ms, phase6, phase10) -> dict:
 
 
 FRONT_KERNELS = ("nn_dense (K1)", "bound_pass (K2)", "nn_cand (K3)", "cpd_denom (K4)",
-                 "cpd_moments (K4)", "cpd_denom_cand (K5)", "cpd_moments_cand (K5)")
+                 "cpd_moments (K4)", "cpd_denom_cand (K5)", "cpd_moments_cand (K5)",
+                 "procrustes (P)")
 
 
 # phase 19(a)'s CLI process: ``python3 -m tpuslam_torch`` run through
@@ -1772,7 +1807,7 @@ def front_end_phases(dev, smi, kind, sizes) -> dict:
         return parser.get_configuration()
 
     def k45(launches: dict) -> int:
-        return sum(launches[k] for k in FRONT_KERNELS[3:])
+        return sum(launches[k] for k in FRONT_KERNELS[3:7])
 
     t0 = time.perf_counter()
     native = bindings.available()
@@ -2081,7 +2116,7 @@ def front_end_phases(dev, smi, kind, sizes) -> dict:
     return figures
 
 
-SHARD_KERNELS = ("K1", "K2", "K3", "K4_denom", "K4_moments", "K5_denom", "K5_moments")
+SHARD_KERNELS = ("K1", "K2", "K3", "K4_denom", "K4_moments", "K5_denom", "K5_moments", "P")
 
 
 def sharded_phases(dev, smi, kind, sizes, phase6) -> dict:
@@ -2450,8 +2485,9 @@ def bench_phases(dev, smi, kind, sizes) -> dict:
                 check(not on_card or isinstance(row.get("power_limit_w"), float),
                       f"phase 21: {name} row {row.get('name')} has no power limit")
                 for k in row.get("expects", []):
-                    check(row["launches"][k] > 0,
-                          f"phase 21: {name} row {row['name']} launched no {k}")
+                    worked = row["launches"][k] - row["launches"].get(f"{k} skipped", 0)
+                    check(worked > 0, f"phase 21: {name} row {row['name']} launched no {k} "
+                          "that did its work")
                 for k in KERNELS:
                     total[k] += row["launches"].get(k, 0)
             launches[name] = total
@@ -2497,6 +2533,189 @@ def bench_phases(dev, smi, kind, sizes) -> dict:
     return {"launches": launches, "walls": walls, "wall": wall}
 
 
+# phase 22: the device-resident ICP loop and kernel P
+def one_iteration_loop(fn):
+    """``fn()`` with the ICP loop at one iteration a host read and no CUDA
+    graph: the eager loop the device loop is held to."""
+    from tpuslam_torch.algorithms import icp
+
+    icp.CUDA_GRAPHS = False
+    try:
+        return fn()
+    finally:
+        icp.CUDA_GRAPHS = True
+
+
+def device_loop_phases(dev, smi, kind, sizes, time_ms) -> dict:
+    """Phase 22 (module docstring): kernel P against its plain version and
+    timed, the device loop against the eager one-iteration loop bit for
+    bit, and the host reads of a warm headline registration.  Returns P's
+    entry of the kernels line (launches filled in by the caller)."""
+    import torch
+
+    import tpuslam_torch
+    from tpuslam_torch.algorithms import icp
+    from tpuslam_torch.algorithms.batch import icp_register_batch, stack_clouds
+    from tpuslam_torch.data.synthesis import get_random_rotation_matrix
+    from tpuslam_torch.harness.benchkit import count_syncs
+    from tpuslam_torch.harness.measure import build_headline_pair
+    from tpuslam_torch.kernels import procrustes
+    from tpuslam_torch.ops import nn_hier
+    from tpuslam_torch.ops.nn import nearest_neighbors
+
+    t_phase = time.perf_counter()
+    on_card = dev.type == "cuda"
+    n = sizes["headline"]
+    cb, ca = build_headline_pair(n, device=dev)
+    # (a) P against its plain version, evaluated in float64 on the same
+    # inputs: the rows of one dense query of the headline pair
+    idx, dist = nearest_neighbors(cb.points, ca.points, ca.count)
+    rows_b, rows_a = cb.points, ca.points.index_select(0, idx)
+    w = ((dist < 1e18) & (cb.mask() > 0)).to(torch.float32)
+    r, t = procrustes.weighted_procrustes_batch(rows_b[None], rows_a[None], w[None])
+    r64, t64 = procrustes.weighted_procrustes_ref(rows_b.double(), rows_a.double(), w.double())
+    r32, t32 = procrustes.weighted_procrustes_ref(rows_b, rows_a, w)
+    mu_scale = 1.0 + float(rows_a.abs().max()) + float(rows_b.abs().max())
+    err_r = float((r[0].double() - r64).abs().max())
+    err_t = float((t[0].double() - t64).abs().max())
+    err_32 = max(float((r[0] - r32).abs().max()), float((t[0] - t32).abs().max()))
+    log(f"[loop] P at {n} rows against its plain version in float64: R {err_r}, t {err_t} "
+        f"(tolerance: R 1e-6, t 1e-6 x (1 + |a|max + |b|max) = {1e-6 * mu_scale}: t's "
+        f"float32 rounding grows with the means); against the float32 plain version {err_32}")
+    check(err_r <= 1e-6 and err_t <= 1e-6 * mu_scale, "P differs from its plain version")
+    diff = rows_a - rows_b
+    n_corr = w.sum()[None]
+    e = procrustes.mean_sq_error_batch(diff[None], w[None], n_corr)
+    e64 = procrustes.mean_sq_error_ref(diff.double(), w.double(), n_corr[0].double())
+    err_e = abs(float(e[0]) - float(e64)) / max(abs(float(e64)), 1e-30)
+    log(f"[loop] P's error entry: {float(e[0])} against {float(e64)}, relative {err_e} "
+        f"(tolerance 1e-6)")
+    check(err_e <= 1e-6, "P's error entry differs from its plain version")
+    rng = np.random.Generator(np.random.PCG64(22))
+    pairs, m = sizes["batch_pairs"], sizes["batch_small"]
+    pb = torch.from_numpy((rng.random((pairs, m, 3)) * 10).astype(np.float32)).to(dev)
+    pa = torch.from_numpy((rng.random((pairs, m, 3)) * 10).astype(np.float32)).to(dev)
+    pw = torch.from_numpy((rng.random((pairs, m)) > 0.3).astype(np.float32)).to(dev)
+    br, bt = procrustes.weighted_procrustes_batch(pb, pa, pw)
+    same = all(torch.equal(x[0], br[p]) and torch.equal(y[0], bt[p]) for p, (x, y) in enumerate(
+        procrustes.weighted_procrustes_batch(pb[p:p + 1], pa[p:p + 1], pw[p:p + 1])
+        for p in range(pairs)))
+    h = torch.from_numpy(rng.standard_normal((pairs, 3, 3)).astype(np.float32)).to(dev)
+    sr, ss, sd = procrustes.svd_rotation_det_batch(h)
+    svd_err = max(float((sr[p].double() - procrustes.svd_rotation_det_ref(h[p].double())[0])
+                        .abs().max()) for p in range(pairs))
+    sorted_ok = bool((ss[:, :-1] >= ss[:, 1:]).all() and (ss >= 0).all())
+    log(f"[loop] P on {pairs} x {m}: each pair equal to its solo call bit for bit: {same}; "
+        f"the SVD entry on {pairs} random 3x3: R against float64 plain {svd_err} (tolerance "
+        f"1e-6), singular values descending and non-negative: {sorted_ok}")
+    check(same, "P: a pair of the batch differs from its solo call")
+    check(svd_err <= 1e-6 and sorted_ok, "P's SVD entry differs from its plain version")
+    # (b) P's time at the headline's shape, its plain version's (two
+    # cuSOLVER calls that wait), and torch.linalg.svd on the same batch
+    h1 = torch.matmul(((rows_a - rows_a.mean(0)) * w[:, None]).T, rows_b - rows_b.mean(0))[None]
+    ms = time_ms(lambda: procrustes.weighted_procrustes_batch(rows_b[None], rows_a[None],
+                                                              w[None]), 50)
+    plain_ms = time_ms(lambda: procrustes.weighted_procrustes_ref(rows_b, rows_a, w), 20)
+    library_ms = time_ms(lambda: torch.linalg.svd(h1), 20)
+    svd_ms = time_ms(lambda: procrustes.svd_rotation_det_batch(h1), 50)
+    # before, after and w read once (28 bytes a row); the centred second
+    # pass re-reads them from L2 (2.9 MB at 102,400 rows, in the 50 MB)
+    p_bound = bound_of(40.0 * n, 28.0 * n)
+    log(f"[loop] times on {smi}: P {ms:.4f} ms at [1, {n}, 3] (bound {p_bound}), plain "
+        f"{plain_ms:.4f} ms, torch.linalg.svd on the [1, 3, 3] batch {library_ms:.4f} ms, "
+        f"P's SVD entry {svd_ms:.4f} ms")
+    # (c) the device loop against the eager one-iteration loop at 102,400
+    # on both arms, run to the stop (frozen iterations in the last chunk)
+    converge = dict(eps=1e-4, max_distance_squared=1e4, max_iterations=100)
+    loop = {}
+    for arm, use_spatial in (("hier", True), ("dense", False)):
+        def reg():
+            nn_hier.ARM_TRACE.clear()
+            t0 = time.perf_counter()
+            res = icp.icp_register(cb, ca, use_spatial=use_spatial, **converge)
+            return res, list(nn_hier.ARM_TRACE), time.perf_counter() - t0
+
+        want, want_arms, eager_s = one_iteration_loop(reg)
+        with icp.graph_scope({}):
+            reg()  # the first call captures the chunk's graph
+            got, arms, loop_s = reg()
+        equal = (got.iterations == want.iterations and arms == want_arms
+                 and torch.equal(got.transform.rotation, want.transform.rotation)
+                 and torch.equal(got.transform.translation, want.transform.translation)
+                 and torch.equal(got.error, want.error))
+        loop[arm] = {"iterations": got.iterations, "eager_ms": eager_s * 1e3,
+                     "loop_ms": loop_s * 1e3, "equal": equal}
+        log(f"[loop] {arm} arm at {n}: {got.iterations} iterations, the device loop (chunk "
+            f"{icp.LOOP_CHUNK}{', a replayed graph' if on_card else ''}) "
+            f"{loop_s * 1e3:.3f} ms against the eager one-iteration loop "
+            f"{eager_s * 1e3:.3f} ms; equal bit for bit (R, t, error, "
+            f"iterations, arms {''.join(a[0] for a in arms)}): {equal}")
+        check(equal, f"the device loop differs from the eager loop ({arm} arm)")
+    # (d) a 5-scan seeded sequence and (e) a 16 x 2,048 batch
+    scans, poses = trajectory(np.random.Generator(np.random.PCG64(5)), sizes["loop_scans"], n)
+    seq = tpuslam_torch.register_sequence(scans, device=dev)
+    seq_ref = one_iteration_loop(lambda: tpuslam_torch.register_sequence(scans, device=dev))
+    seq_equal = (np.array_equal(seq.iterations, seq_ref.iterations) and all(
+        np.array_equal(x.rotation, y.rotation) and np.array_equal(x.translation, y.translation)
+        for x, y in zip(seq.relative, seq_ref.relative)))
+    worst = max(pose_errors(seq.absolute, poses))
+    log(f"[loop] seeded sequence of {len(scans)} scans at {n}: iterations "
+        f"{seq.iterations.tolist()}, equal to the eager loop bit for bit: {seq_equal}, worst "
+        f"pose {worst}")
+    check(seq_equal, "the sequence on the device loop differs from the eager loop")
+    check(worst[0] < 1.0, "the sequence's poses are more than 1 degree off")
+    befores = [(rng.random((m, 3)) * 10).astype(np.float32) for _ in range(pairs)]
+    afters = [(b @ get_random_rotation_matrix(rng, 0.2).T + 0.3).astype(np.float32)
+              for b in befores]
+    bb, ba = stack_clouds(befores, device=dev), stack_clouds(afters, device=dev)
+    bkw = dict(unroll=False, eps=1e-4, max_distance_squared=1e4, max_iterations=50)
+    batch = icp_register_batch(bb, ba, **bkw)
+    batch_ref = one_iteration_loop(lambda: icp_register_batch(bb, ba, **bkw))
+    batch_equal = (torch.equal(batch.iterations, batch_ref.iterations)
+                   and torch.equal(batch.transform.rotation, batch_ref.transform.rotation)
+                   and torch.equal(batch.transform.translation, batch_ref.transform.translation)
+                   and torch.equal(batch.error, batch_ref.error))
+    log(f"[loop] batch of {pairs} x {m}: iterations {batch.iterations.tolist()}, equal to the "
+        f"eager loop bit for bit: {batch_equal}")
+    check(batch_equal, "the batched device loop differs from the eager loop")
+    # (f) host reads of a warm headline registration (measure_icp_100k's
+    # protocol: 50 iterations, so ceil(50 / k) chunks) beside the set-up's
+    head = dict(eps=0.0, max_distance_squared=1e18, max_iterations=50, divergence_guard=False)
+    syncs = sites = setup = None
+    with icp.graph_scope({}):
+        icp.icp_register(cb, ca, **head)  # captures the graph the next call replays
+        if on_card:
+            _, setup, setup_sites = count_syncs(lambda: icp.prepare_spatial(cb, ca))
+            res, syncs, sites = count_syncs(lambda: icp.icp_register(cb, ca, **head))
+    if on_card:
+        chunks = -(-int(res.iterations) // icp.LOOP_CHUNK)
+        log(f"[loop] synchronising calls of a warm headline registration ({res.iterations} "
+            f"iterations, chunk {icp.LOOP_CHUNK}): {syncs} ({sites}); the loop's reads "
+            f"{chunks}, the set-up's {setup} ({setup_sites})")
+        check(not any("procrustes.py" in k or "nn_hier.py" in k for k in sites),
+              "a warm registration syncs in procrustes.py or nn_hier.py")
+        check(syncs <= chunks + setup, "more host reads than one a chunk plus the set-up's")
+    wall = time.perf_counter() - t_phase
+    log(f"[loop] phase 22: {wall:.3f} s")
+    return {
+        "entry": {
+            "name": "procrustes (P)",
+            "route": "cuda",
+            "source": "tpuslam_torch/csrc/procrustes.cu",
+            "replaces": "tpuslam/ops/procrustes.py:47",
+            "max_abs_err": max(err_r, err_t, svd_err),
+            "ms": ms,
+            "plain_ms": plain_ms,
+            **p_bound,
+            "library_ms": library_ms,
+            "ms_svd_entry": svd_ms,
+            "max_abs_err_float32_plain": err_32,
+        },
+        "loop": loop, "syncs": syncs, "sync_sites": sites, "setup_syncs": setup,
+        "sequence_iterations": seq.iterations.tolist(), "wall": wall,
+    }
+
+
 def main(dev=None, sizes=FULL) -> int:
     import torch
 
@@ -2513,7 +2732,16 @@ def main(dev=None, sizes=FULL) -> int:
     )
     from tpuslam_torch.harness.ab_kernels import graph_ms
     from tpuslam_torch.harness.measure import build_headline_pair, measure_icp_100k
-    from tpuslam_torch.kernels import bound, build, nn_cand, nn_dense
+    from tpuslam_torch.kernels import (
+        TALLIED,
+        bound,
+        build,
+        launch_counts,
+        nn_cand,
+        nn_dense,
+        reset_launch_counts,
+        tally,
+    )
     from tpuslam_torch.ops import nn_hier
     from tpuslam_torch.ops.geometry import transform_points
 
@@ -2794,14 +3022,16 @@ def main(dev=None, sizes=FULL) -> int:
     r_true = get_random_rotation_matrix(rng, 0.1)
     t_true = get_random_translation_vector(rng, 0.5)
     after = (before @ r_true.T + t_true).astype(np.float32)[rng.permutation(n_head)]
-    nn_dense.LAUNCHES = bound.LAUNCHES = nn_cand.LAUNCHES = 0
+    reset_launch_counts()
     nn_hier.ARM_TRACE.clear()
     t0 = time.perf_counter()
     rot, trans, iters, err = tpuslam_torch.register(
         before, after, device=dev, max_iterations=100
     )
     wall = time.perf_counter() - t0
-    launches = {"K1": nn_dense.LAUNCHES, "K2": bound.LAUNCHES, "K3": nn_cand.LAUNCHES}
+    counted = launch_counts()
+    launches = {k: counted[k] for k in ("K1", "K2", "K3", "P", "K1 skipped", "K3 skipped")}
+    on_device = dict(zip(TALLIED, tally(dev)[:, 0].tolist()))
     arms = list(nn_hier.ARM_TRACE)
     cos = (np.trace(rot.astype(np.float64).T @ r_true.astype(np.float64)) - 1) / 2
     angle = float(np.degrees(np.arccos(np.clip(cos, -1.0, 1.0))))
@@ -2811,8 +3041,14 @@ def main(dev=None, sizes=FULL) -> int:
         f"arms fine {arms.count('fine')} / coarse {arms.count('coarse')} / "
         f"dense {arms.count('dense')} ({''.join(a[0] for a in arms)}), "
         f"{wall:.3f} s")
-    for name, k in launches.items():
-        check(k > 0, f"the registration did not launch {name}")
+    log(f"[slice] launches the kernels counted on the device {on_device} (each must equal "
+        f"the wrappers' count, a replay's booked from it)")
+    for name in TALLIED:
+        check(launches[name] > 0, f"the registration did not launch {name}")
+        check(launches[name] == on_device[name],
+              f"{name}: the wrappers counted {launches[name]} launches, the device "
+              f"{on_device[name]}")
+    check(launches["K3"] > launches["K3 skipped"], "K3 did no work in the registration")
     check(rot.shape == (3, 3) and trans.shape == (3,), "result shapes")
     check(bool(np.isfinite(rot).all() and np.isfinite(trans).all()),
           "non-finite transform")
@@ -2941,15 +3177,13 @@ def main(dev=None, sizes=FULL) -> int:
                              ("hier_8192", sizes["small"], True),
                              ("dense_8192", sizes["small"], False)):
         nn_hier.ARM_TRACE.clear()
-        before = (nn_dense.LAUNCHES, bound.LAUNCHES, nn_cand.LAUNCHES)
         h = measure_icp_100k(n_points=n_pts, device=dev, use_spatial=arm)
         h["nvidia_smi"] = smi
-        # the warm-up call and the timed ones, each of iters_per_call
-        calls = h["reps"] + 1
+        # the timed calls, each of iters_per_call (the untimed first call
+        # captures the graph they replay)
         h["launches_per_call"] = {
-            k: (after - b) / calls for k, after, b in zip(
-                ("K1", "K2", "K3"), (nn_dense.LAUNCHES, bound.LAUNCHES, nn_cand.LAUNCHES),
-                before)}
+            k: h["launches"][k] / h["reps"]
+            for k in ("K1", "K2", "K3", "P", "K1 skipped", "K3 skipped")}
         arms = list(nn_hier.ARM_TRACE)
         if arms:
             h["arms"] = {a: arms.count(a) for a in ("fine", "coarse", "dense")}
@@ -2975,6 +3209,8 @@ def main(dev=None, sizes=FULL) -> int:
     log(f"[sharded] summary: {json.dumps(sharded)}")
     benches = bench_phases(dev, smi, kind, sizes)
     log(f"[bench] summary: {json.dumps(benches)}")
+    phase22 = device_loop_phases(dev, smi, kind, sizes, time_ms)
+    log(f"[loop] summary: {json.dumps({k: v for k, v in phase22.items() if k != 'entry'})}")
     per_pair = slice8["sequence"]["scan seeded"]["launches_per_pair"]
     for entry, name in zip(cpd_kernels[:2], ("denom", "moments")):
         entry["launches_per_batched_iter"] = slice8["k4"]["launches_per_batched_iter"]
@@ -3001,6 +3237,8 @@ def main(dev=None, sizes=FULL) -> int:
             "ms_small_grids": k1_small_ms,
             "library_ms": None,
             "launches_per_iter": per_iter["K1"],
+            "launches_skipped": launches["K1 skipped"],
+            "launches_skipped_per_iter": per_iter["K1 skipped"],
             "launches_per_sequence_pair": per_pair["K1"],
             "launches_per_nicp_run": {k: v["K1"] for k, v in slice7["nicp_runs"].items()},
             "ms_nicp_rescore": slice7["k1_rescore"]["ms"],
@@ -3031,9 +3269,13 @@ def main(dev=None, sizes=FULL) -> int:
             **k3_bound,
             "library_ms": None,
             "launches_per_iter": per_iter["K3"],
+            "launches_skipped": launches["K3 skipped"],
+            "launches_skipped_per_iter": per_iter["K3 skipped"],
             "launches_per_sequence_pair": per_pair["K3"],
         },
         *cpd_kernels,
+        {**phase22["entry"], "launches": launches["P"],
+         "launches_per_iter": per_iter["P"], "launches_per_sequence_pair": per_pair["P"]},
     ]
     for entry, key in zip(kernels, SHARD_KERNELS):
         entry["front_end_launches"] = front["launches"][entry["name"]]

@@ -25,6 +25,7 @@ import pytest
 import torch
 
 import tpuslam_torch
+from tpuslam_torch import kernels
 from tpuslam_torch.data.synthesis import (
     get_random_rotation_matrix,
     get_random_translation_vector,
@@ -1139,3 +1140,226 @@ def test_sharded_cpd_estep_matches_solo_on_the_card(cuda, rng):
     for k, want in (("p1", solo.p1), ("px", solo.px), ("error", solo.error)):
         want = want.cpu().numpy()
         assert np.abs(got[k] - want).max() <= 1e-5 * np.abs(want).max(), k
+
+
+def _svd_cases(rng, case, b):
+    """f32[b, 3, 3] cross-covariances of one kind: random, rank 2, a
+    repeated singular value, a reflection (det < 0), zero, non-finite."""
+    hs = []
+    for _ in range(b):
+        u, _ = np.linalg.qr(rng.standard_normal((3, 3)))
+        v, _ = np.linalg.qr(rng.standard_normal((3, 3)))
+        s = {"random": [5.0, 2.0, 0.5], "rank2": [4.0, 1.5, 0.0],
+             "repeated": [3.0, 3.0, 1.0], "reflection": [6.0, 2.5, 1.0],
+             "zero": [0.0, 0.0, 0.0], "nonfinite": [2.0, 1.0, 0.5]}[case]
+        h = u @ np.diag(s) @ v.T
+        if case == "reflection" and np.linalg.det(h) > 0:
+            h[:, 0] *= -1
+        elif case != "reflection" and np.linalg.det(u @ v.T) < 0:
+            h = -h if case != "zero" else h
+        if case == "nonfinite":
+            h[1, 2] = np.nan if len(hs) % 2 else np.inf
+        hs.append(h)
+    return torch.from_numpy(np.stack(hs).astype(np.float32))
+
+
+@pytest.mark.parametrize("b", [1, 16])
+@pytest.mark.parametrize("case", ["random", "rank2", "repeated", "reflection", "zero",
+                                  "nonfinite"])
+def test_procrustes_svd_entry_against_plain(rng, cuda, case, b):
+    """P's SVD entry against its plain version (``torch.linalg.svd``) run in
+    float64 on the same inputs: R within 1e-6 where the rotation is unique
+    (R is not for a zero H), s non-negative, descending and within 1e-6
+    of the largest, det equal where the third singular value is well
+    separated from 0, NaN everywhere for a non-finite H.  A pair of the
+    batch equals its solo call bit for bit."""
+    from tpuslam_torch.kernels import procrustes
+
+    h = _svd_cases(rng, case, b).to(cuda)
+    r, s, det = procrustes.svd_rotation_det_batch(h)
+    ref = [procrustes.svd_rotation_det_ref(h[p].double()) for p in range(b)]
+    torch.cuda.synchronize()
+    for p in range(b):
+        if case == "nonfinite":
+            assert torch.isnan(r[p]).all() and torch.isnan(s[p]).all() and torch.isnan(det[p])
+            continue
+        assert (s[p] >= 0).all() and s[p][0] >= s[p][1] >= s[p][2]
+        r_ref, s_ref, det_ref = (x.float() for x in ref[p])
+        assert torch.allclose(s[p], s_ref, rtol=0, atol=1e-6 * max(float(s_ref[0]), 1.0))
+        if case != "zero":
+            assert torch.allclose(r[p], r_ref, rtol=0, atol=1e-6), (case, r[p], r_ref)
+        if float(s_ref[2]) > 1e-3 * float(s_ref[0]):
+            assert float(det[p]) == float(torch.sign(det_ref))
+        r64 = r[p].double()
+        assert torch.allclose(r64 @ r64.T, torch.eye(3, dtype=torch.float64, device=cuda),
+                              atol=1e-6)
+    for p in range(b):
+        one = procrustes.svd_rotation_det_batch(h[p:p + 1])
+        assert all(torch.equal(x[p:p + 1], y) for x, y in zip((r, s, det), one)
+                   if case != "nonfinite")
+
+
+@pytest.mark.parametrize("b", [1, 16])
+@pytest.mark.parametrize("case", ["rotation", "reflection", "masked", "empty"])
+def test_procrustes_kernel_against_plain(rng, cuda, case, b):
+    """P against its plain version in float64 on the same inputs (the
+    float32 plain version's own sums err by about 1e-6 here): R and t
+    within 1e-6 (clouds centred near 0, singular values well apart), the
+    error entry within 1e-6 relative; each pair of the batch equals its
+    solo call bit for bit."""
+    from tpuslam_torch.kernels import procrustes
+
+    n = 4096
+    befores, afters, ws = [], [], []
+    for _ in range(b):
+        before = (rng.random((n, 3)) - 0.5) * np.array([4.0, 2.0, 1.0])
+        r, t = get_random_rotation_matrix(rng, 0.5), get_random_translation_vector(rng, 0.3)
+        after = before @ r.T + t + rng.normal(0, 0.01, (n, 3))
+        w = np.ones(n)
+        if case == "reflection":
+            after = after * np.array([-1.0, 1.0, 1.0])
+        elif case == "masked":
+            w = (rng.random(n) > 0.4).astype(np.float64)
+            after[w == 0] += 100.0
+        elif case == "empty":
+            w = np.zeros(n)
+        befores.append(before), afters.append(after), ws.append(w)
+    f32 = lambda x: torch.from_numpy(np.stack(x).astype(np.float32)).to(cuda)  # noqa: E731
+    before, after, w = f32(befores), f32(afters), f32(ws)
+    r, t = procrustes.weighted_procrustes_batch(before, after, w)
+    diff = after - before
+    n_corr = w.sum(1)
+    err = procrustes.mean_sq_error_batch(diff, w, n_corr)
+    torch.cuda.synchronize()
+    for p in range(b):
+        r_ref, t_ref = procrustes.weighted_procrustes_ref(
+            before[p].double(), after[p].double(), w[p].double())
+        if case != "empty":  # no correspondence: H = 0 and R is not unique
+            assert torch.allclose(r[p].double(), r_ref, rtol=0, atol=1e-6), (case, r[p], r_ref)
+        assert torch.allclose(t[p].double(), t_ref, rtol=0, atol=1e-6), (case, t[p], t_ref)
+        e_ref = procrustes.mean_sq_error_ref(diff[p].double(), w[p].double(),
+                                             n_corr[p].double())
+        assert abs(float(err[p]) - float(e_ref)) <= 1e-6 * max(abs(float(e_ref)), 1e-30)
+        assert abs(float(torch.linalg.det(r[p].double())) - 1.0) < 1e-6
+        r1, t1 = procrustes.weighted_procrustes_batch(before[p:p + 1], after[p:p + 1],
+                                                      w[p:p + 1])
+        e1 = procrustes.mean_sq_error_batch(diff[p:p + 1], w[p:p + 1], n_corr[p:p + 1])
+        assert torch.equal(r1[0], r[p]) and torch.equal(t1[0], t[p]) and torch.equal(e1[0], err[p])
+
+
+def test_predicated_k1_and_k3_write_only_when_selected(rng, cuda):
+    """K1 and K3 with an arm code: a launch whose value is not the code
+    returns at once (the output keeps its sentinel), the selected one
+    writes what the unpredicated launch writes; each launch is counted by
+    its wrapper, and the unselected one as skipped by the device."""
+    n = 4096
+    src = torch.from_numpy((rng.random((1, n, 3)) * 10).astype(np.float32)).to(cuda)
+    tgt = torch.from_numpy((rng.random((1, 8192, 3)) * 10).astype(np.float32)).to(cuda)
+    count = torch.tensor([8192], dtype=torch.int32, device=cuda)
+    want = nn_dense.nearest_neighbors_dense_batch(src, tgt, count)
+    packed = torch.cat([tgt, torch.arange(8192, device=cuda, dtype=torch.float32)[None, :, None]],
+                       dim=2).contiguous()
+    cand = torch.arange(64, dtype=torch.int32, device=cuda).repeat(1, n // 1024, 1).contiguous()
+    counts = torch.full((1, n // 1024), 64, dtype=torch.int32, device=cuda)
+    want3 = nn_cand.nearest_neighbors_cand_batch(src, packed, cand, counts, g=128, gsrc=1024)
+    for code in (0, 1, 2):
+        arm = torch.tensor([code], dtype=torch.int32, device=cuda)
+        launches = (nn_dense.LAUNCHES, nn_cand.LAUNCHES)
+        before = kernels.launch_counts()
+        for run, value, ref in (
+            (lambda out: nn_dense.nearest_neighbors_dense_batch(
+                src, tgt, count, arm=arm, arm_value=2, out=out), 2, want),
+            (lambda out: nn_cand.nearest_neighbors_cand_batch(
+                src, packed, cand, counts, g=128, gsrc=1024, arm=arm, arm_value=0, out=out),
+             0, want3),
+        ):
+            out = (torch.full((1, n), -7, dtype=torch.int32, device=cuda),
+                   torch.full((1, n), -1.0, device=cuda))
+            run(out)
+            torch.cuda.synchronize()
+            if code == value:
+                assert torch.equal(out[0], ref[0]) and torch.equal(out[1], ref[1])
+            else:
+                assert bool((out[0] == -7).all()) and bool((out[1] == -1.0).all())
+        assert (nn_dense.LAUNCHES, nn_cand.LAUNCHES) == (launches[0] + 1, launches[1] + 1)
+        now = kernels.launch_counts()
+        assert now["K1 skipped"] - before["K1 skipped"] == int(code != 2)
+        assert now["K3 skipped"] - before["K3 skipped"] == int(code != 0)
+
+
+@pytest.mark.parametrize("use_spatial", [False, True])
+def test_device_loop_graph_equals_eager_one_iteration_loop(rng, cuda, use_spatial):
+    """The captured, replayed chunk against the eager loop of one
+    iteration a read, bit for bit (R, t, error, iterations, arms); the
+    second registration of a ``graph_scope`` replays the graph the first
+    captured; a warm registration makes no synchronising call in
+    ``procrustes.py`` or ``nn_hier.py`` and at most one a chunk plus the
+    set-up's."""
+    from tpuslam_torch.algorithms import icp
+    from tpuslam_torch.harness.benchkit import count_syncs
+
+    n = 16_384
+    before = (rng.random((n, 3)) * 10).astype(np.float32)
+    r_true = get_random_rotation_matrix(rng, 0.15)
+    after = (before @ r_true.T + get_random_translation_vector(rng, 0.5)).astype(np.float32)
+    b, a = pad_cloud(before, device=cuda), pad_cloud(after, device=cuda)
+    kw = dict(eps=1e-7, max_distance_squared=1e4, max_iterations=30, use_spatial=use_spatial)
+    nn_hier.ARM_TRACE.clear()
+    icp.CUDA_GRAPHS = False  # the eager reference: one iteration a read, no graph
+    try:
+        want = icp_register(b, a, **kw)
+    finally:
+        icp.CUDA_GRAPHS = True
+    want_arms = list(nn_hier.ARM_TRACE)
+    saved = icp.LOOP_CHUNK
+    try:
+        for k in (1, 4, 8):
+            icp.LOOP_CHUNK = k
+            with icp.graph_scope({}) as graphs:
+                for _ in range(2):  # capture, then replay the scope's graph
+                    nn_hier.ARM_TRACE.clear()
+                    got = icp_register(b, a, **kw)
+                    assert got.iterations == want.iterations
+                    assert torch.equal(got.transform.rotation, want.transform.rotation)
+                    assert torch.equal(got.transform.translation, want.transform.translation)
+                    assert torch.equal(got.error, want.error)
+                    assert list(nn_hier.ARM_TRACE) == want_arms
+                    assert len(graphs) == 1
+        icp.LOOP_CHUNK = 4
+        with icp.graph_scope({}):
+            icp_register(b, a, **kw)
+            got, syncs, sites = count_syncs(lambda: icp_register(b, a, **kw))
+    finally:
+        icp.LOOP_CHUNK = saved
+    assert not any("procrustes.py" in s or "nn_hier.py" in s for s in sites), sites
+    # one read a chunk (the stopping step is a step too), the set-up none
+    assert syncs <= -(-(got.iterations + 1) // 4), sites
+
+
+@pytest.mark.parametrize("use_spatial", [False, True])
+def test_replayed_graph_books_the_launches_the_device_counted(rng, cuda, use_spatial):
+    """After registrations that capture and replay the loop's graph, each
+    wrapper's count (its eager launches plus the replays' launches, booked
+    from the device) equals the launches the kernels counted on the
+    device; on the hierarchical arm the unselected arms' launches are
+    counted as skipped, none on the dense arm."""
+    from tpuslam_torch.algorithms import icp
+
+    n = 16_384
+    before = (rng.random((n, 3)) * 10).astype(np.float32)
+    after = (before @ get_random_rotation_matrix(rng, 0.15).T + 0.3).astype(np.float32)
+    b, a = pad_cloud(before, device=cuda), pad_cloud(after, device=cuda)
+    kernels.reset_launch_counts()
+    with icp.graph_scope({}):
+        for _ in range(3):
+            icp_register(b, a, eps=0.0, max_distance_squared=1e18, max_iterations=20,
+                         divergence_guard=False, use_spatial=use_spatial)
+    counts = kernels.launch_counts()
+    on_device = kernels.tally(cuda)[:, 0].tolist()
+    assert [counts[k] for k in kernels.TALLIED] == on_device
+    assert counts["P"] == 2 * 3 * 20  # Procrustes and the error, every iteration
+    if use_spatial:
+        assert counts["K2"] == 3 * 20 and counts["K3"] > counts["K3 skipped"]
+        assert counts["K1 skipped"] + counts["K3 skipped"] == 2 * 3 * 20
+    else:
+        assert counts["K1"] == 3 * 20 and counts["K1 skipped"] == counts["K3 skipped"] == 0

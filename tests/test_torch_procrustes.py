@@ -124,3 +124,68 @@ def test_svd_rotation_matches_jax(rng):
     np.testing.assert_allclose(r_ours.numpy(), np.asarray(r_ref), atol=1e-5)
     np.testing.assert_allclose(s_ours.numpy(), np.asarray(s_ref), rtol=1e-5)
     np.testing.assert_allclose(r_ours.numpy() @ r_ours.numpy().T, np.eye(3), atol=1e-5)
+
+
+def test_batched_procrustes_equals_solo_calls_on_the_cpu(rng):
+    """P's wrappers on the CPU run the plain version pair by pair: each pair
+    of a batch gets its solo call's bits (R, t, the SVD entry, the error)."""
+    from tpuslam_torch.kernels import procrustes as kp
+
+    b, n = 4, 300
+    before = _t(np.stack([make_cloud(rng, n) for _ in range(b)]))
+    after = _t(np.stack([make_cloud(rng, n) for _ in range(b)]))
+    w = _t((rng.random((b, n)) > 0.3).astype(np.float32))
+    r, t = procrustes.weighted_procrustes(before, after, w)
+    h = _t(rng.normal(size=(b, 3, 3)))
+    sr, ss, sd = procrustes.svd_rotation_det(h)
+    diff = after - before
+    err = procrustes.mean_sq_error(diff, w, w.sum(1))
+    for p in range(b):
+        r1, t1 = procrustes.weighted_procrustes(before[p], after[p], w[p])
+        assert torch.equal(r1, r[p]) and torch.equal(t1, t[p])
+        assert torch.equal(kp.weighted_procrustes_ref(before[p], after[p], w[p])[0], r[p])
+        for x, y in zip(procrustes.svd_rotation_det(h[p]), (sr[p], ss[p], sd[p])):
+            assert torch.equal(x, y)
+        assert torch.equal(procrustes.mean_sq_error(diff[p], w[p], w[p].sum()), err[p])
+    assert kp.LAUNCHES == 0  # the CPU launches nothing
+
+
+def test_svd_rotation_det_matches_jax_with_sorted_values(rng):
+    """The SVD entry against the JAX package's ``svd_rotation`` on a batch,
+    with a reflection among them: R within 1e-5, singular values
+    non-negative and descending (LAPACK's order, which the CPD scale's
+    ``s0 + s1 + det s2`` needs), det(U V^T) = sign(det H)."""
+    hs = rng.normal(size=(5, 3, 3)).astype(np.float32)
+    hs[2, :, 0] *= -1 if np.linalg.det(hs[2]) > 0 else 1
+    r, s, det = procrustes.svd_rotation_det(_t(hs))
+    for p in range(5):
+        r_ref, s_ref = jax_procrustes.svd_rotation(jnp.asarray(hs[p]))
+        np.testing.assert_allclose(r[p].numpy(), np.asarray(r_ref), atol=1e-5)
+        np.testing.assert_allclose(s[p].numpy(), np.asarray(s_ref), rtol=1e-5)
+        assert (s[p] >= 0).all() and s[p][0] >= s[p][1] >= s[p][2]
+        assert float(det[p]) == pytest.approx(np.sign(np.linalg.det(hs[p])), abs=1e-5)
+
+
+@pytest.mark.parametrize("value", [np.nan, np.inf])
+def test_non_finite_cross_covariance_gives_nan(value):
+    h = np.eye(3, dtype=np.float32)
+    h[0, 2] = value
+    r, s, det = procrustes.svd_rotation_det(_t(h))
+    assert torch.isnan(r).all() and torch.isnan(s).all() and torch.isnan(det)
+
+
+def test_procrustes_wrappers_refuse_bad_operands(rng):
+    from tpuslam_torch.kernels import procrustes as kp
+
+    pts = _t(make_cloud(rng, 16))[None]
+    with pytest.raises(ValueError, match="weights"):
+        kp.weighted_procrustes_batch(pts, pts, torch.ones(1, 15))
+    with pytest.raises(TypeError, match="float32"):
+        kp.weighted_procrustes_batch(pts.double(), pts.double(), torch.ones(1, 16).double())
+    with pytest.raises(ValueError, match=r"\[B, 3, 3\]"):
+        kp.svd_rotation_det_batch(torch.zeros(2, 3, 4))
+    with pytest.raises(ValueError, match="n_corr"):
+        kp.mean_sq_error_batch(pts, torch.ones(1, 16), torch.ones(2))
+    with pytest.raises(RuntimeError, match="CPU or CUDA"):
+        kp.weighted_procrustes_batch(pts.to("meta"), pts.to("meta"), torch.ones(1, 16,
+                                                                                 device="meta"))

@@ -2,19 +2,24 @@
 ``tpuslam/algorithms/batch.py``).
 
 Pairs are padded to one size and stacked (``stack_clouds``).  ICP has the
-JAX package's two lowerings, chosen by its measured crossover (unroll
-when B <= 32 and N·M >= 8192²):
+JAX package's two lowerings.  On the CPU the JAX package's measured
+crossover picks one (unroll when B <= 32 and N·M >= 8192²); on CUDA the
+batched lowering is the default, as no size measured on the card has
+the unrolled one ahead:
 
-* unrolled: solo ``icp_register`` on each pair in turn;
-* batched (the JAX package's ``jax.vmap`` of the loop): one eager loop of
-  ``icp._icp_step`` over a leading pair axis, its NN one call of K1's
-  batch form (dense) or of the batched hierarchical search (K2, K3 and
-  K1 batch forms).  A pair that has stopped is frozen exactly as the
-  JAX loop freezes it (``icp.py:151-159``): it keeps being queried, so
-  it still counts in the hierarchical search's batch-wide arm choice,
-  but its rotation, translation, error, ``prev_error``, iterations and
-  warm state keep their values.  "All stopped" is read back once per
-  iteration.
+* unrolled: solo ``icp_register`` on each pair in turn, the pairs
+  sharing one CUDA graph of the loop (``icp.graph_scope``);
+* batched (the JAX package's ``jax.vmap`` of the loop): the solo
+  device-resident loop ``icp._icp_loop`` over a leading pair axis, its
+  NN one call of K1's batch form (dense) or of the batched hierarchical
+  search (K2, K3 and K1 batch forms), its Procrustes and error one
+  launch of kernel P for all pairs.  A pair that has stopped is frozen
+  exactly as the JAX loop freezes it (``icp.py:151-159``): it keeps
+  being queried, so it still counts in the hierarchical search's
+  batch-wide arm choice, but its rotation, translation, error,
+  ``prev_error``, iterations and warm state keep their values.  "All
+  stopped" is read back once a chunk of iterations (on CUDA a replayed
+  CUDA graph).
 
 NICP runs ``nicp.nicp_core`` on the pair axis (its rescore one call of
 K1's batch form, ``[B, 8·k, 3]`` against ``[B, M, 3]``).
@@ -54,7 +59,11 @@ from tpuslam_torch.algorithms.icp import (
     ICPResume,
     ICPState,
     RegistrationResult,
-    _icp_step,
+    _icp_loop,
+    dense_arm,
+    full_f32,
+    graph_scope,
+    hier_arm,
     icp_register,
     prepare_spatial,
     resolve_use_spatial,
@@ -65,17 +74,14 @@ from tpuslam_torch.config.configuration import ApproximationType
 from tpuslam_torch.core.device import resolve_device
 from tpuslam_torch.core.types import Cloud, RigidTransform, Sufficient, pad_cloud, round_up
 from tpuslam_torch.kernels.cpd_dense import cpd_estep_dense_batch
-from tpuslam_torch.ops.nn import nearest_neighbors_batch
-from tpuslam_torch.ops.nn_hier import (
-    HierState,
-    HierTarget,
-    hier_state_init,
-    nearest_neighbors_hier_batch,
-)
+from tpuslam_torch.ops.nn_hier import HierState, HierTarget, hier_state_init
 
-# the JAX package's lowering crossover for icp_register_batch, measured
-# on a TPU v5e (tools/batch_diag.py); kept until a sweep on the card
-# replaces it
+# the lowering crossover of icp_register_batch on the CPU: unroll when
+# B <= 32 and N*M per pair reaches the pair work below, the JAX package's,
+# measured on a TPU v5e (tools/batch_diag.py).  On CUDA the batched
+# lowering took 0.08-0.65 of the 16 solo runs' time at every size the
+# card measured, 2,048 to 102,400 rows a pair (harness/batch_diag.py,
+# PERF.md), so it never unrolls unless asked
 _UNROLL_MAX_B = 32
 _UNROLL_MIN_PAIRWORK = 8192 * 8192  # N*M per pair
 
@@ -131,6 +137,8 @@ def _stack_results(results) -> RegistrationResult:
 def _resolve_unroll(unroll: Optional[bool], befores: Cloud, afters: Cloud) -> bool:
     if unroll is not None:
         return bool(unroll)
+    if befores.points.device.type == "cuda":
+        return False
     b, n = befores.points.shape[0], befores.points.shape[1]
     m = afters.points.shape[1]
     return b <= _UNROLL_MAX_B and n * m >= _UNROLL_MIN_PAIRWORK
@@ -159,12 +167,14 @@ def _icp_batched_loop(
     use_spatial: Optional[bool],
     resume: Optional[ICPResume] = None,
 ) -> RegistrationResult:
-    """The batched lowering (module docstring): ``icp._icp_step`` over the
+    """The batched lowering (module docstring): ``icp._icp_loop`` over the
     pair axis with the JAX loop's freeze, until every pair has stopped."""
     device = befores.points.device
     b = befores.points.shape[0]
 
     def f32(x):
+        if isinstance(x, (int, float)):
+            return full_f32(x, device)
         return torch.as_tensor(x, dtype=torch.float32, device=device)
 
     if resolve_use_spatial(use_spatial, afters.points.shape[1], device):
@@ -172,30 +182,14 @@ def _icp_batched_loop(
         src_points = torch.stack([s.src_points for s in setups])
         src_mask = torch.stack([s.src_mask for s in setups])
         target = HierTarget(*(torch.stack(f) for f in zip(*(s.target for s in setups))))
-        g, gsrc, l_budget = setups[0].g, setups[0].gsrc, setups[0].l_budget
-
-        def run_nn(transformed, s: ICPState):
-            return nearest_neighbors_hier_batch(
-                transformed, src_mask, target, s.nn, l_budget=l_budget, g=g, gsrc=gsrc)
-
-        def gather_matched(idx, nn_state):
-            # the hier state already holds original_points[idx]
-            return nn_state.prev_target
-
+        arm = hier_arm(src_mask, target, setups[0].l_budget, setups[0].g, setups[0].gsrc)
         if resume is not None and resume.nn is not None:
             nn_init = HierState(*(t.to(device) for t in resume.nn))
         else:
             nn_init = hier_state_init(src_points.shape[1], device, batch=(b,))
     else:
         src_points, src_mask = befores.points, befores.mask()
-
-        def run_nn(transformed, s: ICPState):
-            idx, dist = nearest_neighbors_batch(transformed, afters.points, afters.count)
-            return idx, dist, s.nn
-
-        def gather_matched(idx, nn_state):
-            return torch.take_along_dim(afters.points, idx.long()[..., None], dim=1)
-
+        arm = dense_arm(afters.points, afters.count)
         nn_init = None
 
     if resume is None:
@@ -207,40 +201,15 @@ def _icp_batched_loop(
         rotation, translation = f32(resume.rotation), f32(resume.translation)
         error = f32(resume.error)
         prev_error = f32(resume.error if resume.prev_error is None else resume.prev_error)
-    s = ICPState(
+    init = ICPState(
         rotation=rotation, translation=translation, error=error, prev_error=prev_error,
         iterations=torch.zeros((b,), dtype=torch.int32, device=device),
         done=torch.zeros((b,), dtype=torch.bool, device=device),
         nn=nn_init,
     )
-    eps_t, max_d2 = f32(eps), f32(max_distance_squared)
-    max_it = int(max_iterations)
-    while True:
-        # the JAX loop's cond per pair; the loop runs while any pair's holds
-        active = ~s.done
-        if max_it != -1:
-            active = active & (s.iterations < max_it)
-        if not bool(active.any()):  # the one read back of the iteration
-            break
-        new, _ = _icp_step(s, src_points, src_mask, run_nn, gather_matched,
-                           eps_t, max_d2, divergence_guard)
-        # the reference increments only when the loop continues
-        new = new._replace(iterations=torch.where(new.done, s.iterations, s.iterations + 1))
-
-        def keep(old, nw):  # a stopped pair keeps its state, as in the JAX loop
-            return torch.where(active.reshape((b,) + (1,) * (nw.dim() - 1)), nw, old)
-
-        s = ICPState(
-            *(keep(o, n) for o, n in zip(s[:-1], new[:-1])),
-            nn=None if s.nn is None else HierState(*map(keep, s.nn, new.nn)),
-        )
-    one = torch.ones((b,), dtype=torch.float32, device=device)
-    return RegistrationResult(
-        transform=RigidTransform(s.rotation, s.translation, one),
-        iterations=s.iterations,
-        error=s.error,
-        nn=s.nn,
-    )
+    return _icp_loop(src_points, src_mask, arm, f32(eps), f32(max_distance_squared),
+                     int(max_iterations), divergence_guard=divergence_guard, verbose=False,
+                     iter_offset=0, init=init, patience=0)
 
 
 def icp_register_batch(
@@ -261,10 +230,12 @@ def icp_register_batch(
     common = dict(eps=eps, max_distance_squared=max_distance_squared,
                   max_iterations=max_iterations, divergence_guard=divergence_guard)
     if _resolve_unroll(unroll, befores, afters):
-        return _stack_results([
-            icp_register(_pair(befores, p), _pair(afters, p), use_spatial=use_spatial, **common)
-            for p in range(befores.points.shape[0])
-        ])
+        with graph_scope():
+            return _stack_results([
+                icp_register(_pair(befores, p), _pair(afters, p), use_spatial=use_spatial,
+                             **common)
+                for p in range(befores.points.shape[0])
+            ])
     return _icp_batched_loop(befores, afters, use_spatial=use_spatial, **common)
 
 
@@ -413,13 +384,14 @@ def icp_register_prealigned_batch(
     common = dict(eps=eps, max_distance_squared=max_distance_squared,
                   max_iterations=max_iterations, divergence_guard=divergence_guard)
     if _resolve_unroll(unroll, befores, afters):
-        return _stack_results([
-            icp_register(
-                _pair(befores, p), _pair(afters, p),
-                resume=ICPResume(resume.rotation[p], resume.translation[p], resume.error[p],
-                                 prev_error=resume.prev_error[p]),
-                **common,
-            )
-            for p in range(b)
-        ])
+        with graph_scope():
+            return _stack_results([
+                icp_register(
+                    _pair(befores, p), _pair(afters, p),
+                    resume=ICPResume(resume.rotation[p], resume.translation[p],
+                                     resume.error[p], prev_error=resume.prev_error[p]),
+                    **common,
+                )
+                for p in range(b)
+            ])
     return _icp_batched_loop(befores, afters, use_spatial=None, resume=resume, **common)

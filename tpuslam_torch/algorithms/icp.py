@@ -26,10 +26,24 @@ The math and every stop condition follow the JAX package's
   ``patience`` non-improving iterations;
 * ``iterations`` counts only iterations after which the loop continued.
 
-Unlike the JAX ``lax.while_loop``, this loop runs eagerly and reads the
-``done`` flag (and, with ``patience``, the improvement flag) back to the
-host once per iteration; the hierarchical arm adds one read of its two
-overflow flags.
+Like the JAX ``lax.while_loop``, the loop keeps all of its state on the
+device and freezes a problem once it has stopped (an iteration after
+``done``, after ``max_iterations`` or after ``patience`` non-improving
+iterations changes nothing).  It runs in chunks of ``LOOP_CHUNK``
+iterations with one host read a chunk: whether the loop has stopped, the
+iteration count, the hierarchical arm of each query and the launches the
+device counted.  On CUDA a chunk is captured once as a CUDA graph
+(``_ChunkGraph``) over static input buffers and replayed, the
+hierarchical search then choosing its arm on the device.  The graph is
+kept for the registration, or, inside ``graph_scope``, for the scope's
+owner (a sequence, a stream, a chunked run, a server, a measurement),
+one per shape it meets: a later registration of the same shapes copies
+its inputs in and replays it.  ``verbose=True`` (the reference prints
+each iteration's error), ``CUDA_GRAPHS = False`` (the eager baseline of
+a measurement) and an arm that cannot be captured (``Arm.key`` None: the
+sharded arm's collectives) run eager chunks of one iteration, the search
+reading its arm on the host; so does the CPU, at ``LOOP_CHUNK``.
+Whatever the chunk, the result is the one-iteration loop's, bit for bit.
 
 ``icp_register_chunked`` runs the loop a chunk of iterations at a time
 along the same trajectory, and checkpoints each boundary to disk when
@@ -39,14 +53,18 @@ with one NICP shot.
 
 from __future__ import annotations
 
-from typing import Callable, NamedTuple, Optional, Tuple
+from contextlib import contextmanager
+from typing import Any, Callable, NamedTuple, Optional, Tuple
 
 import torch
 
+from tpuslam_torch import kernels
 from tpuslam_torch.core.types import Cloud, RigidTransform, round_up
-from tpuslam_torch.ops.geometry import matmul3, matvec3, per_pair, transform_points
-from tpuslam_torch.ops.nn import nearest_neighbors
+from tpuslam_torch.ops.geometry import matmul3, matvec3, transform_points
+from tpuslam_torch.ops.nn import nearest_neighbors, nearest_neighbors_batch
 from tpuslam_torch.ops.nn_hier import (
+    ARM_TRACE,
+    ARMS,
     MAX_ROWS,
     HierState,
     HierTarget,
@@ -54,27 +72,51 @@ from tpuslam_torch.ops.nn_hier import (
     auto_tile_params,
     hier_state_init,
     nearest_neighbors_hier,
+    nearest_neighbors_hier_batch,
     prepare_hier_target,
+    recording_arms,
 )
-from tpuslam_torch.ops.procrustes import weighted_procrustes
+from tpuslam_torch.ops.procrustes import mean_sq_error, weighted_procrustes
 from tpuslam_torch.ops.spatial import morton_permutation
 
 FLT_MAX = 3.4028235e38
 # target rows from which use_spatial=None takes the hierarchical arm on
 # CUDA: the JAX package's crossover, measured on a TPU v5e
 SPATIAL_MIN_ROWS = 8192
+# iterations a chunk of the device-resident loop (one host read a chunk),
+# chosen from card runs of 1, 2, 4 and 8 at 102,400 and 8,192 rows on both
+# arms (harness/loop_chunk.py, PERF.md): with the chunk replayed as a graph
+# the read costs little, and a chunk past the stop wastes up to k - 1
+# iterations of device time; 2 was within 6 % of the best in every row
+LOOP_CHUNK = 2
+# capture a chunk as a CUDA graph on CUDA (False: eager chunks of one
+# iteration, the loop every chunked run is held to, a measurement's baseline)
+CUDA_GRAPHS = True
+INT32_MAX = 2**31 - 1
+# the status vector of a chunk starts with the launches of each kernel of
+# kernels.TALLIED, as the device counted them (zeros on the CPU)
+_TALLY_ROWS = len(kernels.TALLIED)
+
+
+def full_f32(x: float, device, shape: Tuple[int, ...] = ()) -> torch.Tensor:
+    """``x`` rounded to float32 on the host (as ``torch.tensor`` rounds it:
+    ``FLT_MAX`` as a double lies just above float32's largest value) and
+    filled on the device: no blocking host-to-device copy."""
+    return torch.full(shape, float(torch.tensor(x, dtype=torch.float32)),
+                      dtype=torch.float32, device=device)
 
 
 class ICPState(NamedTuple):
-    """The loop carry; every field but ``iterations`` stays on the device
-    (in the batched loop of ``algorithms/batch.py``, where every field has
-    a leading pair axis, ``iterations`` is an i32[B] tensor too)."""
+    """The loop carry, all on the device (in the batched loop of
+    ``algorithms/batch.py`` every field has a leading pair axis).  A
+    caller may give ``iterations`` as an int; the loop holds it as an
+    i32 tensor."""
 
     rotation: torch.Tensor  # f32[3,3]
     translation: torch.Tensor  # f32[3]
     error: torch.Tensor  # f32[]
     prev_error: torch.Tensor  # f32[]
-    iterations: int
+    iterations: Any  # i32[] (or an int before the loop)
     done: torch.Tensor  # bool[]
     # hierarchical-NN carry (spatial arm only; None on the dense arm)
     nn: Optional[HierState] = None
@@ -116,6 +158,62 @@ RunNN = Callable[
 ]
 # (idx, nn state) -> matched target points f32[N, 3]
 GatherMatched = Callable[[torch.Tensor, Optional[HierState]], torch.Tensor]
+
+
+class Arm(NamedTuple):
+    """A correspondence arm of the loop: the tensors it reads and two
+    functions of them alone, ``run_nn(inputs, transformed, state)`` ->
+    (idx, dist, nn state) and ``gather(inputs, idx, nn state)`` -> matched
+    target points.  ``key`` names the functions and their static settings
+    for the CUDA-graph cache; None marks an arm that cannot be captured
+    (it reads more than ``inputs``, as the sharded arm's collectives do),
+    whose loop runs eager chunks of one iteration."""
+
+    inputs: Tuple[torch.Tensor, ...]
+    run_nn: Callable
+    gather: Callable
+    key: Optional[tuple] = None
+
+
+def hier_arm(src_mask: torch.Tensor, target: HierTarget, l_budget: int, g: int,
+             gsrc: int) -> Arm:
+    """The hierarchical arm on Morton-sorted sources; with a leading pair
+    axis on ``src_mask`` and every leaf of ``target``, its batch form."""
+    batched = src_mask.dim() == 2
+    query = nearest_neighbors_hier_batch if batched else nearest_neighbors_hier
+
+    def run_nn(inputs, transformed, s: ICPState):
+        return query(transformed, inputs[0], HierTarget(*inputs[1:]), s.nn,
+                     l_budget=l_budget, g=g, gsrc=gsrc)
+
+    def gather(inputs, idx, nn_state):
+        # the hier state already holds original_points[idx]
+        return nn_state.prev_target
+
+    return Arm((src_mask, *target), run_nn, gather, ("hier", batched, l_budget, g, gsrc))
+
+
+def dense_arm(points: torch.Tensor, count: torch.Tensor) -> Arm:
+    """The dense arm (K1) on the target ``points`` f32[M, 3] and its
+    ``count``; with a leading pair axis, its batch form."""
+    if points.dim() == 3:
+        def run_nn(inputs, transformed, s: ICPState):
+            idx, dist = nearest_neighbors_batch(transformed, inputs[0], inputs[1])
+            return idx, dist, s.nn
+
+        def gather(inputs, idx, nn_state):
+            return torch.take_along_dim(inputs[0], idx.long()[..., None], dim=1)
+
+        return Arm((points, count), run_nn, gather, ("dense", True))
+
+    def run_nn(inputs, transformed, s: ICPState):
+        idx, dist = nearest_neighbors(transformed, inputs[0], inputs[1])
+        return idx, dist, s.nn
+
+    def gather(inputs, idx, nn_state):
+        return inputs[0].index_select(0, idx)
+
+    return Arm((points, count), run_nn, gather, ("dense", False))
 
 
 def resolve_use_spatial(
@@ -170,10 +268,6 @@ def prepare_spatial(before: Cloud, after: Cloud) -> SpatialSetup:
     )
 
 
-def _mean_sq_error(diff: torch.Tensor, w: torch.Tensor, n_corr: torch.Tensor) -> torch.Tensor:
-    return torch.sum(torch.sum(diff * diff, dim=-1) * w) / torch.clamp_min(n_corr, 1.0)
-
-
 def _icp_step(
     s: ICPState,
     src_points: torch.Tensor,
@@ -189,7 +283,8 @@ def _icp_step(
     leading pair axis on every tensor (``algorithms/batch.py``) it steps
     each pair as its solo step would, bit for bit: the NN kernels and the
     elementwise work do not depend on the batch, and the sums over a
-    pair's rows (Procrustes, the error) run pair by pair."""
+    pair's rows (Procrustes, the error) run in an order that does not
+    depend on it (kernel P on CUDA, pair by pair on the CPU)."""
     transformed = transform_points(src_points, s.rotation, s.translation)
     idx, dist, nn_state = run_nn(transformed, s)
     w = torch.logical_and(dist < max_d2, src_mask > 0).to(torch.float32)
@@ -204,8 +299,7 @@ def _icp_step(
 
     new_transformed = transform_points(src_points, r_new, t_new)
     diff = matched - new_transformed
-    err = (per_pair(_mean_sq_error, diff, w, n_corr) if diff.dim() == 3
-           else _mean_sq_error(diff, w, n_corr))
+    err = mean_sq_error(diff, w, n_corr)
 
     converged = err < eps
     diverged = (
@@ -229,11 +323,176 @@ def _icp_step(
     return state, err
 
 
+class _Carry(NamedTuple):
+    """What a chunk carries: the loop state and, with ``patience``, the
+    best-so-far transform, its error and the non-improving streak."""
+
+    s: ICPState
+    best_r: Optional[torch.Tensor] = None
+    best_t: Optional[torch.Tensor] = None
+    best_e: Optional[torch.Tensor] = None
+    streak: Optional[torch.Tensor] = None
+
+
+def _leaves(tree) -> list:
+    """The tensors of a tree of named tuples, in order (None skipped)."""
+    if tree is None:
+        return []
+    if isinstance(tree, torch.Tensor):
+        return [tree]
+    return [t for sub in tree for t in _leaves(sub)]
+
+
+def _rebuild(tree, leaves):
+    """``tree`` with its tensors replaced, in order, from the iterator
+    ``leaves``."""
+    if tree is None:
+        return None
+    if isinstance(tree, torch.Tensor):
+        return next(leaves)
+    return type(tree)(*(_rebuild(sub, leaves) for sub in tree))
+
+
+def _signature(tree):
+    """Shapes, types and structure of a tree: part of a graph's cache key."""
+    if tree is None:
+        return None
+    if isinstance(tree, torch.Tensor):
+        return (tuple(tree.shape), tree.dtype)
+    return (type(tree).__name__, tuple(_signature(sub) for sub in tree))
+
+
+def _keep(cond: torch.Tensor, new, old):
+    """``new`` where ``cond`` holds, else ``old``, leaf by leaf (``cond``
+    broadcast over each leaf's trailing axes); an absent old leaf takes
+    the new one."""
+    if old is None or new is None:
+        return new
+    if isinstance(new, torch.Tensor):
+        c = cond.reshape(cond.shape + (1,) * (new.dim() - cond.dim()))
+        return torch.where(c, new, old)
+    return type(new)(*(_keep(cond, n, o) for n, o in zip(new, old)))
+
+
+def _running(c: _Carry, cap: torch.Tensor, patience: torch.Tensor, has_patience: bool):
+    """The JAX loop's ``cond``: not done, under the cap, within patience."""
+    go = torch.logical_not(c.s.done) & (c.s.iterations < cap)
+    if has_patience:
+        go = go & (c.streak < patience)
+    return go
+
+
+def _chunk(step: Callable, k: int, has_patience: bool, predicated: bool, inputs: tuple,
+           c: _Carry):
+    """``k`` iterations of the loop on the device, each frozen where the
+    loop has stopped, with no host read (``predicated``: none in the
+    hierarchical search either).  Returns the carry, the status i32
+    vector (the launches the device counted, ``_TALLY_ROWS`` of them;
+    stopped; the iteration count or counts; then each query's arm code,
+    plus 3 where its iteration was frozen) and each iteration's error."""
+    cap, patience = inputs[4], inputs[5]
+    tally = kernels.tally(inputs[0].device)
+    ran = None if tally is None else tally[:, 0].clone()
+    codes, errs = [], []
+    for _ in range(k):
+        go = _running(c, cap, patience, has_patience)
+        with recording_arms(predicated) as arms:
+            new, err = step(inputs, c.s)
+        # the reference increments only when the loop continues
+        new = new._replace(iterations=torch.where(new.done, c.s.iterations,
+                                                  c.s.iterations + 1))
+        best = c[1:]
+        if has_patience:
+            improved = new.error < c.best_e
+            better = go & improved
+            best = (_keep(better, new.rotation, c.best_r),
+                    _keep(better, new.translation, c.best_t),
+                    _keep(better, new.error, c.best_e),
+                    torch.where(go, torch.where(improved, 0, c.streak + 1), c.streak))
+        c = _Carry(_keep(go, new, c.s), *best)
+        active = go if go.dim() == 0 else go.any()
+        codes += [torch.where(active, code, code + 3) for code in arms]
+        errs.append(err)
+    stopped = torch.logical_not(_running(c, cap, patience, has_patience).any())
+    launched = (torch.zeros(_TALLY_ROWS, dtype=torch.int32, device=inputs[0].device)
+                if tally is None else tally[:, 0] - ran)
+    status = torch.cat([launched, stopped.to(torch.int32).reshape(1),
+                        c.s.iterations.to(torch.int32).reshape(-1), *codes])
+    return c, status, errs
+
+
+class _ChunkGraph:
+    """One chunk of the loop captured as a CUDA graph over static buffers:
+    ``load`` copies a registration's inputs and carry in, ``replay`` runs
+    the chunk and reads its status (the buffers then hold the new carry).
+    A replay runs no wrapper, so it books the launches the device counted
+    in it (the status's first entries) to the wrappers' counters."""
+
+    def __init__(self, fn: Callable, inputs: tuple, carry: _Carry, batch: int):
+        self.batch = batch
+        self.inputs = [t.clone() for t in inputs]
+        self.carry = [t.clone() for t in _leaves(carry)]
+        self.template = _rebuild(carry, iter(self.carry))
+        kernels.tally(inputs[0].device)  # made before the capture records it
+        self.graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(self.graph):
+            out, self.status, _ = fn(tuple(self.inputs), self.template)
+            for buf, new in zip(self.carry, _leaves(out)):
+                buf.copy_(new)
+
+    def load(self, inputs: tuple, carry: _Carry) -> None:
+        for buf, t in zip(self.inputs, inputs):
+            buf.copy_(t)
+        for buf, t in zip(self.carry, _leaves(carry)):
+            buf.copy_(t)
+
+    def replay(self) -> list:
+        """Run the chunk; its status, read once, with its launches booked."""
+        self.graph.replay()
+        vals = self.status.tolist()
+        kernels.book_replay(vals[:_TALLY_ROWS], self.batch)
+        return vals
+
+    def result(self) -> _Carry:
+        """The carry after the last replay, copied out of the buffers."""
+        return _rebuild(self.template, (t.clone() for t in self.carry))
+
+
+# the graphs of the open ``graph_scope`` by shape key, or None
+_SCOPE: Optional[dict] = None
+
+
+@contextmanager
+def graph_scope(graphs: Optional[dict] = None):
+    """Within the block, the loop keeps the CUDA graph it captures for a
+    shape key in ``graphs`` (default: the open scope's, else a new dict)
+    and replays it for every later registration of that key: the owner of
+    a run of registrations holds one graph per shape it meets, for as long
+    as it holds the dict.  Outside any scope a registration's graph serves
+    that registration alone."""
+    global _SCOPE
+    prev = _SCOPE
+    _SCOPE = graphs if graphs is not None else ({} if prev is None else prev)
+    try:
+        yield _SCOPE
+    finally:
+        _SCOPE = prev
+
+
+def _read_status(vals: list, nb: int) -> Tuple[bool, list]:
+    """Stopped and the iteration counts from a chunk's status, and the
+    arm of each query of an iteration that ran appended to ``ARM_TRACE``."""
+    at = _TALLY_ROWS
+    for code in vals[at + 1 + nb:]:
+        if code < 3:
+            ARM_TRACE.append(ARMS[code])
+    return bool(vals[at]), vals[at + 1:at + 1 + nb]
+
+
 def _icp_loop(
     src_points: torch.Tensor,
     src_mask: torch.Tensor,
-    run_nn: RunNN,
-    gather_matched: GatherMatched,
+    arm: Arm,
     eps: torch.Tensor,
     max_d2: torch.Tensor,
     max_iterations: int,
@@ -243,53 +502,103 @@ def _icp_loop(
     init: ICPState,
     patience: int,
 ) -> RegistrationResult:
-    """The whole registration loop after input preparation;
-    ``run_nn`` and ``gather_matched`` are the correspondence arm.
+    """The whole registration loop after input preparation; ``arm`` is
+    the correspondence arm.  With a leading pair axis on every tensor
+    (``algorithms/batch.py``) each pair runs its own loop and ``iterations``
+    comes back as an i32[B] tensor.
 
-    Reads ``done`` (and the improvement flag when ``patience > 0``) back to
-    the host once per iteration; everything else stays on the device."""
-    s = init
+    On CUDA a chunk of ``LOOP_CHUNK`` iterations is captured as a CUDA
+    graph (after one eager chunk, its warm-up) and replayed, from the open
+    ``graph_scope`` where it holds the shape; a failed capture raises.
+    Eager chunks of one iteration with ``verbose``, without
+    ``CUDA_GRAPHS`` or for an arm that cannot be captured; eager chunks of
+    ``LOOP_CHUNK`` iterations on the CPU."""
     device = src_points.device
-    best_r, best_t = init.rotation, init.translation
-    best_e = torch.tensor(FLT_MAX, dtype=torch.float32, device=device)
-    streak = 0
-    while max_iterations == -1 or s.iterations < max_iterations:
-        if patience > 0 and streak >= patience:
-            break
-        s, err = _icp_step(
-            s, src_points, src_mask, run_nn, gather_matched,
-            eps, max_d2, divergence_guard,
-        )
-        if patience > 0:
-            improved = s.error < best_e
-            done, improved = torch.stack([s.done, improved]).tolist()
-            if improved:
-                best_r, best_t, best_e = s.rotation, s.translation, s.error
-                streak = 0
-            else:
-                streak += 1
-        else:
-            done = bool(s.done)
-        if verbose:
-            # the reference's per-iteration printf (basicicp.cpp:50)
-            print(f"loop_nr {s.iterations + 1 + iter_offset}, error: {float(err)}")
-        if done:
-            break
-        s = s._replace(iterations=s.iterations + 1)
+    batch = tuple(init.done.shape)
+    nb = 1 if not batch else batch[0]
+    use_graph = (device.type == "cuda" and CUDA_GRAPHS and not verbose
+                 and arm.key is not None)
+    # one iteration a chunk: the printf's; the uncapturable arm's (each
+    # iteration past the stop would run its collectives); an eager chunk
+    # on CUDA's, which reads the host at each hierarchical query anyway
+    single = verbose or arm.key is None or (device.type == "cuda" and not use_graph)
+    k = 1 if single else int(LOOP_CHUNK)
+    if k < 1:
+        raise ValueError(f"a chunk must be >= 1 iteration (LOOP_CHUNK), got {k}")
+    has_patience = patience > 0
 
-    one = torch.ones((), dtype=torch.float32, device=device)
-    if patience > 0:
+    def full(value, dtype, shape=()):
+        # filled on the device: no blocking host-to-device copy
+        return torch.full(shape, value, dtype=dtype, device=device)
+
+    iterations = init.iterations
+    if not isinstance(iterations, torch.Tensor):
+        iterations = full(int(iterations), torch.int32, batch)
+    c = _Carry(init._replace(iterations=iterations.to(torch.int32)))
+    if has_patience:
+        c = c._replace(best_r=init.rotation, best_t=init.translation,
+                       best_e=full_f32(FLT_MAX, device), streak=full(0, torch.int32))
+    cap = full(INT32_MAX if max_iterations == -1 else int(max_iterations), torch.int32)
+    inputs = (src_points, src_mask, eps, max_d2, cap, full(int(patience), torch.int32),
+              *arm.inputs)
+    arm_inputs = len(inputs) - len(arm.inputs)
+
+    def step(inp, s: ICPState):
+        own = inp[arm_inputs:]
+        return _icp_step(
+            s, inp[0], inp[1],
+            lambda transformed, st: arm.run_nn(own, transformed, st),
+            lambda idx, nn_state: arm.gather(own, idx, nn_state),
+            inp[2], inp[3], divergence_guard,
+        )
+
+    def fn(inp, carry):
+        return _chunk(step, k, has_patience, use_graph, inp, carry)
+
+    counts = [0]
+    runner = None
+    if max_iterations != 0:
+        graphs = key = None
+        if use_graph:
+            graphs = {} if _SCOPE is None else _SCOPE
+            key = (arm.key, divergence_guard, has_patience, k, str(device),
+                   tuple(_signature(t) for t in inputs), _signature(c))
+            runner = graphs.get(key)
+        if runner is not None:
+            runner.load(inputs, c)
+        stopped = False
+        it_before = 0
+        while not stopped:
+            if runner is None:
+                c, status, errs = fn(inputs, c)
+                vals = status.tolist()
+            else:
+                vals, errs = runner.replay(), None
+            stopped, counts = _read_status(vals, nb)
+            if verbose:
+                # the reference's per-iteration printf (basicicp.cpp:50)
+                print(f"loop_nr {it_before + 1 + iter_offset}, error: {float(errs[0])}")
+                it_before = counts[0]
+            if use_graph and runner is None and not stopped:
+                # the eager chunk was the warm-up: capture the next one
+                runner = graphs[key] = _ChunkGraph(fn, inputs, c, nb)
+        if runner is not None:
+            c = runner.result()
+    s = c.s
+    iters = s.iterations if batch else counts[0]
+    one = torch.ones(batch, dtype=torch.float32, device=device)
+    if has_patience:
         # zero evaluated iterations: report the carried-in error
-        never_evaluated = best_e >= FLT_MAX
+        never_evaluated = c.best_e >= FLT_MAX
         return RegistrationResult(
-            transform=RigidTransform(best_r, best_t, one),
-            iterations=s.iterations,
-            error=torch.where(never_evaluated, init.error, best_e),
+            transform=RigidTransform(c.best_r, c.best_t, one),
+            iterations=iters,
+            error=torch.where(never_evaluated, init.error, c.best_e),
             nn=s.nn,
         )
     return RegistrationResult(
         transform=RigidTransform(s.rotation, s.translation, one),
-        iterations=s.iterations,
+        iterations=iters,
         error=s.error,
         nn=s.nn,
     )
@@ -319,7 +628,10 @@ def icp_register(
     of 2**24 rows or more.  ``patience > 0`` replaces the
     stop-on-first-error-increase semantics (pair it with
     ``divergence_guard=False``) by a best-so-far loop that stops after
-    ``patience`` consecutive non-improving iterations."""
+    ``patience`` consecutive non-improving iterations.  The loop runs
+    ``LOOP_CHUNK`` iterations between host reads, which changes no bit of
+    the result (module docstring; ``graph_scope`` keeps its CUDA graph
+    for later registrations of the same shapes)."""
     if before.points.device != after.points.device:
         raise ValueError(
             f"before lies on {before.points.device}, after on "
@@ -328,36 +640,21 @@ def icp_register(
     device = before.points.device
 
     def f32(x):
+        if isinstance(x, (int, float)):
+            return full_f32(x, device)
         return torch.as_tensor(x, dtype=torch.float32, device=device)
 
     if resolve_use_spatial(use_spatial, after.points.shape[0], device):
         setup = prepare_spatial(before, after)
         src_points, src_mask = setup.src_points, setup.src_mask
-
-        def run_nn(transformed, s: ICPState):
-            return nearest_neighbors_hier(
-                transformed, src_mask, setup.target, s.nn,
-                l_budget=setup.l_budget, g=setup.g, gsrc=setup.gsrc,
-            )
-
-        def gather_matched(idx, nn_state):
-            # the hier state already holds original_points[idx]
-            return nn_state.prev_target
-
+        arm = hier_arm(src_mask, setup.target, setup.l_budget, setup.g, setup.gsrc)
         if resume is not None and resume.nn is not None:
             nn_init = HierState(*(t.to(device) for t in resume.nn))
         else:
             nn_init = hier_state_init(src_points.shape[0], device)
     else:
         src_points, src_mask = before.points, before.mask()
-
-        def run_nn(transformed, s: ICPState):
-            idx, dist = nearest_neighbors(transformed, after.points, after.count)
-            return idx, dist, s.nn
-
-        def gather_matched(idx, nn_state):
-            return after.points.index_select(0, idx)
-
+        arm = dense_arm(after.points, after.count)
         nn_init = None
 
     if resume is None:
@@ -388,7 +685,7 @@ def icp_register(
         )
         iter_offset = int(resume.done_before)
     return _icp_loop(
-        src_points, src_mask, run_nn, gather_matched,
+        src_points, src_mask, arm,
         f32(eps), f32(max_distance_squared), int(max_iterations),
         divergence_guard=divergence_guard, verbose=verbose,
         iter_offset=iter_offset, init=init, patience=patience,
@@ -484,29 +781,31 @@ def icp_register_chunked(
                 iterations=total,
                 error=torch.as_tensor(resume.error, dtype=torch.float32, device=device),
             )
-    while True:
-        k = chunk if max_iterations == -1 else min(chunk, max_iterations - total)
-        result = icp_register(
-            before, after, eps=eps, max_distance_squared=max_distance_squared,
-            max_iterations=k, resume=resume, **kwargs,
-        )
-        did = int(result.iterations)
-        total += did
-        resume = ICPResume(
-            rotation=result.transform.rotation,
-            translation=result.transform.translation,
-            error=result.error,
-            done_before=total,
-            nn=result.nn,
-        )
-        if checkpoint_path is not None:
-            from tpuslam_torch.harness.checkpoint import save_icp_checkpoint
+    # the chunks share their shapes: one CUDA graph of the loop serves them
+    with graph_scope():
+        while True:
+            k = chunk if max_iterations == -1 else min(chunk, max_iterations - total)
+            result = icp_register(
+                before, after, eps=eps, max_distance_squared=max_distance_squared,
+                max_iterations=k, resume=resume, **kwargs,
+            )
+            did = int(result.iterations)
+            total += did
+            resume = ICPResume(
+                rotation=result.transform.rotation,
+                translation=result.transform.translation,
+                error=result.error,
+                done_before=total,
+                nn=result.nn,
+            )
+            if checkpoint_path is not None:
+                from tpuslam_torch.harness.checkpoint import save_icp_checkpoint
 
-            save_icp_checkpoint(checkpoint_path, resume, ckpt_meta)
-        # the loop does not count the iteration it stops at, so fewer than
-        # k iterations means it stopped (converged, diverged, no match)
-        if did < k or (max_iterations != -1 and total >= max_iterations):
-            break
+                save_icp_checkpoint(checkpoint_path, resume, ckpt_meta)
+            # the loop does not count the iteration it stops at, so fewer than
+            # k iterations means it stopped (converged, diverged, no match)
+            if did < k or (max_iterations != -1 and total >= max_iterations):
+                break
     return RegistrationResult(
         transform=result.transform,
         iterations=total,
@@ -569,8 +868,8 @@ def icp_register_prealigned(
         resume = ICPResume(
             rotation=pre.transform.rotation,
             translation=pre.transform.translation,
-            error=torch.tensor(1e5, dtype=torch.float32, device=device),
-            prev_error=torch.tensor(FLT_MAX, dtype=torch.float32, device=device),
+            error=full_f32(1e5, device),
+            prev_error=full_f32(FLT_MAX, device),
         )
     common = dict(eps=eps, max_distance_squared=max_distance_squared,
                   max_iterations=max_iterations, resume=resume, **kwargs)

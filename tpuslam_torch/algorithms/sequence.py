@@ -18,7 +18,10 @@ Three lowerings of ``register_sequence``, each held to its JAX twin:
   arm prepared once as a target (``prepare_hier_target(presorted=True)``);
   the same sorted rows serve as source of pair k and target of pair k-1.
   Each pair runs ``icp._icp_loop`` from the previous pair's relative
-  transform (a constant-velocity prior) kept on the device.  With
+  transform (a constant-velocity prior) kept on the device; the pairs
+  share one shape, so on CUDA they replay one captured graph of the
+  loop's chunk (``icp.graph_scope``, held by the call or the stream),
+  each pair's scans copied into its buffers.  With
   ``seed_with_previous`` every pair, pair 0 included, runs the
   best-so-far loop with ``patience = SEED_PATIENCE`` and the divergence
   guard off; without it every pair starts from the identity with
@@ -64,18 +67,19 @@ from tpuslam_torch.algorithms.icp import (
     ICPState,
     RegistrationResult,
     _icp_loop,
+    dense_arm,
+    graph_scope,
+    hier_arm,
     icp_register,
     resolve_use_spatial,
 )
 from tpuslam_torch.core.device import resolve_device
 from tpuslam_torch.core.types import Cloud, RigidTransform, pad_cloud, round_up
-from tpuslam_torch.ops.nn import nearest_neighbors
 from tpuslam_torch.ops.nn_hier import (
     HierTarget,
     _coarse_tile_rows,
     auto_tile_params,
     hier_state_init,
-    nearest_neighbors_hier,
     prepare_hier_target,
 )
 from tpuslam_torch.ops.spatial import host_morton_order
@@ -199,24 +203,11 @@ def _register_pair(src: _Scan, tgt: _Scan, seed_r: torch.Tensor, seed_t: torch.T
 
     if st.use_spatial:
         g, gsrc, l_budget = st.tiles
-
-        def run_nn(transformed, s: ICPState):
-            return nearest_neighbors_hier(transformed, src.mask, tgt.target, s.nn,
-                                          l_budget=l_budget, g=g, gsrc=gsrc)
-
-        def gather_matched(idx, nn_state):
-            # the hier state already holds the matched (sorted) target rows
-            return nn_state.prev_target
-
+        # the hier state holds the matched (sorted) target rows
+        arm = hier_arm(src.mask, tgt.target, l_budget, g, gsrc)
         nn_init = hier_state_init(src.points.shape[0], device)
     else:
-        def run_nn(transformed, s: ICPState):
-            idx, dist = nearest_neighbors(transformed, tgt.points, tgt.count)
-            return idx, dist, s.nn
-
-        def gather_matched(idx, nn_state):
-            return tgt.points.index_select(0, idx)
-
+        arm = dense_arm(tgt.points, tgt.count)
         nn_init = None
     init = ICPState(
         rotation=seed_r,
@@ -227,7 +218,7 @@ def _register_pair(src: _Scan, tgt: _Scan, seed_r: torch.Tensor, seed_t: torch.T
         done=torch.zeros((), dtype=torch.bool, device=device),
         nn=nn_init,
     )
-    return _icp_loop(src.points, src.mask, run_nn, gather_matched, f32(eps),
+    return _icp_loop(src.points, src.mask, arm, f32(eps),
                      f32(max_distance_squared), int(max_iterations),
                      divergence_guard=patience == 0, verbose=False, iter_offset=0,
                      init=init, patience=patience)
@@ -302,14 +293,17 @@ class SequenceStream:
         self._rel_t = torch.zeros(3, dtype=torch.float32, device=self._st.device)
         self.absolute: List[RigidTransform] = [_identity()]
         self._prev = _to_device(_pad_sorted(a, self._st), len(a), self._st, prepare=False)
+        # the CUDA graph of the loop that every push replays (icp.graph_scope)
+        self._graphs: dict = {}
 
     def push(self, scan) -> RigidTransform:
         """Register the previous scan onto ``scan``; returns the relative
         transform (host arrays) and appends the composed absolute pose."""
         a = _host_points(scan)
         new = _to_device(_pad_sorted(a, self._st), len(a), self._st, prepare=True)
-        res = _register_pair(self._prev, new, self._rel_r, self._rel_t, self._eps,
-                             self._max_d2, self._max_it, self._patience, self._st)
+        with graph_scope(self._graphs):
+            res = _register_pair(self._prev, new, self._rel_r, self._rel_t, self._eps,
+                                 self._max_d2, self._max_it, self._patience, self._st)
         # the seed stays on the device; only the pose's inputs go to the host
         self._rel_r, self._rel_t = res.transform.rotation, res.transform.translation
         self._prev = new
@@ -351,45 +345,47 @@ def register_sequence(
     arrs = [_host_points(c) for c in clouds]
     npad = max(round_up(max(len(a), 1), 128) for a in arrs)
 
-    if batch:
-        from tpuslam_torch.algorithms.batch import icp_register_batch, stack_clouds
+    # the pairs share one shape: one CUDA graph of the loop serves them all
+    with graph_scope():
+        if batch:
+            from tpuslam_torch.algorithms.batch import icp_register_batch, stack_clouds
 
-        out = icp_register_batch(
-            stack_clouds(arrs[:-1], multiple=npad, device=device),
-            stack_clouds(arrs[1:], multiple=npad, device=device),
-            eps=eps, max_distance_squared=max_distance_squared,
-            max_iterations=max_iterations, use_spatial=use_spatial,
-        )
-        rots, trs = out.transform.rotation, out.transform.translation
-        iters, errs = out.iterations, out.error
-    elif scan or scan is None:
-        rots, trs, iters, errs = _register_sequence_scanned(
-            arrs, _staging(npad, use_spatial, device), eps, max_distance_squared,
-            max_iterations, seed_with_previous, patience)
-    else:
-        padded = [pad_cloud(a, multiple=npad, device=device) for a in arrs]
-        if patience is None:
-            patience = SEED_PATIENCE
-        rots, trs, iters, errs = [], [], [], []
-        for k in range(len(arrs) - 1):
-            resume = None
-            if seed_with_previous and k > 0:
-                # the constant-velocity prior, handed over on the device
-                resume = ICPResume(
-                    rotation=rots[-1],
-                    translation=trs[-1],
-                    error=torch.tensor(1e5, dtype=torch.float32, device=device),
-                    prev_error=torch.tensor(FLT_MAX, dtype=torch.float32, device=device),
-                )
-            res = icp_register(
-                padded[k], padded[k + 1], eps=eps, max_distance_squared=max_distance_squared,
-                max_iterations=max_iterations, use_spatial=use_spatial, resume=resume,
-                divergence_guard=resume is None, patience=0 if resume is None else patience,
+            out = icp_register_batch(
+                stack_clouds(arrs[:-1], multiple=npad, device=device),
+                stack_clouds(arrs[1:], multiple=npad, device=device),
+                eps=eps, max_distance_squared=max_distance_squared,
+                max_iterations=max_iterations, use_spatial=use_spatial,
             )
-            rots.append(res.transform.rotation)
-            trs.append(res.transform.translation)
-            iters.append(res.iterations)
-            errs.append(res.error)
+            rots, trs = out.transform.rotation, out.transform.translation
+            iters, errs = out.iterations, out.error
+        elif scan or scan is None:
+            rots, trs, iters, errs = _register_sequence_scanned(
+                arrs, _staging(npad, use_spatial, device), eps, max_distance_squared,
+                max_iterations, seed_with_previous, patience)
+        else:
+            padded = [pad_cloud(a, multiple=npad, device=device) for a in arrs]
+            if patience is None:
+                patience = SEED_PATIENCE
+            rots, trs, iters, errs = [], [], [], []
+            for k in range(len(arrs) - 1):
+                resume = None
+                if seed_with_previous and k > 0:
+                    # the constant-velocity prior, handed over on the device
+                    resume = ICPResume(
+                        rotation=rots[-1],
+                        translation=trs[-1],
+                        error=torch.tensor(1e5, dtype=torch.float32, device=device),
+                        prev_error=torch.tensor(FLT_MAX, dtype=torch.float32, device=device),
+                    )
+                res = icp_register(
+                    padded[k], padded[k + 1], eps=eps, max_distance_squared=max_distance_squared,
+                    max_iterations=max_iterations, use_spatial=use_spatial, resume=resume,
+                    divergence_guard=resume is None, patience=0 if resume is None else patience,
+                )
+                rots.append(res.transform.rotation)
+                trs.append(res.transform.translation)
+                iters.append(res.iterations)
+                errs.append(res.error)
 
     # one read back of every pair's transform and error
     n_pairs = len(arrs) - 1

@@ -68,6 +68,8 @@
 
 #include <cstddef>
 
+#include "tally.cuh"
+
 namespace cg = cooperative_groups;
 
 namespace {
@@ -119,7 +121,8 @@ __global__ void __launch_bounds__(kThreads, 5)
                  const float* __restrict__ eps,
                  const unsigned char* __restrict__ warm, int n, int c,
                  int gsrc, int chunks, int splits, int span, int stage,
-                 unsigned char* __restrict__ adm) {
+                 int* __restrict__ tally, unsigned char* __restrict__ adm) {
+  tally_launch(tally, false);
   extern __shared__ __align__(16) unsigned char smem[];
   float* cs = reinterpret_cast<float*>(smem);  // [stage][12], tile-major
   float* rs = cs + stage * kK;                 // [stage]
@@ -271,15 +274,16 @@ __global__ void __launch_bounds__(kThreads, 5)
 // adm bool[batch, n / gsrc, c] written here, every byte.  The geometry
 // (chunks = ceil(gsrc / 512), splits a power of two, chunks x splits <= 8,
 // span = ceil(c / splits), stage and smem_bytes) comes from
-// kernels/bound.py::bound_geometry and is checked here.  Returns a
-// cudaError_t as int: 0 when the launch was taken.
+// kernels/bound.py::bound_geometry and is checked here.  tally (device
+// i32[2], or null) counts the launch (tally.cuh).  Returns a cudaError_t
+// as int: 0 when the launch was taken.
 extern "C" int tpuslam_bound_pass(const void* saug, const float* aux,
                                   const void* caug, const float* radii,
                                   const float* eps, const unsigned char* warm,
                                   int batch, int n, int c, int gsrc,
                                   int chunks, int splits, int span, int stage,
-                                  int smem_bytes, unsigned char* adm,
-                                  void* stream) {
+                                  int smem_bytes, int* tally,
+                                  unsigned char* adm, void* stream) {
   if (batch <= 0 || n <= 0 || c <= 0) return 0;  // nothing to launch
   const long long want = 4LL * stage * (kK + 1) + 4LL * kChunk + 4LL * span;
   if (batch > 65535 || gsrc <= 0 || n % gsrc != 0 ||
@@ -312,7 +316,7 @@ extern "C" int tpuslam_bound_pass(const void* saug, const float* aux,
       &cfg, bound_kernel, static_cast<const __nv_bfloat16*>(saug),
       reinterpret_cast<const float4*>(aux),
       static_cast<const __nv_bfloat16*>(caug), radii, eps, warm, n, c, gsrc,
-      chunks, splits, span, stage, adm);
+      chunks, splits, span, stage, tally, adm);
   if (e != cudaSuccess) return static_cast<int>(e);
   return static_cast<int>(cudaGetLastError());
 }

@@ -59,6 +59,7 @@
 #include <cstddef>
 
 #include "nn_fold.cuh"
+#include "tally.cuh"
 
 namespace cg = cooperative_groups;
 
@@ -105,8 +106,14 @@ __global__ void __launch_bounds__(kThreads)
                    const int* __restrict__ cand,
                    const int* __restrict__ counts, int n, int m, int ts,
                    int width, int g, int gsrc, int chunks, int splits,
-                   int stage_rows, int depth, int* __restrict__ idx_out,
-                   float* __restrict__ dist_out) {
+                   int stage_rows, int depth, const int* __restrict__ arm,
+                   int arm_value, int* __restrict__ tally,
+                   int* __restrict__ idx_out, float* __restrict__ dist_out) {
+  // a predicated launch that is not the selected arm: every block of the
+  // grid reads the same code and returns, whole clusters together
+  const bool skipped = arm != nullptr && *arm != arm_value;
+  tally_launch(tally, skipped);
+  if (skipped) return;
   extern __shared__ __align__(16) unsigned char smem[];
   float4* ring = reinterpret_cast<float4*>(smem);
   float* part_d = reinterpret_cast<float*>(ring + depth * stage_rows);
@@ -227,12 +234,17 @@ __global__ void __launch_bounds__(kThreads)
 // dist f32[batch, n] written here.  The geometry (chunks = ceil(gsrc /
 // 512), splits a power of two up to 8, stage_rows a multiple of 4, depth
 // 2..4 and smem_bytes) comes from kernels/nn_cand.py::cand_geometry and is
-// checked here.  Returns a cudaError_t as int: 0 when the launch was taken.
+// checked here.  arm (device i32[1], or null: always run) predicates the
+// launch: unless *arm == arm_value its blocks return at once and write
+// nothing (the hierarchical search launches every arm and lets the device's
+// arm code pick one).  tally (device i32[2], or null) counts the launch
+// (tally.cuh).  Returns a cudaError_t as int: 0 when the launch was taken.
 extern "C" int tpuslam_nn_cand(const float* src, const float* packed,
                                const int* cand, const int* counts, int batch,
                                int n, int m, int ts, int width, int g,
                                int gsrc, int chunks, int splits,
                                int stage_rows, int depth, int smem_bytes,
+                               const int* arm, int arm_value, int* tally,
                                int* idx, float* dist, void* stream) {
   if (batch <= 0 || n <= 0) return 0;  // nothing to launch
   const long long want =
@@ -268,7 +280,7 @@ extern "C" int tpuslam_nn_cand(const float* src, const float* packed,
   const cudaError_t e = cudaLaunchKernelEx(
       &cfg, nn_cand_kernel, src, reinterpret_cast<const float4*>(packed),
       cand, counts, n, m, ts, width, g, gsrc, chunks, splits, stage_rows,
-      depth, idx, dist);
+      depth, arm, arm_value, tally, idx, dist);
   if (e != cudaSuccess) return static_cast<int>(e);
   return static_cast<int>(cudaGetLastError());
 }

@@ -62,6 +62,7 @@
 #include <cstddef>
 
 #include "nn_fold.cuh"
+#include "tally.cuh"
 
 namespace cg = cooperative_groups;
 
@@ -114,8 +115,14 @@ __global__ void __launch_bounds__(kThreads)
     nn_dense_kernel(const float* __restrict__ src,
                     const float* __restrict__ tgt,
                     const int* __restrict__ count, int n, int m, int splits,
-                    int stage_rows, int depth, int* __restrict__ idx_out,
-                    float* __restrict__ dist_out) {
+                    int stage_rows, int depth, const int* __restrict__ arm,
+                    int arm_value, int* __restrict__ tally,
+                    int* __restrict__ idx_out, float* __restrict__ dist_out) {
+  // a predicated launch that is not the selected arm: every block of the
+  // grid reads the same code and returns, whole clusters together
+  const bool skipped = arm != nullptr && *arm != arm_value;
+  tally_launch(tally, skipped);
+  if (skipped) return;
   constexpr int kChunk = kThreads * R;  // sources per block
   extern __shared__ __align__(16) unsigned char smem[];
   float* ring = reinterpret_cast<float*>(smem);
@@ -245,12 +252,16 @@ __global__ void __launch_bounds__(kThreads)
 // idx i32[batch, n] and dist f32[batch, n] (device, written here), all
 // contiguous.  The geometry (threads 128, rows_per_thread 2 or 4, splits
 // 1..8, stage_rows a multiple of 32, depth 2..3 and smem_bytes) comes from
-// kernels/nn_dense.py::dense_geometry and is checked here.  Returns a
-// cudaError_t as int: 0 when the launch was taken.
+// kernels/nn_dense.py::dense_geometry and is checked here.  arm (device
+// i32[1], or null: always run) predicates the launch: unless *arm ==
+// arm_value its blocks return at once and write nothing.  tally (device
+// i32[2], or null) counts the launch (tally.cuh).  Returns a cudaError_t
+// as int: 0 when the launch was taken.
 extern "C" int tpuslam_nn_dense(const float* src, const float* tgt,
                                 const int* count, int batch, int n, int m,
                                 int threads, int rows_per_thread, int splits,
                                 int stage_rows, int depth, int smem_bytes,
+                                const int* arm, int arm_value, int* tally,
                                 int* idx, float* dist, void* stream) {
   if (batch <= 0 || n <= 0) return 0;  // nothing to launch
   const long long chunk = static_cast<long long>(kThreads) * rows_per_thread;
@@ -282,7 +293,8 @@ extern "C" int tpuslam_nn_dense(const float* src, const float* tgt,
     if (e != cudaSuccess) return static_cast<int>(e);
   }
   const cudaError_t e = cudaLaunchKernelEx(&cfg, kernel, src, tgt, count, n, m,
-                                           splits, stage_rows, depth, idx, dist);
+                                           splits, stage_rows, depth, arm,
+                                           arm_value, tally, idx, dist);
   if (e != cudaSuccess) return static_cast<int>(e);
   return static_cast<int>(cudaGetLastError());
 }

@@ -1,0 +1,17 @@
+// The launch tally of the kernels that the ICP loop runs (K1, K2, K3, P):
+// a device i32[2] per kernel (kernels/__init__.py::tally), (launches run,
+// launches that returned at once as an unselected arm).  A replayed CUDA
+// graph runs no wrapper, so the loop books its launches from these counts.
+// A null tally records nothing.
+#pragma once
+
+#include <cuda_runtime.h>
+
+// one count a launch, from block (0, 0, 0)'s thread 0
+__device__ __forceinline__ void tally_launch(int* tally, bool skipped) {
+  if (tally != nullptr && blockIdx.x == 0 && blockIdx.y == 0 &&
+      blockIdx.z == 0 && threadIdx.x == 0) {
+    atomicAdd(tally, 1);
+    if (skipped) atomicAdd(tally + 1, 1);
+  }
+}

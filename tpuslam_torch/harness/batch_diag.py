@@ -1,13 +1,15 @@
 """Batched against solo ICP on the card (port of ``tools/batch_diag.py``):
 the measurement behind ``algorithms/batch.py``'s lowering rule
-(``_UNROLL_MAX_B``, ``_UNROLL_MIN_PAIRWORK``).
+(``_UNROLL_MAX_B``, ``_UNROLL_MIN_PAIRWORK``; on CUDA never unrolled).
 
     python -m tpuslam_torch.harness.batch_diag [N ...] [--device cpu]
         [--reps 3] [--pairs 16] [--iters 20] [--out FILE]
 
 For each N (default 16,384 and 2,048), 16 uniform source and target
 boxes of side 10 (``default_rng(0)``, as the JAX tool), each row the
-median of ``--reps`` timed calls after an untimed one:
+median of ``--reps`` timed calls after an untimed one (inside one
+``icp.graph_scope``, so the untimed call captures the loop's CUDA graph
+and the timed ones replay it, as the JAX tool's first call compiles):
 
 * ``nn_batched``: K1's batch form, one launch with B = 16, against
   ``nn_solo``: 16 launches with B = 1 (CUDA events around each call);
@@ -41,7 +43,7 @@ def run(bench: benchkit.Bench, sizes, pairs: int, iters: int, reps: int) -> dict
     import torch
 
     from tpuslam_torch.algorithms.batch import icp_register_batch
-    from tpuslam_torch.algorithms.icp import icp_register
+    from tpuslam_torch.algorithms.icp import graph_scope, icp_register
     from tpuslam_torch.core.types import Cloud
     from tpuslam_torch.kernels.nn_dense import nearest_neighbors_dense_batch
 
@@ -73,7 +75,8 @@ def run(bench: benchkit.Bench, sizes, pairs: int, iters: int, reps: int) -> dict
         }
         ms = {}
         for name, (fn, expects, events) in cases.items():
-            timed, _ = (bench.time_events if events else bench.time_calls)(fn, reps)
+            with graph_scope():
+                timed, _ = (bench.time_events if events else bench.time_calls)(fn, reps)
             extra = {} if events else {"ms_per_pair_iteration": timed["median_ms"]
                                        / (pairs * iters)}
             bench.row(f"{name}_{pairs}x{n}", timed, expects, pairs=pairs, n_points=n,

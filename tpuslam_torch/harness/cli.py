@@ -205,15 +205,25 @@ def run_serve(inp=None, out=None, device: str = "cuda") -> int:
       | {"ok": false, "error": "..."}
 
     Responses are the ONLY stdout output; all diagnostics (config echo,
-    parse errors) go to stderr.  EOF ends the loop."""
-    import contextlib
-    import json as _json
+    parse errors) go to stderr.  EOF ends the loop.  The service keeps
+    one CUDA graph of the ICP loop per shape it meets, for its life
+    (``icp.graph_scope``)."""
+    from tpuslam_torch.algorithms.icp import graph_scope
 
     dev = cli_device(device)
     if dev is None:
         return 1
     inp = sys.stdin if inp is None else inp
     out = sys.stdout if out is None else out
+    with graph_scope():
+        return _serve_lines(inp, out, dev)
+
+
+def _serve_lines(inp, out, dev) -> int:
+    """``run_serve``'s loop: a response for each request line."""
+    import contextlib
+    import json as _json
+
     served = 0
     for line in inp:
         line = line.strip()

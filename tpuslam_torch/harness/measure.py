@@ -78,8 +78,10 @@ def measure_icp_100k(
     ``vs_baseline`` (against the reference CUDA implementation's 10
     iterations/s) of the median call, unrounded, every call's ms, the
     kernels' launches in the timed calls, the device, fixture, size and
-    NN arm."""
-    from tpuslam_torch.algorithms.icp import icp_register, resolve_use_spatial
+    NN arm.  The calls share one ``icp.graph_scope``: the untimed first
+    call captures the loop's CUDA graph, the timed ones replay it (as the
+    JAX package's first call compiles its program)."""
+    from tpuslam_torch.algorithms.icp import graph_scope, icp_register, resolve_use_spatial
     from tpuslam_torch.data.loader import synthetic_fixture
     from tpuslam_torch.kernels import launch_counts, launch_delta
 
@@ -102,16 +104,18 @@ def measure_icp_100k(
             use_spatial=use_spatial,
         )
 
-    run()  # warm-up: kernel build and load, allocator, cuSOLVER handles
-    sync()
-    before = launch_counts()
-    call_ms = []
-    for _ in range(reps):
-        t0 = time.perf_counter()
-        result = run()
+    with graph_scope():
+        # warm-up: kernel build and load, allocator, the loop's CUDA graph
+        run()
         sync()
-        call_ms.append((time.perf_counter() - t0) * 1e3)
-    launches = launch_delta(before)
+        before = launch_counts()
+        call_ms = []
+        for _ in range(reps):
+            t0 = time.perf_counter()
+            result = run()
+            sync()
+            call_ms.append((time.perf_counter() - t0) * 1e3)
+        launches = launch_delta(before)
     dt = statistics.median(call_ms) / 1e3
     iters_per_sec = result.iterations / dt
     return {

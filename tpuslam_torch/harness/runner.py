@@ -21,6 +21,7 @@ from typing import Callable, List, Optional, Sequence
 import numpy as np
 import torch
 
+from tpuslam_torch.algorithms.icp import graph_scope
 from tpuslam_torch.algorithms.registry import SlamResult, run_with_configuration
 from tpuslam_torch.config.configuration import ComputationMethod, Configuration
 from tpuslam_torch.core.device import resolve_device
@@ -164,18 +165,21 @@ def run_test_set(
     card; it raises where there is none).  Returns the written file paths.
 
     ``resume=True`` continues an interrupted run: rows already present in
-    the output CSV are kept and their configurations skipped."""
+    the output CSV are kept and their configurations skipped.  The run
+    keeps one CUDA graph of the ICP loop per shape it meets
+    (``icp.graph_scope``)."""
     written = []
     os.makedirs(output_dir, exist_ok=True)
-    for method in methods:
-        out = os.path.join(output_dir, f"{name}-{method.value}.csv")
-        runner = TestRunner(compute_function, out, warmup=warmup,
-                            resume=resume, device=device)
-        try:
-            for config in list(acquire(method))[runner.start_index:]:
-                runner.add_test(config)
-            runner.run_all()
-        finally:
-            runner.close()
-        written.append(out)
+    with graph_scope():
+        for method in methods:
+            out = os.path.join(output_dir, f"{name}-{method.value}.csv")
+            runner = TestRunner(compute_function, out, warmup=warmup,
+                                resume=resume, device=device)
+            try:
+                for config in list(acquire(method))[runner.start_index:]:
+                    runner.add_test(config)
+                runner.run_all()
+            finally:
+                runner.close()
+            written.append(out)
     return written

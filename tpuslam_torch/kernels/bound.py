@@ -42,7 +42,8 @@ K = 12  # depth of the centre-distance product
 REF_ELEMS = 1 << 24
 
 # kernel launches made by the wrappers below (CPU calls do not count),
-# in all and by batch size B
+# in all and by batch size B; a launch captured into a CUDA graph counts
+# at each replay, booked by the ICP loop (kernels.book_replay)
 LAUNCHES = 0
 BATCH_LAUNCHES: Counter = Counter()
 
@@ -206,6 +207,7 @@ def bound_pass_batch(
     b, n, _ = saug.shape
     c = caug.shape[2]
 
+    from tpuslam_torch.kernels import counting, tally_ptr
     from tpuslam_torch.kernels.build import launch
 
     geo = bound_geometry(b, n, c, gsrc)
@@ -214,10 +216,12 @@ def bound_pass_batch(
     launch(
         "tpuslam_bound_pass", saug.device,
         saug.data_ptr(), aux.data_ptr(), caug.data_ptr(), radii.data_ptr(),
-        eps.data_ptr(), warm.data_ptr(), b, n, c, gsrc, *geo, adm.data_ptr(),
+        eps.data_ptr(), warm.data_ptr(), b, n, c, gsrc, *geo,
+        tally_ptr("K2", saug.device), adm.data_ptr(),
     )
-    LAUNCHES += 1
-    BATCH_LAUNCHES[b] += 1
+    if counting():
+        LAUNCHES += 1
+        BATCH_LAUNCHES[b] += 1
     return adm
 
 

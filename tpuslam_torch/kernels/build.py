@@ -126,15 +126,16 @@ def load_library() -> ctypes.CDLL:
         p, i = ctypes.c_void_p, ctypes.c_int
         for name, argtypes in (
             # (src, tgt, count, batch, n, m, threads, rows_per_thread,
-            #  splits, stage_rows, depth, smem_bytes, idx, dist, stream)
-            ("tpuslam_nn_dense", [p, p, p, *[i] * 9, p, p, p]),
+            #  splits, stage_rows, depth, smem_bytes, arm, arm_value, tally,
+            #  idx, dist, stream)
+            ("tpuslam_nn_dense", [p, p, p, *[i] * 9, p, i, p, p, p, p]),
             # (saug, aux, caug, radii, eps, warm, batch, n, c, gsrc,
-            #  chunks, splits, span, stage, smem_bytes, adm, stream)
-            ("tpuslam_bound_pass", [p, p, p, p, p, p, *[i] * 9, p, p]),
+            #  chunks, splits, span, stage, smem_bytes, tally, adm, stream)
+            ("tpuslam_bound_pass", [p, p, p, p, p, p, *[i] * 9, p, p, p]),
             # (src, packed, cand, counts, batch, n, m, ts, width, g, gsrc,
-            #  chunks, splits, stage_rows, depth, smem_bytes, idx, dist,
-            #  stream)
-            ("tpuslam_nn_cand", [p, p, p, p, *[i] * 12, p, p, p]),
+            #  chunks, splits, stage_rows, depth, smem_bytes, arm, arm_value,
+            #  tally, idx, dist, stream)
+            ("tpuslam_nn_cand", [p, p, p, p, *[i] * 12, p, i, p, p, p, p]),
             # (scalars, ty, target, batch, n, m, threads, rows_per_thread,
             #  splits, parts, denom, stream)
             ("tpuslam_cpd_denom", [p, p, p, i, i, i, i, i, i, p, p, p]),
@@ -147,6 +148,14 @@ def load_library() -> ctypes.CDLL:
             # (scalars, ty, target, weights4, table, counts, n, m, width,
             #  threads, rows_per_thread, acc, stream)
             ("tpuslam_cpd_moments_cand", [p, p, p, p, p, p, i, i, i, i, i, p, p]),
+            # (before, after, w, batch, n, chunk_rows, nchunks, part1, means,
+            #  part2, r, t, tally, stream)
+            ("tpuslam_procrustes", [p, p, p, i, i, i, i, p, p, p, p, p, p, p]),
+            # (h, batch, r, s, det, tally, stream)
+            ("tpuslam_svd_rotation_det", [p, i, p, p, p, p, p]),
+            # (diff, w, n_corr, batch, n, chunk_rows, nchunks, part, err,
+            #  tally, stream)
+            ("tpuslam_masked_sq_error", [p, p, p, i, i, i, i, p, p, p, p]),
         ):
             fn = getattr(lib, name)
             fn.argtypes = argtypes

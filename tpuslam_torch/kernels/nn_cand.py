@@ -21,18 +21,19 @@ reach it, and checked again by the C entry point.
 from __future__ import annotations
 
 from collections import Counter
-from typing import NamedTuple, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
-from tpuslam_torch.kernels.nn_dense import BIG, fma_sq_dist
+from tpuslam_torch.kernels.nn_dense import BIG, _predicated_out, fma_sq_dist
 
 NO_MATCH = 1e37  # distances at or above it report (0, BIG)
 # (source, row) elements per chunk of the plain version
 REF_ELEMS = 1 << 24
 
 # kernel launches made by the wrappers below (CPU calls do not count),
-# in all and by batch size B
+# in all and by batch size B; a launch captured into a CUDA graph counts
+# at each replay, booked by the ICP loop (kernels.book_replay)
 LAUNCHES = 0
 BATCH_LAUNCHES: Counter = Counter()
 
@@ -157,6 +158,9 @@ def nearest_neighbors_cand_batch(
     counts: torch.Tensor,
     g: int,
     gsrc: int,
+    arm: Optional[torch.Tensor] = None,
+    arm_value: int = -1,
+    out: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """K3 on ``src`` f32[B, N, 3] (sorted), ``tgt_packed`` f32[B, M, 4],
     ``candidates`` i32[B, N // gsrc, L], ``counts`` i32[B, N // gsrc],
@@ -164,13 +168,19 @@ def nearest_neighbors_cand_batch(
 
     On the CPU this is the plain version.  On CUDA it launches the kernel
     on the current stream (``counts`` stays on the device) and raises if
-    the launch is refused."""
+    the launch is refused.  ``arm``, ``arm_value`` and ``out`` predicate
+    the launch as in ``nn_dense.nearest_neighbors_dense_batch``."""
     global LAUNCHES
     _check(src, tgt_packed, candidates, counts, g, gsrc)
+    b, n, _ = src.shape
+    idx, dist = _predicated_out(arm, arm_value, out, (b, n), src.device)
     if src.device.type == "cpu":
-        return nearest_neighbors_cand_ref(
-            src, tgt_packed, candidates, counts, g, gsrc
-        )
+        if arm is None or int(arm.reshape(())) == arm_value:
+            ref_idx, ref_dist = nearest_neighbors_cand_ref(
+                src, tgt_packed, candidates, counts, g, gsrc)
+            idx.copy_(ref_idx)
+            dist.copy_(ref_dist)
+        return idx, dist
     if src.device.type != "cuda":
         raise RuntimeError(f"K3 runs on CPU or CUDA tensors, not {src.device}")
     for name, t in (("src", src), ("tgt_packed", tgt_packed),
@@ -179,24 +189,25 @@ def nearest_neighbors_cand_batch(
             raise ValueError(f"{name} must be contiguous")
     if tgt_packed.data_ptr() % 16:
         raise ValueError("tgt_packed must be 16-byte aligned")
-    b, n, _ = src.shape
     m = tgt_packed.shape[1]
     ts, width = candidates.shape[1], candidates.shape[2]
     if max(n, m) >= 2**31 or width * g >= 2**31:
         raise ValueError("sizes exceed the kernel's int32 indexing")
 
+    from tpuslam_torch.kernels import counting, tally_ptr
     from tpuslam_torch.kernels.build import launch
 
-    idx = torch.empty((b, n), dtype=torch.int32, device=src.device)
-    dist = torch.empty((b, n), dtype=torch.float32, device=src.device)
     launch(
         "tpuslam_nn_cand", src.device,
         src.data_ptr(), tgt_packed.data_ptr(), candidates.data_ptr(),
         counts.data_ptr(), b, n, m, ts, width, g, gsrc,
-        *cand_geometry(b, ts, width, gsrc), idx.data_ptr(), dist.data_ptr(),
+        *cand_geometry(b, ts, width, gsrc),
+        None if arm is None else arm.data_ptr(), arm_value,
+        tally_ptr("K3", src.device), idx.data_ptr(), dist.data_ptr(),
     )
-    LAUNCHES += 1
-    BATCH_LAUNCHES[b] += 1
+    if counting():
+        LAUNCHES += 1
+        BATCH_LAUNCHES[b] += 1
     return idx, dist
 
 

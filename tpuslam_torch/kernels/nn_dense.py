@@ -16,7 +16,7 @@ reach it, and checked again by the C entry point.
 from __future__ import annotations
 
 from collections import Counter
-from typing import NamedTuple, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
@@ -26,7 +26,8 @@ BIG = 3.4e38  # no-match distance, the JAX oracle's float32(3.4e38)
 REF_CHUNK = 1024
 
 # kernel launches made by the wrappers below (CPU calls do not count),
-# in all and by batch size B
+# in all and by batch size B; a launch captured into a CUDA graph counts
+# at each replay, booked by the ICP loop (kernels.book_replay)
 LAUNCHES = 0
 BATCH_LAUNCHES: Counter = Counter()
 
@@ -165,40 +166,79 @@ def _check(src: torch.Tensor, tgt: torch.Tensor, count: torch.Tensor) -> None:
         raise TypeError(f"count must be int32, got {count.dtype}")
 
 
+def _predicated_out(arm, arm_value: int, out, shape, device):
+    """The output pair of a launch: ``out`` or new tensors; with ``arm`` (a
+    device i32[1] arm code) ``out`` is required, as only the selected
+    launch of several writes it."""
+    if arm is not None:
+        if out is None:
+            raise ValueError("a predicated launch writes into out=(idx, dist)")
+        if arm.dtype != torch.int32 or arm.numel() != 1 or arm.device != device:
+            raise ValueError("arm must be an int32 tensor of one element on the operands' device")
+    if out is None:
+        return (torch.empty(shape, dtype=torch.int32, device=device),
+                torch.empty(shape, dtype=torch.float32, device=device))
+    idx, dist = out
+    if (tuple(idx.shape) != shape or tuple(dist.shape) != shape or idx.dtype != torch.int32
+            or dist.dtype != torch.float32 or not idx.is_contiguous()
+            or not dist.is_contiguous() or idx.device != device or dist.device != device):
+        raise ValueError(f"out must be contiguous (i32{list(shape)}, f32{list(shape)}) "
+                         f"on {device}")
+    return idx, dist
+
+
 def nearest_neighbors_dense_batch(
-    src: torch.Tensor, tgt: torch.Tensor, tgt_count: torch.Tensor
+    src: torch.Tensor,
+    tgt: torch.Tensor,
+    tgt_count: torch.Tensor,
+    arm: Optional[torch.Tensor] = None,
+    arm_value: int = -1,
+    out: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """K1 on ``src`` f32[B, N, 3], ``tgt`` f32[B, M, 3], ``tgt_count``
     i32[B], all on one device -> (idx i32[B, N], dist f32[B, N]).
 
     On the CPU this is the plain version.  On CUDA it launches the kernel
     on the current stream (count stays on the device; nothing is read
-    back) and raises if the launch is refused."""
+    back) and raises if the launch is refused.
+
+    ``arm`` (i32[1] on the device) predicates the launch: it writes
+    ``out`` only where ``arm == arm_value`` (the hierarchical search's arm
+    code), else returns at once; it is counted here all the same, and the
+    device's tally counts it as skipped (``kernels.launch_counts``).  The
+    plain version reads the code on the host."""
     global LAUNCHES
     _check(src, tgt, tgt_count)
+    b, n, _ = src.shape
+    idx, dist = _predicated_out(arm, arm_value, out, (b, n), src.device)
     if src.device.type == "cpu":
-        return nearest_neighbors_dense_ref(src, tgt, tgt_count)
+        if arm is None or int(arm.reshape(())) == arm_value:
+            ref_idx, ref_dist = nearest_neighbors_dense_ref(src, tgt, tgt_count)
+            idx.copy_(ref_idx)
+            dist.copy_(ref_dist)
+        return idx, dist
     if src.device.type != "cuda":
         raise RuntimeError(f"K1 runs on CPU or CUDA tensors, not {src.device}")
     for name, t in (("src", src), ("tgt", tgt), ("count", tgt_count)):
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
-    b, n, _ = src.shape
     m = tgt.shape[1]
     if max(n, m) >= 2**31:
         raise ValueError(f"row counts {n}, {m} exceed the kernel's int32 indices")
 
+    from tpuslam_torch.kernels import counting, tally_ptr
     from tpuslam_torch.kernels.build import launch
 
-    idx = torch.empty((b, n), dtype=torch.int32, device=src.device)
-    dist = torch.empty((b, n), dtype=torch.float32, device=src.device)
     launch(
         "tpuslam_nn_dense", src.device,
         src.data_ptr(), tgt.data_ptr(), tgt_count.data_ptr(),
-        b, n, m, *dense_geometry(b, n, m), idx.data_ptr(), dist.data_ptr(),
+        b, n, m, *dense_geometry(b, n, m),
+        None if arm is None else arm.data_ptr(), arm_value,
+        tally_ptr("K1", src.device), idx.data_ptr(), dist.data_ptr(),
     )
-    LAUNCHES += 1
-    BATCH_LAUNCHES[b] += 1
+    if counting():
+        LAUNCHES += 1
+        BATCH_LAUNCHES[b] += 1
     return idx, dist
 
 

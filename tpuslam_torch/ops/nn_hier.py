@@ -21,10 +21,19 @@ query, for sources Morton-sorted once and moving rigidly:
 Every arm returns the dense oracle's result bit for bit (the fold is
 lexicographic on distance and original index).
 
-The JAX package picks the arm on the device with nested ``lax.cond``;
-eager PyTorch branches on the host, so each query reads the two overflow
-flags back in one small device-to-host copy.  Only the branch taken
-builds its candidate table.
+The JAX package picks the arm on the device with nested ``lax.cond``.
+The overflow flags become an arm code on the device (``arm_code``: 0
+fine, 1 coarse, 2 dense).  Inside an ICP loop captured as a CUDA graph
+(``recording_arms(predicated=True)``) the port chooses without a host
+read: both candidate tables are built, and K3 (fine), K3 (coarse) and
+K1 are all launched, each predicated on the code, so exactly one of them
+writes the result and the other two return at once.  Everywhere else
+(the CPU, a loop that is not captured, a query on its own) the host
+branch stays, as such a loop reads the host every iteration anyway: the
+code is read and only the branch taken builds its table and runs.  Each
+query's code goes to the ICP loop's recorder (``recording_arms``), which
+reads it back once a chunk of iterations and appends the arm to
+``ARM_TRACE``; a query outside such a loop appends its arm at once.
 
 ``nearest_neighbors_hier_batch`` is the batched form (the JAX package's
 ``nearest_neighbors_hier_batch``, which its custom-vmap rule lowers a
@@ -37,7 +46,8 @@ its batch of one.
 from __future__ import annotations
 
 from collections import deque
-from typing import NamedTuple, Tuple
+from contextlib import contextmanager
+from typing import List, NamedTuple, Optional, Tuple
 
 import torch
 
@@ -58,6 +68,43 @@ MAX_ROWS = 2**24
 
 # the arm of each recent query, newest last ("fine", "coarse", "dense")
 ARM_TRACE: deque = deque(maxlen=4096)
+# the arm codes (ARMS[code]) of the device's arm choice
+ARMS = ("fine", "coarse", "dense")
+
+
+class _Recorder(NamedTuple):
+    codes: List[torch.Tensor]  # each query's arm code, i32[1] on its device
+    predicated: bool  # on CUDA, launch every arm predicated on the code
+
+
+# the open recorder of arm codes (``recording_arms``), or None
+_RECORDER: Optional[_Recorder] = None
+
+
+@contextmanager
+def recording_arms(predicated: bool = False):
+    """Within the block, each query hands its arm code (an i32[1] tensor
+    on the query's device) to the returned list instead of appending its
+    arm to ``ARM_TRACE``: the ICP loop reads the codes once a chunk.  With
+    ``predicated`` a query on CUDA chooses its arm on the device (module
+    docstring), as a CUDA graph must."""
+    global _RECORDER
+    prev, _RECORDER = _RECORDER, _Recorder([], predicated)
+    try:
+        yield _RECORDER.codes
+    finally:
+        _RECORDER = prev
+
+
+def arm_code(overflow: torch.Tensor, overflow2: Optional[torch.Tensor]) -> torch.Tensor:
+    """i32[1] arm code from the overflow flags (bool tensors; ``overflow2``
+    None where there is no coarse arm), in the JAX ``lax.cond`` order:
+    dense (2) while any group overflows the fine budget and the coarse arm
+    overflows too (or does not exist), coarse (1) while only the fine arm
+    overflows, else fine (0)."""
+    beyond = torch.ones_like(overflow) if overflow2 is None else overflow2
+    code = torch.where(overflow, torch.where(beyond, 2, 1), 0)
+    return code.to(torch.int32).reshape(1)
 
 
 class HierTarget(NamedTuple):
@@ -290,7 +337,8 @@ def nearest_neighbors_hier(
     for valid sources.  ``state`` from ``hier_state_init`` on the first
     query, then threaded through (positions of the same sorted source
     cloud, moving rigidly between queries).  Appends the arm taken to
-    ``ARM_TRACE``.  The batch of one of ``nearest_neighbors_hier_batch``."""
+    ``ARM_TRACE`` (inside ``recording_arms``, the recorder's reader does).
+    The batch of one of ``nearest_neighbors_hier_batch``."""
     idx, dist, new = nearest_neighbors_hier_batch(
         transformed[None], src_mask[None],
         HierTarget(*(t[None] for t in target)),
@@ -317,8 +365,9 @@ def nearest_neighbors_hier_batch(
     The arm is chosen once for the batch, as in the JAX package
     (``nn_hier.py:579``, ``:599-627``): dense while any group of any pair
     overflows its budget, else coarse while any overflows the fine one,
-    else fine; one host read of the flags per query.  Every arm is exact,
-    so each pair's result equals its solo query's."""
+    else fine (``arm_code``; on the device in a captured loop, else by one
+    host read of the code).  Every arm is exact, so each pair's result
+    equals its solo query's."""
     b, n = transformed.shape[0], transformed.shape[1]
     m = target.packed.shape[1]
     c = m // g
@@ -347,39 +396,50 @@ def nearest_neighbors_hier_batch(
         l_eff2 = min(l_budget, (5 * c2) // 8)
         width2 = -(-min(l_budget, c2) // 8) * 8
         flags.append(torch.any(counts2 > l_eff2))
-    # the one device-to-host read of the query
-    overflow, *rest = torch.stack(flags).tolist()
-    overflow2 = rest[0] if coarse else True
 
     def table(a, cnt, w):
         return _build_cand_table(a.reshape(b * ts, -1), cnt.reshape(b * ts),
                                  w).reshape(b, ts, w)
 
-    if not overflow:
-        arm = "fine"
-        idx, dist = nearest_neighbors_cand_batch(
+    def fine(**kw):
+        return nearest_neighbors_cand_batch(
             transformed, target.packed, table(adm, counts, width),
-            torch.clamp_max(counts, l_eff), g=g, gsrc=gsrc,
-        )
-    elif not overflow2:
-        arm = "coarse"
-        idx, dist = nearest_neighbors_cand_batch(
+            torch.clamp_max(counts, l_eff), g=g, gsrc=gsrc, **kw)
+
+    def coarse_arm(**kw):
+        return nearest_neighbors_cand_batch(
             transformed, target.packed, table(adm2, counts2, width2),
-            torch.clamp_max(counts2, l_eff2), g=g2, gsrc=gsrc,
-        )
+            torch.clamp_max(counts2, l_eff2), g=g2, gsrc=gsrc, **kw)
+
+    def dense(**kw):
+        return nearest_neighbors_dense_batch(
+            transformed, target.original_points, target.count, **kw)
+
+    runs = (fine, coarse_arm if coarse else None, dense)  # by arm code
+    code = arm_code(flags[0], flags[1] if coarse else None)
+    dev = transformed.device
+    rec = _RECORDER
+    if dev.type == "cuda" and rec is not None and rec.predicated:
+        # every arm launched, each predicated on the device's code: no read
+        idx = torch.empty((b, n), dtype=torch.int32, device=dev)
+        dist = torch.empty((b, n), dtype=torch.float32, device=dev)
+        for value, run in enumerate(runs):
+            if run is not None:
+                run(arm=code, arm_value=value, out=(idx, dist))
     else:
-        arm = "dense"
-        idx, dist = nearest_neighbors_dense_batch(
-            transformed, target.original_points, target.count
-        )
-    ARM_TRACE.append(arm)
+        # the host branch: one read of the code, only the branch taken
+        taken = int(code)
+        idx, dist = runs[taken]()
+    if rec is not None:
+        rec.codes.append(code)
+    else:
+        ARM_TRACE.append(ARMS[taken])
     # both arms already give the oracle's (0, BIG) on no match; kept, as
     # in the JAX package, so idx stays in range whatever a kernel does
     idx = torch.where(dist >= BIG, torch.zeros_like(idx), idx)
-    dev = transformed.device
     return idx, dist, HierState(
         prev_target=torch.take_along_dim(
             target.original_points, idx.long()[..., None], dim=1),
         warm=torch.ones((b,), dtype=torch.bool, device=dev),
-        sparse=torch.full((b,), arm != "dense", dtype=torch.bool, device=dev),
+        sparse=(code != 2).repeat(b),
     )

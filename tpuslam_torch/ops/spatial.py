@@ -57,7 +57,8 @@ def morton_codes(points: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
     """i32[N] Z-order codes over a 1024^3 grid spanning the valid bbox;
     invalid rows get INT32_MAX so they sort to the end."""
     valid = mask[:, None] > 0
-    big = torch.tensor(BIG, dtype=torch.float32, device=points.device)
+    # filled on the device: no blocking host-to-device copy
+    big = torch.full((), BIG, dtype=torch.float32, device=points.device)
     lo = torch.amin(torch.where(valid, points, big), dim=0)
     hi = torch.amax(torch.where(valid, points, -big), dim=0)
     extent = torch.clamp_min(hi - lo, 1e-12)
@@ -123,13 +124,13 @@ def tile_bounds(
     t = sorted_points.shape[0] // tile
     pts = sorted_points.reshape(t, tile, 3)
     valid = sorted_mask.reshape(t, tile)[:, :, None] > 0
-    big = torch.tensor(BIG, dtype=torch.float32, device=pts.device)
+    big = torch.full((), BIG, dtype=torch.float32, device=pts.device)
     lo = torch.amin(torch.where(valid, pts, big), dim=1)
     hi = torch.amax(torch.where(valid, pts, -big), dim=1)
     any_valid = torch.sum(sorted_mask.reshape(t, tile), dim=1) > 0
     center = torch.where(
         any_valid[:, None], (lo + hi) * 0.5,
-        torch.tensor(1e15, dtype=torch.float32, device=pts.device),
+        torch.full((), 1e15, dtype=torch.float32, device=pts.device),
     )
     span = hi - lo
     radius = torch.where(

@@ -11,9 +11,13 @@ sum over source rows is the solo run's sum, and the dense arm's result
 equals solo ``icp_register(use_spatial=False)`` bit for bit at any world
 size.
 
-The loop reads ``done`` back to the host each iteration, on every rank.
-Every rank computes it from the same reduced tensors, so every rank
-takes the same branch and the collectives stay matched.
+The loop runs one iteration a chunk, eagerly (its arm cannot be
+captured: gloo stages each collective through the host), and reads its
+stop flag back to the host each iteration, on every rank; the
+hierarchical search reads its arm on the host, as it does outside a
+captured loop.  Every rank computes the stop flag from the same reduced
+tensors, so every rank takes the same branch and the collectives stay
+matched.  Procrustes is kernel P, which reads nothing back.
 
 Arms (``use_spatial``):
 
@@ -36,6 +40,7 @@ import torch
 
 from tpuslam_torch.algorithms.icp import (
     FLT_MAX,
+    Arm,
     ICPResume,
     ICPState,
     RegistrationResult,
@@ -139,10 +144,12 @@ def register_on_arm(
     init = ICPState(rotation=rotation, translation=translation, error=error,
                     prev_error=prev, iterations=0,
                     done=torch.zeros((), dtype=torch.bool, device=device), nn=arm.init)
+    # an arm without a key is not captured: one iteration a chunk, eagerly
+    # (gloo stages each collective of the query through the host)
     return _icp_loop(
         arm.src_points, arm.src_mask,
-        lambda transformed, s: arm.query(transformed, s.nn),
-        lambda idx, carry: carry.matched,
+        Arm((), lambda inputs, transformed, s: arm.query(transformed, s.nn),
+            lambda inputs, idx, carry: carry.matched),
         f32(eps), f32(max_distance_squared), int(max_iterations),
         divergence_guard=divergence_guard, verbose=verbose,
         iter_offset=iter_offset, init=init, patience=0,
