@@ -273,6 +273,30 @@ exits non-zero without printing a result:
    synchronising call in ``procrustes.py`` or ``nn_hier.py``, at most
    ceil(50 / k) plus the set-up's (``prepare_spatial``'s, counted alone).
 
+23. the device-resident CPD loop and kernel P's redesign
+   (``cpd_loop_phases``): (a) P's moments entry (the CPD M-step's
+   float64 sums) on 16 x 20,480 pairs against its float64 plain version
+   within 1e-12 relative; the moments, error and SVD entries each give a
+   pair the same bits at B = 1 and B = 16; the error entry within 1e-6
+   relative of its float64 plain version; the SVD entry on random,
+   rank-2 and non-finite H (R within 1e-6 of float64 plain, NaN for
+   NaN); the entries' device times (a CUDA graph of 200 calls) beside
+   their plain versions' and ``torch.linalg.svd``'s; (b) solo CPD exact
+   at 20,480 rows to its stop and Hybrid at 102,400 (phase 10's
+   protocol, 60 iterations: the FGT fast phase, then the slow phase on
+   K4's route and on K5's) by the graph loop (``cpd.LOOP_CHUNK``
+   iterations a read, the second call of one ``graph_scope`` replaying
+   the graphs the first captured) equal bit for bit to the eager loop
+   of one iteration a read (R, t, scale, sigma^2, iterations, E-steps,
+   K5 routes); a warm registration's synchronising calls, of which
+   those not in its set-up (``cpd._EM``, counted alone) must be chunk
+   reads (``icp.py``, ``cpd.py``), at most one a chunk and the first
+   phase's; the launches of these runs counted by the wrappers (each
+   replay booked from the device) equal to the device's tally, K4 and K5
+   skipped at least once; (c) ``cpd_register_batch`` on 16 x 2,048
+   Hybrid pairs that switch and stop at different iterations: graph
+   against eager and each pair against its solo run, bit for bit.
+
 The launch counts each path is checked by are set to 0 just before it
 runs and read just after (on the ranks of phase 20, before each case).
 
@@ -293,7 +317,9 @@ ranks of phase 20, ``launches_sharded``, and in phase 21 by program,
 ``launches_bench``; for P its time at the headline's shape, its
 launches in phase 5's registration and per warm headline iteration, and
 ``torch.linalg.svd``'s time on the same [1, 3, 3] batch as
-``library_ms``), and
+``library_ms``; for P's SVD, error and moments entries their launches in
+phase 23, and for K4 and K5 their launches and skipped launches there),
+and
 ``{"ok": true, "device": {...}}``.
 """
 
@@ -317,7 +343,8 @@ FULL = dict(headline=102_400, small=8192, large=1_048_576, large_iters=20,
             batch_mid_pairs=4, batch_cand=376_401, batch_cand_pairs=2,
             front_icp=102_400, front_nicp=200_000, front_perf=("icp", "nicp"),
             shard_ranks=4, shard_estep=376_401, shard_cpd=102_400, shard_cpd_iters=60,
-            shard_pairs=16, shard_pair_points=16_384, bench_reps=2, loop_scans=5)
+            shard_pairs=16, shard_pair_points=16_384, bench_reps=2, loop_scans=5,
+            cpd_loop_iters=60)
 
 # the H100 SXM's published peaks (NVIDIA's data sheet, at 700 W): float32
 # outside the tensor cores and HBM3; and the special-function units' exp2,
@@ -325,6 +352,8 @@ FULL = dict(headline=102_400, small=8192, large=1_048_576, large_iters=20,
 PEAK_FP32 = 67e12
 PEAK_BYTES = 3.35e12
 PEAK_EXP = 16 * 132 * 1.98e9
+# float64 outside the tensor cores (the same data sheet): kernel P's sums
+PEAK_FP64 = 34e12
 # float32 operations per (source, target) pair, an FMA counted as two:
 # the NN distance (3 subtractions, a product, 2 FMAs); K2's 12-term
 # centre distance (a product, 11 FMAs, + s2) with its bound term (+ eps,
@@ -334,10 +363,10 @@ FLOPS_NN, FLOPS_BOUND = 8, 30
 FLOPS_DENOM, FLOPS_MOMENTS = 10, 17
 
 
-def bound_of(flops: float, nbytes: float, exps: float = 0.0) -> dict:
+def bound_of(flops: float, nbytes: float, exps: float = 0.0, flops64: float = 0.0) -> dict:
     """The least time the card could take: the larger of the operations
     over their peak rate and the bytes over the memory rate."""
-    ops_ms = max(flops / PEAK_FP32, exps / PEAK_EXP) * 1e3
+    ops_ms = max(flops / PEAK_FP32, exps / PEAK_EXP, flops64 / PEAK_FP64) * 1e3
     bytes_ms = nbytes / PEAK_BYTES * 1e3
     return {"bound_ms": max(ops_ms, bytes_ms),
             "bound_by": "operations" if ops_ms >= bytes_ms else "bytes"}
@@ -1523,7 +1552,7 @@ def drivers_phases(dev, smi, kind, sizes, time_ms, phase6, phase10) -> dict:
              (sizes["batch_large"], sizes["batch_pairs"], {none: 20, hybrid: h_iters}),
              (sizes["batch_mid"], sizes["batch_mid_pairs"], {hybrid: h_iters}),
              (sizes["batch_cand"], sizes["batch_cand_pairs"], {hybrid: h_iters}))
-    real_estep, real_cand = batch.cpd_estep_dense_batch, cpd.cpd_estep_cand
+    real_estep, real_cand = cpd.cpd_estep_dense_batch, cpd.cpd_estep_cand
     for n_pts, b, modes in cases:
         befores, afters = [], []
         for _ in range(b):
@@ -1556,12 +1585,12 @@ def drivers_phases(dev, smi, kind, sizes, time_ms, phase6, phase10) -> dict:
 
             reset()
             cpd.PHASE_TRACE.clear()
-            batch.cpd_estep_dense_batch, cpd.cpd_estep_cand = keep, keep_cand
+            cpd.cpd_estep_dense_batch, cpd.cpd_estep_cand = keep, keep_cand
             try:
                 got, ms = wall(lambda: tpuslam_torch.register_pairs(befores, afters, device=dev,
                                                                     **cfg))
             finally:
-                batch.cpd_estep_dense_batch, cpd.cpd_estep_cand = real_estep, real_cand
+                cpd.cpd_estep_dense_batch, cpd.cpd_estep_cand = real_estep, real_cand
             launches = dict(cpd_dense.BATCH_LAUNCHES)
             k5_launches = (cpd_cand.DENOM_LAUNCHES, cpd_cand.MOMENTS_LAUNCHES)
             phases = list(cpd.PHASE_TRACE)
@@ -1618,20 +1647,37 @@ def drivers_phases(dev, smi, kind, sizes, time_ms, phase6, phase10) -> dict:
             # whole E-step
             for which in ("first", "last"):
                 args = seen[which]
+                # the batch form computes every pair each iteration, a
+                # stopped one frozen (the JAX loop's freeze): a pair whose
+                # frozen state went non-finite (its stop) is not an E-step's
+                # input, and is left out of the comparison
+                finite = torch.isfinite(args[4]) & torch.isfinite(args[5])
+                if not bool(finite.all()):
+                    log(f"[pairs-cpd] {name}: {int((~finite).sum())} of {len(finite)} pairs "
+                        f"of the loop's {which} call hold a non-finite frozen state")
+                    args = tuple(a[finite] for a in args)
                 scal, ty, tgt, mm, tm = estep_operands(*args)
                 errs = k4_batch_against_plain(scal, ty, tgt, None, mm, tm)
                 if ty.shape[1] <= 2048:
                     got_e, want_e = real_estep(*args), plain_estep(*args)
                     for f in STATS:
                         g, w = getattr(got_e, f).double(), getattr(want_e, f).double()
-                        a = float((g - w).abs().max())
+                        # a frozen pair's state near its stop can give both
+                        # versions the same non-finite value (an infinite
+                        # log-likelihood): those must agree, the rest compare
+                        finite = torch.isfinite(w)
+                        check(torch.equal(torch.isfinite(g), finite),
+                              f"pair-axis CPD ({name}): K4's batch form is non-finite where "
+                              f"its plain version is not ({f})")
+                        g, w = g[finite], w[finite]
+                        a = float((g - w).abs().max()) if g.numel() else 0.0
                         # pt1 = 1 - c / denom lies in [0, 1]: the
                         # denominators' 1e-5 relative tolerance bounds its
                         # error by 1e-5 absolute, while against its own
                         # largest value it is ill-conditioned where c
                         # dominates the row sums (the slow phase's c_init)
-                        errs[f"E-step {f}"] = (a, a if f == "pt1" else
-                                               a / max(float(w.abs().max()), 1e-30))
+                        errs[f"E-step {f}"] = (a, a if f == "pt1" else a / max(
+                            float(w.abs().max()) if w.numel() else 0.0, 1e-30))
                 torch.cuda.synchronize()
                 log(f"[pairs-cpd] {name}: K4's batch form on the loop's {which} call (B = "
                     f"{ty.shape[0]}, truncated {int(args[6].sum())}) against the plain version: "
@@ -1649,7 +1695,10 @@ def drivers_phases(dev, smi, kind, sizes, time_ms, phase6, phase10) -> dict:
                 cand = real_cand(*args)
                 route = cpd_cand.ROUTE_TRACE[-1]
                 dense = cpd_dense.cpd_estep_dense(*args)
-                bad = sum(int((getattr(dense, f) != getattr(cand, f)).sum()) for f in STATS)
+                # NaN equal to NaN: a frozen pair's state may have gone non-finite
+                bad = sum(int(((getattr(dense, f) != getattr(cand, f))
+                               & ~(torch.isnan(getattr(dense, f))
+                                   & torch.isnan(getattr(cand, f)))).sum()) for f in STATS)
                 one = [torch.as_tensor(a, device=dev).reshape(1) for a in args[4:]]
                 scal, ty, tgt, mm, tm = estep_operands(*(a[None] for a in args[:4]),
                                                        one[0].float(), one[1].float(), one[2])
@@ -2534,6 +2583,18 @@ def bench_phases(dev, smi, kind, sizes) -> dict:
 
 
 # phase 22: the device-resident ICP loop and kernel P
+def device_time_ms(time_ms, on_card: bool):
+    """ms a call on the device: on the card by a CUDA graph of the calls
+    (``ab_kernels.graph_ms``), else ``time_ms``."""
+    import torch
+
+    from tpuslam_torch.harness.ab_kernels import graph_ms
+
+    if on_card:
+        return lambda fn, reps: graph_ms(torch, fn, reps)
+    return time_ms
+
+
 def one_iteration_loop(fn):
     """``fn()`` with the ICP loop at one iteration a host read and no CUDA
     graph: the eager loop the device loop is held to."""
@@ -2613,17 +2674,25 @@ def device_loop_phases(dev, smi, kind, sizes, time_ms) -> dict:
     # (b) P's time at the headline's shape, its plain version's (two
     # cuSOLVER calls that wait), and torch.linalg.svd on the same batch
     h1 = torch.matmul(((rows_a - rows_a.mean(0)) * w[:, None]).T, rows_b - rows_b.mean(0))[None]
-    ms = time_ms(lambda: procrustes.weighted_procrustes_batch(rows_b[None], rows_a[None],
-                                                              w[None]), 50)
+    # eager calls back to back (the kernels line's ``ms``, as every slice
+    # since P's port has timed it), and the device's time by a CUDA graph
+    # of many calls (``ms_device``: the host's Python between calls can
+    # exceed a small kernel's time)
+    device_ms = device_time_ms(time_ms, on_card)
+    p_call = lambda: procrustes.weighted_procrustes_batch(rows_b[None], rows_a[None],  # noqa: E731
+                                                          w[None])
+    svd_call = lambda: procrustes.svd_rotation_det_batch(h1)  # noqa: E731
+    ms, ms_device = time_ms(p_call, 50), device_ms(p_call, 200)
     plain_ms = time_ms(lambda: procrustes.weighted_procrustes_ref(rows_b, rows_a, w), 20)
     library_ms = time_ms(lambda: torch.linalg.svd(h1), 20)
-    svd_ms = time_ms(lambda: procrustes.svd_rotation_det_batch(h1), 50)
+    svd_ms, svd_ms_device = time_ms(svd_call, 50), device_ms(svd_call, 200)
     # before, after and w read once (28 bytes a row); the centred second
     # pass re-reads them from L2 (2.9 MB at 102,400 rows, in the 50 MB)
     p_bound = bound_of(40.0 * n, 28.0 * n)
-    log(f"[loop] times on {smi}: P {ms:.4f} ms at [1, {n}, 3] (bound {p_bound}), plain "
+    log(f"[loop] times on {smi}: P {ms:.4f} ms a call back to back at [1, {n}, 3], the "
+        f"host's included ({ms_device:.4f} ms on the device; bound {p_bound}), plain "
         f"{plain_ms:.4f} ms, torch.linalg.svd on the [1, 3, 3] batch {library_ms:.4f} ms, "
-        f"P's SVD entry {svd_ms:.4f} ms")
+        f"P's SVD entry {svd_ms:.4f} ms ({svd_ms_device:.4f} on the device)")
     # (c) the device loop against the eager one-iteration loop at 102,400
     # on both arms, run to the stop (frozen iterations in the last chunk)
     converge = dict(eps=1e-4, max_distance_squared=1e4, max_iterations=100)
@@ -2708,11 +2777,285 @@ def device_loop_phases(dev, smi, kind, sizes, time_ms) -> dict:
             "plain_ms": plain_ms,
             **p_bound,
             "library_ms": library_ms,
+            "ms_device": ms_device,
             "ms_svd_entry": svd_ms,
+            "ms_svd_entry_device": svd_ms_device,
             "max_abs_err_float32_plain": err_32,
         },
         "loop": loop, "syncs": syncs, "sync_sites": sites, "setup_syncs": setup,
         "sequence_iterations": seq.iterations.tolist(), "wall": wall,
+    }
+
+
+# phase 23: the device-resident CPD loop and kernel P's Hopper redesign
+def cpd_loop_phases(dev, smi, kind, sizes, time_ms) -> dict:
+    """Phase 23 (module docstring): P's entries against their plain
+    versions and B-independent, the CPD graph loop against the eager
+    one-iteration loop bit for bit (solo exact, solo Hybrid, pair axis),
+    the host reads of warm registrations, the launches and skips the
+    device counted, and the times.  Returns P's entries of the kernels
+    line (but the Procrustes entry, phase 22's) and the phase's record."""
+    import torch
+
+    from tpuslam_torch.algorithms import cpd, icp
+    from tpuslam_torch.algorithms.batch import cpd_register_batch, stack_clouds
+    from tpuslam_torch.config.configuration import ApproximationType
+    from tpuslam_torch.core.types import pad_cloud
+    from tpuslam_torch.data.synthesis import get_random_rotation_matrix
+    from tpuslam_torch.harness.benchkit import count_syncs
+    from tpuslam_torch.kernels import (
+        TALLIED,
+        cpd_cand,
+        launch_counts,
+        procrustes,
+        reset_launch_counts,
+        tally,
+    )
+
+    t_phase = time.perf_counter()
+    on_card = dev.type == "cuda"
+    rng = np.random.Generator(np.random.PCG64(23))
+
+    def rand(*shape, lo=0.0, hi=10.0):
+        return torch.from_numpy((lo + rng.random(shape) * (hi - lo)).astype(np.float32)).to(dev)
+
+    # (a) P's moments entry against its float64 plain version, and every
+    # entry's bits at B = 1 equal to B = 16
+    n, pairs = sizes["cpd_small"], sizes["batch_pairs"]
+    p1, mv, px = rand(pairs, n, lo=0.0, hi=1.0), rand(pairs, n, 3), rand(pairs, n, 3, lo=-1.0)
+    pt1, tg = rand(pairs, n, lo=0.0, hi=1.0), rand(pairs, n, 3)
+    sums = procrustes.mstep_moments_batch(p1, mv, px, pt1, tg)
+    ref = torch.stack([procrustes.mstep_moments_ref(p1[p], mv[p], px[p], pt1[p], tg[p])
+                       for p in range(pairs)])
+    mom_err = float(((sums - ref).abs() / ref.abs().clamp_min(1e-300)).max())
+    solo = [procrustes.mstep_moments_batch(p1[p:p + 1], mv[p:p + 1], px[p:p + 1],
+                                           pt1[p:p + 1], tg[p:p + 1])[0] for p in range(pairs)]
+    mom_same = all(torch.equal(sums[p], solo[p]) for p in range(pairs))
+    diff, w = rand(pairs, n, 3, lo=-1.0, hi=1.0), (rand(pairs, n, hi=1.0) > 0.3).float()
+    nc = w.sum(1)
+    err_b = procrustes.mean_sq_error_batch(diff, w, nc)
+    err_err = max(abs(float(err_b[p]) - float(procrustes.mean_sq_error_ref(
+        diff[p].double(), w[p].double(), nc[p].double()))) / float(err_b[p])
+        for p in range(pairs))
+    err_same = all(torch.equal(err_b[p:p + 1], procrustes.mean_sq_error_batch(
+        diff[p:p + 1], w[p:p + 1], nc[p:p + 1])) for p in range(pairs))
+    h = rand(pairs, 3, 3, lo=-1.0, hi=1.0)
+    svd_b = procrustes.svd_rotation_det_batch(h)
+    svd_same = all(all(torch.equal(x[p:p + 1], y) for x, y in zip(
+        svd_b, procrustes.svd_rotation_det_batch(h[p:p + 1]))) for p in range(pairs))
+    # rank 2 and rank 1 cross-covariances, and a non-finite one
+    u = rand(2, 3, lo=-1.0, hi=1.0)
+    h_rank = torch.stack([u[0][:, None] * u[1][None, :] + u[1][:, None] * u[0][None, :],
+                          u[0][:, None] * u[1][None, :]])
+    h_bad = torch.full((1, 3, 3), float("nan"), device=dev)
+    r_rank = procrustes.svd_rotation_det_batch(h_rank)[0]
+    rank_err = max(float((r_rank[p].double() - procrustes.svd_rotation_det_ref(
+        h_rank[p].double())[0]).abs().max()) for p in range(1))
+    svd_err = max(float((svd_b[0][p].double() - procrustes.svd_rotation_det_ref(
+        h[p].double())[0]).abs().max()) for p in range(pairs))
+    nan_ok = bool(torch.isnan(procrustes.svd_rotation_det_batch(h_bad)[0]).all())
+    log(f"[cpd-loop] P's moments entry on {pairs} x {n}: relative error against its float64 "
+        f"plain version {mom_err:.3e} (tolerance 1e-12); a pair's bits at B = 1 equal B = "
+        f"{pairs}: moments {mom_same}, error {err_same}, SVD {svd_same}; the error entry "
+        f"against its float64 plain version {err_err:.3e} relative (tolerance 1e-6); the SVD "
+        f"on {pairs} random H {svd_err:.3e} and on a rank-2 H {rank_err:.3e} in R against "
+        f"float64 plain (tolerance 1e-6); NaN H gives NaN R: {nan_ok}")
+    check(mom_err <= 1e-12, "P's moments entry differs from its plain version")
+    check(err_err <= 1e-6, "P's error entry differs from its plain version")
+    check(mom_same and err_same and svd_same, "P: a pair of the batch differs from its solo call")
+    check(max(svd_err, rank_err) <= 1e-6 and nan_ok, "P's SVD entry differs from its plain "
+          "version (random, rank 2 or non-finite H)")
+    # P's entries timed at the CPD and ICP shapes, as phase 22 times the
+    # Procrustes entry: eager calls back to back, and on the device by a
+    # CUDA graph of 200 calls (``_device``); each with its bound (each
+    # input read once, each output written once)
+    n_head = sizes["headline"]
+    d1, w1 = rand(1, n_head, 3, lo=-1.0, hi=1.0), (rand(1, n_head, hi=1.0) > 0.3).float()
+    device_ms = device_time_ms(time_ms, on_card)
+    calls = {
+        "error": lambda: procrustes.mean_sq_error_batch(d1, w1, w1.sum(1)),
+        "moments": lambda: procrustes.mstep_moments_batch(p1[:1], mv[:1], px[:1], pt1[:1],
+                                                          tg[:1]),
+        "svd": lambda: procrustes.svd_rotation_det_batch(h[:1]),
+    }
+    times = {
+        "error_plain": time_ms(lambda: procrustes.mean_sq_error_ref(d1[0], w1[0], w1[0].sum()),
+                               50),
+        "moments_plain": time_ms(lambda: procrustes.mstep_moments_ref(
+            p1[0], mv[0], px[0], pt1[0], tg[0]), 20),
+        "svd_plain": time_ms(lambda: procrustes.svd_rotation_det_ref(h[0]), 20),
+        "svd_library": time_ms(lambda: torch.linalg.svd(h[:1]), 20),
+    }
+    for key, call in calls.items():
+        times[key], times[f"{key}_device"] = time_ms(call, 50), device_ms(call, 200)
+    bounds = {
+        # diff and w read, the error written; 6 float32 operations a row
+        "error": bound_of(6.0 * n_head, 16.0 * n_head + 4),
+        # p1, y, px a moving row and pt1, x a target row; 18 and 5 float64
+        # FMAs (36 and 10 operations)
+        "moments": bound_of(0.0, 44.0 * n + 144, flops64=46.0 * n),
+        "svd": bound_of(0.0, 36.0 + 52.0, flops64=2000.0),
+    }
+    log(f"[cpd-loop] P's entries on {smi}, ms a call back to back (on the device, a CUDA "
+        f"graph of 200 calls): error at [1, {n_head}, 3] {times['error']:.4f} "
+        f"({times['error_device']:.4f}; plain {times['error_plain']:.4f}, bound "
+        f"{bounds['error']}), moments at [1, {n}] x [1, {n}] {times['moments']:.4f} "
+        f"({times['moments_device']:.4f}; plain {times['moments_plain']:.4f}, bound "
+        f"{bounds['moments']}), SVD on [1, 3, 3] {times['svd']:.4f} ({times['svd_device']:.4f}; "
+        f"plain {times['svd_plain']:.4f}, torch.linalg.svd {times['svd_library']:.4f})")
+
+    # (b) the graph loop against the eager one-iteration loop, bit for bit
+    def box_pair(m, angle, trans=0.3, scale=10.0):
+        b = (rng.random((m, 3)) * scale).astype(np.float32)
+        r = get_random_rotation_matrix(rng, angle)
+        a = (b @ r.T + trans).astype(np.float32)[rng.permutation(m)]
+        return b, a
+
+    def traced(fn):
+        cpd.PHASE_TRACE.clear()
+        cpd_cand.ROUTE_TRACE.clear()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = fn()
+        torch.cuda.synchronize()
+        return res, list(cpd.PHASE_TRACE), list(cpd_cand.ROUTE_TRACE), time.perf_counter() - t0
+
+    def same(x, y):
+        return (torch.equal(torch.as_tensor(x.iterations), torch.as_tensor(y.iterations))
+                and all(torch.equal(getattr(x.transform, f), getattr(y.transform, f))
+                        for f in ("rotation", "translation", "scale"))
+                and torch.equal(x.error, y.error))
+
+    runs = {}
+    cases = (
+        ("exact", sizes["cpd_small"], 0.2,
+         dict(approximation_type=ApproximationType.NONE, weight=0.1, tolerance=1e-5,
+              max_iterations=100)),
+        # phase 10's protocol at the headline's size: the FGT fast phase,
+        # then the slow phase's K4 route (the admission overflows) and K5's
+        ("hybrid", sizes["headline"], 0.1,
+         dict(approximation_type=ApproximationType.Hybrid, weight=0.1, tolerance=0.0,
+              const_scale=True, max_iterations=sizes["cpd_loop_iters"])),
+    )
+    reset_launch_counts()
+    for name, m, angle, kw in cases:
+        bc, ac = (pad_cloud(x, device=dev) for x in box_pair(m, angle, 0.5))
+
+        def reg():
+            return cpd.cpd_register(bc, ac, **kw)
+
+        want, want_ph, want_rt, eager_s = one_iteration_loop(lambda: traced(reg))
+        with icp.graph_scope({}):
+            traced(reg)  # the first call runs the warm-up chunks and captures
+            got, ph, rt, loop_s = traced(reg)
+            syncs = sites = setup = loop_sites = None
+            if on_card:
+                # the set-up's reads (Morton order, FGT clusterings) counted
+                # alone; the rest are the loop's
+                _, setup, setup_sites = count_syncs(lambda: cpd._EM(
+                    bc, ac, kw.get("eps", 1e-3), kw["weight"], kw["tolerance"],
+                    kw["approximation_type"], 10.0, 8, None, 128, None, False, False,
+                    kw.get("const_scale", False)).initial(None))
+                _, syncs, sites = count_syncs(reg)
+                loop_sites = {k: v - setup_sites.get(k, 0) for k, v in sites.items()
+                              if v > setup_sites.get(k, 0)}
+        equal = same(got, want) and ph == want_ph and rt == want_rt
+        iters = int(got.iterations)
+        chunks = -(-iters // cpd.LOOP_CHUNK) + sum(a != b for a, b in zip(ph, ph[1:]))
+        runs[name] = {"rows": m, "iterations": iters, "eager_ms_per_iter": eager_s * 1e3 / iters,
+                      "loop_ms_per_iter": loop_s * 1e3 / iters, "equal": equal,
+                      "phases": {k: ph.count(k) for k in cpd.PHASES},
+                      "routes": {k: rt.count(k) for k in cpd_cand.ROUTES},
+                      "syncs": syncs, "sync_sites": sites, "setup_syncs": setup,
+                      "loop_sync_sites": loop_sites, "chunk_reads_at_most": chunks + 1}
+        log(f"[cpd-loop] {name} at {m} rows: {iters} iterations, E-steps "
+            f"{''.join(p[0] for p in ph)}, K5 routes {''.join(r[1] for r in rt)}; the graph "
+            f"loop (chunk {cpd.LOOP_CHUNK}) {loop_s * 1e3 / iters:.4f} ms/iter against the "
+            f"eager one-iteration loop {eager_s * 1e3 / iters:.4f} ms/iter on {smi}; equal bit "
+            f"for bit (R, t, scale, sigma^2, iterations, E-steps, routes): {equal}; "
+            f"synchronising calls of a warm registration {syncs} ({sites}), of its set-up "
+            f"{setup}, so the loop's {loop_sites} (at most one a chunk and the first phase's "
+            f"read: {chunks + 1})")
+        check(equal, f"the CPD graph loop differs from the eager loop ({name})")
+        if on_card:
+            # the loop reads only its status, once a chunk (the read in
+            # device_loop.py), and each problem's state
+            # once before the first chunk (cpd.py)
+            check(all(k.startswith(("device_loop.py", "cpd.py")) for k in loop_sites),
+                  f"a warm CPD registration syncs inside an iteration ({name})")
+            check(syncs <= setup + runs[name]["chunk_reads_at_most"],
+                  f"more host reads than one a chunk plus the set-up's ({name})")
+    hy = runs["hybrid"]
+    check(hy["phases"]["fgt"] > 0 and hy["phases"]["trunc"] > 0,
+          "the Hybrid run must take both phases")
+    check(hy["routes"]["k5"] > 0 and hy["routes"]["k4"] > 0,
+          "the Hybrid slow phase must take both K5's route and K4's")
+    counted = launch_counts()
+    on_device = dict(zip(TALLIED, tally(dev)[:, 0].tolist())) if on_card else {}
+    log(f"[cpd-loop] launches of the solo runs (the wrappers' counts, each replay booked from "
+        f"the device): {json.dumps(counted)}; counted on the device {json.dumps(on_device)}")
+    for key in ("K4_denom", "K4_moments", "K5_denom", "K5_moments", "P svd", "P moments"):
+        check(counted[key] > 0, f"phase 23 did not launch {key}")
+        if on_card:
+            check(counted[key] == on_device[key], f"{key}: the wrappers counted "
+                  f"{counted[key]}, the device {on_device[key]}")
+    check(counted["K5_denom skipped"] > 0 and counted["K4_denom skipped"] > 0,
+          "no predicated K4 or K5 launch was skipped")
+
+    # (c) the pair axis: 16 x 2,048 Hybrid pairs that switch and stop at
+    # different iterations, graph loop against eager, each pair its solo bits
+    pairs_m = sizes["batch_small"]
+    clouds = [box_pair(pairs_m, 0.05 + 0.02 * i, 0.1 * i, 6.0) for i in range(pairs)]
+    bb = stack_clouds([x[0] for x in clouds], device=dev)
+    ba = stack_clouds([x[1] for x in clouds], device=dev)
+    bkw = dict(approximation_type=ApproximationType.Hybrid, weight=0.1, tolerance=1e-5,
+               max_iterations=60)
+    want, _, _, eager_s = one_iteration_loop(lambda: traced(
+        lambda: cpd_register_batch(bb, ba, **bkw)))
+    with icp.graph_scope({}):
+        traced(lambda: cpd_register_batch(bb, ba, **bkw))
+        got, ph, _, loop_s = traced(lambda: cpd_register_batch(bb, ba, **bkw))
+        solos = [cpd.cpd_register(pad_cloud(clouds[p][0], device=dev),
+                                  pad_cloud(clouds[p][1], device=dev), **bkw)
+                 for p in range(pairs)]
+    pair_equal = same(got, want)
+    solo_equal = all(
+        int(got.iterations[p]) == int(s.iterations) and torch.equal(got.error[p], s.error)
+        and all(torch.equal(getattr(got.transform, f)[p], getattr(s.transform, f))
+                for f in ("rotation", "translation", "scale"))
+        for p, s in enumerate(solos))
+    its = got.iterations.tolist()
+    pair_iters = sum(its)
+    log(f"[cpd-loop] pair axis {pairs} x {pairs_m} Hybrid: iterations {its}, the graph loop "
+        f"{loop_s * 1e3 / pair_iters:.4f} ms a pair-iteration against the eager one-iteration "
+        f"loop {eager_s * 1e3 / pair_iters:.4f}; equal to the eager loop bit for bit: "
+        f"{pair_equal}; each pair equal to its solo run: {solo_equal}")
+    check(len(set(its)) > 1, "the pairs must stop at different iterations")
+    check(pair_equal, "the pair-axis graph loop differs from the eager loop")
+    check(solo_equal, "a pair of the pair-axis loop differs from its solo run")
+    wall = time.perf_counter() - t_phase
+    log(f"[cpd-loop] phase 23: {wall:.3f} s")
+
+    def entry(name, replaces, err, key, plain_key, library=None):
+        return {"name": name, "route": "cuda", "source": "tpuslam_torch/csrc/procrustes.cu",
+                "replaces": replaces, "launches": counted[f"P {key}"], "max_abs_err": err,
+                "ms": times[key], "ms_device": times[f"{key}_device"],
+                "plain_ms": times[plain_key], **bounds[key], "library_ms": library}
+
+    return {
+        "entries": [
+            entry("procrustes svd (P)", "tpuslam/algorithms/cpd.py:408",
+                  max(svd_err, rank_err), "svd", "svd_plain", times["svd_library"]),
+            entry("procrustes error (P)", "tpuslam/algorithms/icp.py:180", err_err, "error",
+                  "error_plain"),
+            entry("procrustes moments (P)", "tpuslam/algorithms/cpd.py:408", mom_err,
+                  "moments", "moments_plain"),
+        ],
+        "runs": runs, "pair_axis": {"iterations": its, "equal": pair_equal,
+                                    "solo_equal": solo_equal,
+                                    "eager_ms_per_pair_iter": eager_s * 1e3 / pair_iters,
+                                    "loop_ms_per_pair_iter": loop_s * 1e3 / pair_iters},
+        "launches": counted, "wall": wall,
     }
 
 
@@ -2733,6 +3076,7 @@ def main(dev=None, sizes=FULL) -> int:
     from tpuslam_torch.harness.ab_kernels import graph_ms
     from tpuslam_torch.harness.measure import build_headline_pair, measure_icp_100k
     from tpuslam_torch.kernels import (
+        P_ENTRIES,
         TALLIED,
         bound,
         build,
@@ -3030,8 +3374,10 @@ def main(dev=None, sizes=FULL) -> int:
     )
     wall = time.perf_counter() - t0
     counted = launch_counts()
-    launches = {k: counted[k] for k in ("K1", "K2", "K3", "P", "K1 skipped", "K3 skipped")}
+    launches = {k: counted[k] for k in ("K1", "K2", "K3", "P", "K1 skipped", "K3 skipped",
+                                        "P procrustes", "P error")}
     on_device = dict(zip(TALLIED, tally(dev)[:, 0].tolist()))
+    on_device["P"] = sum(on_device[k] for k in P_ENTRIES)
     arms = list(nn_hier.ARM_TRACE)
     cos = (np.trace(rot.astype(np.float64).T @ r_true.astype(np.float64)) - 1) / 2
     angle = float(np.degrees(np.arccos(np.clip(cos, -1.0, 1.0))))
@@ -3043,7 +3389,7 @@ def main(dev=None, sizes=FULL) -> int:
         f"{wall:.3f} s")
     log(f"[slice] launches the kernels counted on the device {on_device} (each must equal "
         f"the wrappers' count, a replay's booked from it)")
-    for name in TALLIED:
+    for name in ("K1", "K2", "K3", "P", "P procrustes", "P error"):
         check(launches[name] > 0, f"the registration did not launch {name}")
         check(launches[name] == on_device[name],
               f"{name}: the wrappers counted {launches[name]} launches, the device "
@@ -3211,6 +3557,13 @@ def main(dev=None, sizes=FULL) -> int:
     log(f"[bench] summary: {json.dumps(benches)}")
     phase22 = device_loop_phases(dev, smi, kind, sizes, time_ms)
     log(f"[loop] summary: {json.dumps({k: v for k, v in phase22.items() if k != 'entry'})}")
+    phase23 = cpd_loop_phases(dev, smi, kind, sizes, time_ms)
+    log(f"[cpd-loop] summary: {json.dumps({k: v for k, v in phase23.items() if k != 'entries'})}")
+    # K4's and K5's launches on the CPD device loop's runs, and those of
+    # them that did no work (an unselected route, no fat block)
+    for entry, key in zip(cpd_kernels, ("K4_denom", "K4_moments", "K5_denom", "K5_moments")):
+        entry["launches_device_loop"] = phase23["launches"][key]
+        entry["launches_skipped_device_loop"] = phase23["launches"][f"{key} skipped"]
     per_pair = slice8["sequence"]["scan seeded"]["launches_per_pair"]
     for entry, name in zip(cpd_kernels[:2], ("denom", "moments")):
         entry["launches_per_batched_iter"] = slice8["k4"]["launches_per_batched_iter"]
@@ -3276,6 +3629,9 @@ def main(dev=None, sizes=FULL) -> int:
         *cpd_kernels,
         {**phase22["entry"], "launches": launches["P"],
          "launches_per_iter": per_iter["P"], "launches_per_sequence_pair": per_pair["P"]},
+        # the error entry's main path is the ICP registration of phase 5
+        *({**e, "launches": launches["P error"]} if e["name"] == "procrustes error (P)" else e
+          for e in phase23["entries"]),
     ]
     for entry, key in zip(kernels, SHARD_KERNELS):
         entry["front_end_launches"] = front["launches"][entry["name"]]

@@ -222,18 +222,20 @@ def test_cpd_batch_recovers(rng):
 def test_cpd_pair_axis_equals_solo_bit_for_bit(rng, monkeypatch, mode, use_fgt, use_kernels):
     """The pair-axis EM loop gives each pair its solo run's bits.  With the
     kernels (their plain versions here) every iteration's exact and
-    truncated E-steps are one call of K4's batch form over the pairs that
-    step; FGT-phase pairs run the FGT alone."""
-    from tpuslam_torch.algorithms import batch as batch_mod
+    truncated E-steps are one call of K4's batch form over all pairs (a
+    pair that has stopped is frozen, as the JAX loop freezes it), one a
+    loop iteration, chunk after chunk; FGT-phase pairs run the FGT
+    alone."""
+    from tpuslam_torch.algorithms import cpd as cpd_mod
 
     calls = []
-    real = batch_mod.cpd_estep_dense_batch
+    real = cpd_mod.cpd_estep_dense_batch
 
     def counting(transformed, *args, **kwargs):
         calls.append(transformed.shape[0])
         return real(transformed, *args, **kwargs)
 
-    monkeypatch.setattr(batch_mod, "cpd_estep_dense_batch", counting)
+    monkeypatch.setattr(cpd_mod, "cpd_estep_dense_batch", counting)
     # the FGT case runs past Hybrid's switch (iterations 20-27 on these
     # small pairs); the others stay short, as K4's plain version is slow
     sizes = [120, 100, 110] if use_fgt else [300, 250, 280]
@@ -253,17 +255,21 @@ def test_cpd_pair_axis_equals_solo_bit_for_bit(rng, monkeypatch, mode, use_fgt, 
         # the FGT phase first, then the truncated one on K4's batch form
         assert 0 < len(calls) < kw["max_iterations"]
     else:
-        assert calls == [3] * kw["max_iterations"]
+        k = cpd_mod.LOOP_CHUNK
+        chunks = -(-int(batch.iterations.max()) // k)
+        assert calls == [3] * (k * chunks)
 
 
 def test_cpd_pair_axis_mixed_stops(rng, monkeypatch):
-    """Pairs that stop at different iterations keep their states; the
-    batch shrinks to the pairs still stepping."""
-    from tpuslam_torch.algorithms import batch as batch_mod
+    """Pairs that stop at different iterations keep their states: a pair
+    that has stopped is frozen (the JAX loop's freeze) while the batch
+    form still computes every pair, one call a loop iteration until the
+    last pair stops."""
+    from tpuslam_torch.algorithms import cpd as cpd_mod
 
     calls = []
-    real = batch_mod.cpd_estep_dense_batch
-    monkeypatch.setattr(batch_mod, "cpd_estep_dense_batch",
+    real = cpd_mod.cpd_estep_dense_batch
+    monkeypatch.setattr(cpd_mod, "cpd_estep_dense_batch",
                         lambda t, *a, **k: calls.append(t.shape[0]) or real(t, *a, **k))
     befores, afters = [], []
     for angle, trans in ((0.02, 0.05), (0.3, 0.8), (0.15, 0.3)):
@@ -279,7 +285,8 @@ def test_cpd_pair_axis_mixed_stops(rng, monkeypatch):
     assert len(set(iters)) > 1, iters
     for i in range(3):
         _equal(batch, i, cpd_register(_pair(bb, i), _pair(ba, i), **kw))
-    assert calls == [sum(it > k for it in iters) for k in range(max(iters))]
+    k = cpd_mod.LOOP_CHUNK
+    assert calls == [3] * (k * -(-max(iters) // k))
 
 
 def test_cpd_pair_axis_large_truncated_pairs_take_k5(rng, monkeypatch):
@@ -293,10 +300,22 @@ def test_cpd_pair_axis_large_truncated_pairs_take_k5(rng, monkeypatch):
     from tpuslam_torch.algorithms import cpd as cpd_mod
     from tpuslam_torch.kernels import cpd_cand
 
-    calls = []
-    real = batch_mod.cpd_estep_dense_batch
-    monkeypatch.setattr(batch_mod, "cpd_estep_dense_batch",
+    calls, chunks = [], []
+    real = cpd_mod.cpd_estep_dense_batch
+    real_chunk = cpd_mod._em_chunk
+    monkeypatch.setattr(cpd_mod, "cpd_estep_dense_batch",
                         lambda t, *a, **k: calls.append(t.shape[0]) or real(t, *a, **k))
+
+    def chunk(cfg, k, phase, *args):
+        # each chunk's phase, batch-form calls and first PHASE_TRACE entry
+        # (its iterations are booked after it returns)
+        before = len(calls)
+        chunks.append([phase, len(cpd_mod.PHASE_TRACE)])
+        out = real_chunk(cfg, k, phase, *args)
+        chunks[-1].append(len(calls) - before)
+        return out
+
+    monkeypatch.setattr(cpd_mod, "_em_chunk", chunk)
     monkeypatch.setattr(batch_mod, "CAND_MIN_ROWS", 1024)
     monkeypatch.setattr(cpd_mod, "HYBRID_SWITCH", 0.5)
     befores, afters, _ = make_pairs(rng, [1100, 1050], angle=0.1, trans=0.3)
@@ -310,9 +329,18 @@ def test_cpd_pair_axis_large_truncated_pairs_take_k5(rng, monkeypatch):
     routes = list(cpd_cand.ROUTE_TRACE)
     assert "exact" in phases and "trunc" in phases, phases
     # every truncated E-step went through cpd_estep_cand, every exact one
-    # through the batch form
+    # through the batch form: one call over both pairs each iteration of a
+    # fast-phase chunk, none in a slow-phase chunk, and each chunk's
+    # iterations all of its phase
     assert len(routes) == phases.count("trunc") and "k5" in routes, routes
-    assert sum(calls) == phases.count("exact"), (calls, phases)
+    assert set(calls) == {2}, calls
+    k = cpd_mod.LOOP_CHUNK
+    fast = [c for c in chunks if c[0] == "fast"]
+    assert len(calls) == k * len(fast), (calls, chunks)
+    ends = [c[1] for c in chunks[1:]] + [len(phases)]
+    for (phase, start, n), end in zip(chunks, ends):
+        assert n == (k if phase == "fast" else 0), chunks
+        assert set(phases[start:end]) <= {"exact" if phase == "fast" else "trunc"}, chunks
     for i in range(2):
         solo = cpd_register(_pair(bb, i), _pair(ba, i), **kw)
         _equal(batch, i, solo)

@@ -20,7 +20,7 @@ import pytest
 import torch
 
 from tpuslam_torch.harness import bench_report, benchkit
-from tpuslam_torch.kernels import KERNELS, SKIPPED
+from tpuslam_torch.kernels import KERNELS, P_ENTRIES, SKIPPED
 
 REPO_ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 HEADLINE_KEYS = {"metric", "value", "unit", "vs_baseline"}
@@ -156,7 +156,7 @@ def test_report_keys_cover_the_jax_report(tmp_path):
         assert row["fixture"] in ("uniform-box", "tiled-bunny")
         assert row["reps"] == len(row["ms"]) == 1
         assert row["min_ms"] <= row["median_ms"] <= row["max_ms"]
-        assert set(row["launches"]) == set(KERNELS) | set(SKIPPED)
+        assert set(row["launches"]) == set(KERNELS) | set(P_ENTRIES) | set(SKIPPED)
         assert set(row["launches"].values()) == {0}  # the plain versions launch nothing
         assert row["expects"]
 

@@ -1363,3 +1363,230 @@ def test_replayed_graph_books_the_launches_the_device_counted(rng, cuda, use_spa
         assert counts["K1 skipped"] + counts["K3 skipped"] == 2 * 3 * 20
     else:
         assert counts["K1"] == 3 * 20 and counts["K1 skipped"] == counts["K3 skipped"] == 0
+
+
+def _cpd_pair(rng, n, cuda):
+    before = (rng.random((n, 3)) * 10).astype(np.float32)
+    r = get_random_rotation_matrix(rng, 0.1)
+    after = (before @ r.T + get_random_translation_vector(rng, 0.5)).astype(np.float32)
+    return pad_cloud(before, device=cuda), pad_cloud(after[rng.permutation(n)], device=cuda)
+
+
+_CPD_MODES = {
+    "exact": dict(approximation_type=ApproximationType.NONE, weight=0.1, tolerance=1e-5,
+                  max_iterations=60),
+    "hybrid_fgt": dict(approximation_type=ApproximationType.Hybrid, use_fgt=True, weight=0.1,
+                       tolerance=0.0, const_scale=True, max_iterations=40),
+    "hybrid_exact": dict(approximation_type=ApproximationType.Hybrid, use_fgt=False,
+                         weight=0.1, tolerance=0.0, const_scale=True, max_iterations=40),
+}
+
+
+@pytest.mark.parametrize("mode", list(_CPD_MODES))
+def test_cpd_device_loop_graph_equals_eager_one_iteration_loop(rng, cuda, mode):
+    """The CPD loop's captured, replayed chunks (one graph a Hybrid phase
+    with the FGT) against the eager loop of one iteration a read, bit for
+    bit (R, t, scale, sigma^2, iterations, E-steps, K5 routes) at k = 1,
+    2, 3 and 5; a warm registration reads the host only at its chunks."""
+    from tpuslam_torch.algorithms import cpd, icp
+    from tpuslam_torch.harness.benchkit import count_syncs
+
+    b, a = _cpd_pair(rng, 8192, cuda)
+    kw = _CPD_MODES[mode]
+
+    def run():
+        cpd.PHASE_TRACE.clear()
+        cpd_cand.ROUTE_TRACE.clear()
+        res = cpd_register(b, a, **kw)
+        return res, list(cpd.PHASE_TRACE), list(cpd_cand.ROUTE_TRACE)
+
+    icp.CUDA_GRAPHS = False
+    try:
+        want, want_phases, want_routes = run()
+    finally:
+        icp.CUDA_GRAPHS = True
+    if mode != "exact":
+        assert "trunc" in want_phases
+    saved = cpd.LOOP_CHUNK
+    try:
+        for k in (1, 2, 3, 5):
+            cpd.LOOP_CHUNK = k
+            with icp.graph_scope({}):
+                for _ in range(2):  # capture, then replay the scope's graphs
+                    got, phases, routes = run()
+                    assert got.iterations == want.iterations
+                    for f in ("rotation", "translation", "scale"):
+                        assert torch.equal(getattr(got.transform, f),
+                                           getattr(want.transform, f))
+                    assert torch.equal(got.error, want.error)
+                    assert phases == want_phases and routes == want_routes
+        cpd.LOOP_CHUNK = 2
+        with icp.graph_scope({}):
+            run()
+            _, _, sites = count_syncs(lambda: cpd_register(b, a, **kw))
+            _, _, setup = count_syncs(lambda: cpd._EM(
+                b, a, 1e-3, kw["weight"], kw["tolerance"], kw["approximation_type"], 10.0, 8,
+                kw.get("use_fgt"), 128, None, False, False).initial(None))
+    finally:
+        cpd.LOOP_CHUNK = saved
+    loop = [s for s, v in sites.items() if v > setup.get(s, 0)]
+    assert all(s.startswith(("device_loop.py", "cpd.py")) for s in loop), (sites, setup)
+
+
+def test_cpd_pair_axis_graph_gives_each_pair_its_solo_bits(rng, cuda):
+    """The pair-axis loop on the card: graph against eager, and each pair
+    against its solo run, bit for bit, with pairs that switch phase and
+    stop at different iterations."""
+    from tpuslam_torch.algorithms import cpd, icp
+    from tpuslam_torch.algorithms.batch import cpd_register_batch, stack_clouds
+    from tpuslam_torch.core.types import Cloud
+
+    befores, afters = [], []
+    for i in range(6):
+        x = (rng.random((2048, 3)) * 6).astype(np.float32)
+        r = get_random_rotation_matrix(rng, 0.05 + 0.03 * i)
+        befores.append(x)
+        afters.append((x @ r.T + 0.1 * i).astype(np.float32)[rng.permutation(2048)])
+    bb, ba = stack_clouds(befores, device=cuda), stack_clouds(afters, device=cuda)
+    kw = dict(approximation_type=ApproximationType.Hybrid, weight=0.1, tolerance=1e-5,
+              max_iterations=60)
+    icp.CUDA_GRAPHS = False
+    try:
+        want = cpd_register_batch(bb, ba, **kw)
+    finally:
+        icp.CUDA_GRAPHS = True
+    with icp.graph_scope({}):
+        cpd_register_batch(bb, ba, **kw)
+        got = cpd_register_batch(bb, ba, **kw)
+    assert len(set(got.iterations.tolist())) > 1
+    assert torch.equal(got.iterations, want.iterations)
+    for f in ("rotation", "translation", "scale"):
+        assert torch.equal(getattr(got.transform, f), getattr(want.transform, f))
+    assert torch.equal(got.error, want.error)
+    for p in range(6):
+        solo = cpd.cpd_register(Cloud(bb.points[p], bb.count[p]),
+                                Cloud(ba.points[p], ba.count[p]), **kw)
+        assert int(got.iterations[p]) == solo.iterations
+        assert torch.equal(got.transform.rotation[p], solo.transform.rotation)
+        assert torch.equal(got.error[p], solo.error)
+
+
+@pytest.mark.parametrize("route", ["fgt", "k5"])
+def test_cpd_pair_axis_graph_runs_pair_by_pair_only_its_phase(rng, cuda, monkeypatch, route):
+    """Where the pair-axis E-step runs pair by pair (the FGT's fast phase;
+    K5's slow phase from ``CAND_MIN_ROWS``, lowered here to 2,048 rows), a
+    chunk runs only the pairs running in its phase when it began, and its
+    graph is kept under that set of pairs (a chunk that ends the loop the
+    first time its set comes is not captured): graph against eager, and each
+    pair against its solo run, bit for bit, with pairs that switch phase
+    and stop at different iterations (clouds of 2,048, 1,200 and 400
+    points, padded alike)."""
+    from tpuslam_torch.algorithms import batch as batch_mod
+    from tpuslam_torch.algorithms import cpd, icp
+    from tpuslam_torch.algorithms.batch import cpd_register_batch, stack_clouds
+    from tpuslam_torch.core.types import Cloud
+
+    if route == "k5":
+        monkeypatch.setattr(batch_mod, "CAND_MIN_ROWS", 2048)
+    befores, afters = [], []
+    for i, n in enumerate((2048, 1200, 400)):
+        x = (rng.random((n, 3)) * 6).astype(np.float32)
+        r = get_random_rotation_matrix(rng, 0.05 + 0.1 * i)
+        befores.append(x)
+        afters.append((x @ r.T + 0.2 * i).astype(np.float32)[rng.permutation(n)])
+    bb, ba = stack_clouds(befores, device=cuda), stack_clouds(afters, device=cuda)
+    kw = dict(approximation_type=ApproximationType.Hybrid, weight=0.1, tolerance=1e-5,
+              max_iterations=60, use_fgt=route == "fgt", fgt_k=16)
+    icp.CUDA_GRAPHS = False
+    try:
+        want = cpd_register_batch(bb, ba, **kw)
+    finally:
+        icp.CUDA_GRAPHS = True
+    sets, real_chunk = [], cpd._em_chunk
+
+    def chunk(cfg, k, phase, eligible, *args):
+        sets.append(eligible)  # eager and captured chunks; a replay runs no Python
+        return real_chunk(cfg, k, phase, eligible, *args)
+
+    monkeypatch.setattr(cpd, "_em_chunk", chunk)
+    with icp.graph_scope({}) as graphs:
+        cpd_register_batch(bb, ba, **kw)
+        got = cpd_register_batch(bb, ba, **kw)
+    by_pairs = [e for e in sets if e is not None]
+    assert by_pairs and any(len(pairs) < 3 for pairs in by_pairs), sets
+    assert {key[-1] for key in graphs} <= set(sets), list(graphs)
+    assert len(set(got.iterations.tolist())) > 1
+    assert torch.equal(got.iterations, want.iterations)
+    for f in ("rotation", "translation", "scale"):
+        assert torch.equal(getattr(got.transform, f), getattr(want.transform, f))
+    assert torch.equal(got.error, want.error)
+    for p in range(3):
+        solo = cpd.cpd_register(Cloud(bb.points[p], bb.count[p]),
+                                Cloud(ba.points[p], ba.count[p]), **kw)
+        assert int(got.iterations[p]) == solo.iterations
+        assert torch.equal(got.transform.rotation[p], solo.transform.rotation)
+        assert torch.equal(got.error[p], solo.error)
+
+
+@pytest.mark.parametrize("scale", [1.0, 0.015, 0.002])
+def test_predicated_cpd_estep_equals_the_host_route_on_the_card(rng, cuda, scale):
+    """K5's E-step with its route chosen on the device (K5's and K4's
+    passes all launched, each predicated; the fat subsets at a fixed
+    capacity) gives the host route's statistics bit for bit, at the
+    exact mode's sigma^2 (K4's route) and at the Hybrid window's."""
+    n = 20_480
+    m, t = (torch.from_numpy((rng.random((n, 3)) * 10).astype(np.float32)).to(cuda)
+            for _ in range(2))
+    m = m[morton_permutation(m, torch.ones(n, device=cuda)).long()].contiguous()
+    t = t[morton_permutation(t, torch.ones(n, device=cuda)).long()].contiguous()
+    ones = torch.ones(n, device=cuda)
+    from tpuslam_torch.algorithms.cpd import sigma_squared_init
+
+    s2 = sigma_squared_init(m, ones, t, ones) * scale
+    args = (m, ones, t, ones, s2, torch.tensor(0.01, device=cuda),
+            torch.tensor(scale < 1.0, device=cuda))
+    host = cpd_cand.cpd_estep_cand(*args)
+    dev = cpd_cand.cpd_estep_cand(*args, predicated=True)
+    for f in ("p1", "pt1", "px", "error"):
+        assert torch.equal(getattr(dev, f), getattr(host, f)), f
+
+
+def test_procrustes_moments_entry_against_plain(rng, cuda):
+    """P's moments entry (the CPD M-step's sums) against its float64 plain
+    version within 1e-12 relative, a pair's bits equal at B = 1 and B = 8,
+    and rows that are no multiple of the chunk."""
+    from tpuslam_torch.kernels import procrustes as kp
+
+    b, m, n = 8, 20_000, 17_001
+
+    def rand(*shape, lo=0.0, hi=1.0):
+        return torch.from_numpy((lo + rng.random(shape) * (hi - lo)).astype(np.float32)).to(cuda)
+
+    ops = (rand(b, m), rand(b, m, 3, hi=10.0), rand(b, m, 3, lo=-1.0), rand(b, n),
+           rand(b, n, 3, hi=10.0))
+    sums = kp.mstep_moments_batch(*ops)
+    for p in range(b):
+        ref = kp.mstep_moments_ref(*(o[p] for o in ops))
+        assert float(((sums[p] - ref).abs() / ref.abs()).max()) <= 1e-12
+        assert torch.equal(kp.mstep_moments_batch(*(o[p:p + 1] for o in ops))[0], sums[p])
+
+
+def test_replayed_cpd_graph_books_the_launches_the_device_counted(rng, cuda):
+    """After Hybrid registrations that capture and replay the CPD loop's
+    graphs, each wrapper's count equals the launches the kernels counted
+    on the device, the predicated K4 and K5 passes that did no work among
+    them as skipped; every M-step is one moments and one SVD launch."""
+    from tpuslam_torch.algorithms import icp
+
+    b, a = _cpd_pair(rng, 20_480, cuda)
+    kw = dict(approximation_type=ApproximationType.Hybrid, use_fgt=False, weight=0.1,
+              tolerance=0.0, const_scale=True, max_iterations=40)
+    kernels.reset_launch_counts()
+    with icp.graph_scope({}):
+        for _ in range(3):
+            res = cpd_register(b, a, **kw)
+    counts = kernels.launch_counts()
+    on_device = kernels.tally(cuda)[:, 0].tolist()
+    assert [counts[k] for k in kernels.TALLIED] == on_device
+    assert counts["P moments"] == counts["P svd"] >= 3 * res.iterations
+    assert counts["K5_denom skipped"] + counts["K4_denom skipped"] > 0

@@ -26,7 +26,7 @@ from tests.conftest import make_cloud, random_rigid
 from tpuslam.algorithms import batch as jbatch
 from tpuslam.algorithms.icp import icp_register as jax_icp_register
 from tpuslam.core.types import pad_cloud as jax_pad_cloud
-from tpuslam_torch.algorithms import icp
+from tpuslam_torch.algorithms import device_loop, icp
 from tpuslam_torch.algorithms.batch import _icp_batched_loop, stack_clouds
 from tpuslam_torch.algorithms.icp import ICPResume, icp_register, icp_register_chunked
 from tpuslam_torch.core.types import pad_cloud
@@ -320,15 +320,15 @@ def test_graph_scope_nests_and_restores():
     """``graph_scope``: an inner scope without a dict shares the open one,
     one with a dict holds that dict, and each restores what was open; on
     the CPU the loop captures nothing into it."""
-    assert icp._SCOPE is None
+    assert device_loop._SCOPE is None
     with icp.graph_scope() as outer:
         with icp.graph_scope() as inner:
             assert inner is outer
         own = {}
         with icp.graph_scope(own) as held:
-            assert held is own and icp._SCOPE is own
-        assert icp._SCOPE is outer
-    assert icp._SCOPE is None
+            assert held is own and device_loop._SCOPE is own
+        assert device_loop._SCOPE is outer
+    assert device_loop._SCOPE is None
     rng = np.random.default_rng(3)
     before, after = _pair(rng, 0.1, 0.5, n=128)
     with icp.graph_scope() as graphs:

@@ -189,3 +189,56 @@ def test_procrustes_wrappers_refuse_bad_operands(rng):
     with pytest.raises(RuntimeError, match="CPU or CUDA"):
         kp.weighted_procrustes_batch(pts.to("meta"), pts.to("meta"), torch.ones(1, 16,
                                                                                  device="meta"))
+
+
+def _moments_operands(rng, b, m, n):
+    p1 = _t(rng.random((b, m)))
+    moving = _t(rng.random((b, m, 3)) * 10 - 5)
+    px = _t(rng.random((b, m, 3)) * 2 - 1)
+    pt1 = _t(rng.random((b, n)))
+    target = _t(rng.random((b, n, 3)) * 10 - 5)
+    return p1, moving, px, pt1, target
+
+
+@pytest.mark.parametrize("m,n", [(300, 250), (1500, 700), (1, 0)])
+def test_mstep_moments_plain_version_matches_float64(rng, m, n):
+    """P's moments entry (the CPD M-step's sums) on the CPU: each pair's 18
+    sums in float64 over chunks of ``CHUNK_ROWS`` rows against a float64
+    torch reference summed in one go, within 1e-12 relative to the sum of
+    the terms' magnitudes; a pair's bits are the same at B = 1 and B = 3."""
+    from tpuslam_torch.kernels import procrustes as kp
+
+    ops = _moments_operands(rng, 3, m, n)
+    sums = kp.mstep_moments_batch(*ops)
+    assert sums.shape == (3, kp.MSTEP_WIDTH) and sums.dtype == torch.float64
+    for b in range(3):
+        p, y, x, q, t = (o[b].double() for o in ops)
+        terms = [p[:, None], p[:, None] * y, q[:, None] * t,
+                 (x[:, :, None] * y[:, None, :]).reshape(-1, 9),
+                 (q * (t * t).sum(1))[:, None], (p * (y * y).sum(1))[:, None]]
+        ref = torch.cat([z.sum(0) for z in terms])
+        scale = torch.cat([z.abs().sum(0) for z in terms])
+        assert bool(((sums[b] - ref).abs() <= 1e-12 * scale + 1e-300).all())
+        solo = kp.mstep_moments_batch(*(o[b:b + 1] for o in ops))
+        assert torch.equal(solo[0], sums[b])
+
+
+def test_mstep_from_moments_matches_the_float32_mstep(rng):
+    """The M-step from P's float64 sums against the float32 products it
+    replaced (A = px^T B - Np mu_a mu_b^T in float32 ``matmul``s), in both
+    scale branches: R, t, scale and sigma^2 within 1e-5 relative."""
+    from tpuslam_torch.algorithms import cpd
+    from tpuslam_torch.core.types import Sufficient
+
+    p1, mv, px, pt1, tg = (o[0] for o in _moments_operands(rng, 1, 400, 300))
+    stats = Sufficient(p1=p1, pt1=pt1, px=px, error=None)
+    for const_scale in (False, True):
+        got = cpd.cpd_mstep(mv, tg, stats, const_scale, torch.tensor(0.9))
+        np_ = p1.sum()
+        mu_b, mu_a = p1 @ mv / np_, pt1 @ tg / np_
+        a_mat = px.T @ mv - np_ * torch.outer(mu_a, mu_b)
+        want = cpd.mstep_from_moments(
+            np_, mu_b, mu_a, a_mat, (pt1 * (tg * tg).sum(1)).sum() - np_ * mu_a @ mu_a,
+            (p1 * (mv * mv).sum(1)).sum() - np_ * mu_b @ mu_b, const_scale, torch.tensor(0.9))
+        for g, w in zip(got, want):
+            torch.testing.assert_close(g, w, rtol=1e-5, atol=1e-6)

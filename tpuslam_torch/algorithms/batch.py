@@ -24,20 +24,26 @@ the unrolled one ahead:
 NICP runs ``nicp.nicp_core`` on the pair axis (its rescore one call of
 K1's batch form, ``[B, 8·k, 3]`` against ``[B, M, 3]``).
 
-CPD runs one EM loop over the pair axis (the JAX package's ``jax.vmap``
-of ``cpd_register``, whose E-step its custom-vmap rule lowers to the
-batched Pallas kernels).  Each pair keeps its solo run's set-up and
-steps (``cpd._EM``: Morton order, sigma^2_0, constants, FGT
-clusterings, phase choice, M-step), and a pair that has stopped keeps
-its state, so every pair's ``iterations`` is its own.  Each iteration
-reads every running pair's stop test and phase back in one read; the
-exact and truncated E-steps of the stepping pairs then run as one call
-of K4's batch form (``kernels/cpd_dense.py::cpd_estep_dense_batch``,
-only the stepping pairs: K4 gives a pair the bits of its B = 1 call),
-except the truncated E-steps of clouds of ``CAND_MIN_ROWS`` rows or
-more, which take K5 one by one as the solo run does, and pairs in an
-FGT phase run ``cpd_estep_fgt`` one by one.  The M-step and the stop
-test reduce over a pair's rows, so they run pair by pair.
+CPD runs the solo device-resident EM loop (``cpd._em_loop``) over the
+pair axis (the JAX package's ``jax.vmap`` of ``cpd_register``, whose
+E-step its custom-vmap rule lowers to the batched Pallas kernels).  Each
+pair keeps its solo run's set-up (``cpd._EM``: Morton order, sigma^2_0,
+constants, FGT clusterings), stacked, and is frozen on its own stop
+test and, in Hybrid with the FGT, its own phase, so every pair's
+``iterations`` is its own; the loop reads the host once a chunk of
+iterations (on CUDA a replayed CUDA graph).  A chunk of Hybrid with the
+FGT runs the fast phase while any running pair needs it, then the slow
+phase.  With the kernels, each iteration's exact and truncated E-steps
+of all pairs are one call of K4's batch form
+(``kernels/cpd_dense.py::cpd_estep_dense_batch``: K4 gives a pair the
+bits of its B = 1 call), except truncated E-steps of clouds of
+``CAND_MIN_ROWS`` rows or more, which take K5 pair by pair as the solo
+run does; FGT E-steps run pair by pair.  Pair by pair, a chunk runs
+only the pairs that were running in its phase when it began (the set
+is part of its graph's key): any other pair stays frozen through it.
+The M-step is one launch of kernel P's moments entry and one of its
+SVD entry for all pairs, each pair's sums in a fixed order of its own
+rows.
 
 Each ICP and CPD pair equals its solo run bit for bit, on the CPU and on
 CUDA, wherever the pairs are padded as the solo run is: the kernels and
@@ -68,12 +74,11 @@ from tpuslam_torch.algorithms.icp import (
     prepare_spatial,
     resolve_use_spatial,
 )
-from tpuslam_torch.algorithms.cpd import PHASE_TRACE, _EM
+from tpuslam_torch.algorithms.cpd import _EM, _em_loop, _EMCarry, _stack_trees
 from tpuslam_torch.algorithms.nicp import nicp_core
 from tpuslam_torch.config.configuration import ApproximationType
 from tpuslam_torch.core.device import resolve_device
-from tpuslam_torch.core.types import Cloud, RigidTransform, Sufficient, pad_cloud, round_up
-from tpuslam_torch.kernels.cpd_dense import cpd_estep_dense_batch
+from tpuslam_torch.core.types import Cloud, RigidTransform, pad_cloud, round_up
 from tpuslam_torch.ops.nn_hier import HierState, HierTarget, hier_state_init
 
 # the lowering crossover of icp_register_batch on the CPU: unroll when
@@ -262,31 +267,6 @@ def nicp_register_batch(
     )
 
 
-def _cpd_exact_batch(ems, states, plans, pairs) -> dict:
-    """The exact and truncated E-steps of ``pairs`` as one call of K4's
-    batch form (``cpd_estep_dense_batch``), each pair under its own
-    sigma^2, constant and truncation flag: {pair: its statistics}, with
-    the bits of its solo E-step (K4's passes give a pair the bits of its
-    B = 1 call, its tail sums each pair's rows alone, and K5, the solo
-    slow phase's kernel, equals K4 bit for bit)."""
-    device = ems[pairs[0]].device
-    # the flags filled on the device: no blocking host-to-device copy
-    flag = {b: torch.full((), b, dtype=torch.bool, device=device) for b in (False, True)}
-    for p in pairs:
-        PHASE_TRACE.append("trunc" if plans[p][3] else "exact")
-    out = cpd_estep_dense_batch(
-        torch.stack([ems[p].transformed(states[p]) for p in pairs]),
-        torch.stack([ems[p].mask_b for p in pairs]),
-        torch.stack([ems[p].target for p in pairs]),
-        torch.stack([ems[p].mask_a for p in pairs]),
-        torch.stack([plans[p][1] for p in pairs]),
-        torch.stack([plans[p][2] for p in pairs]),
-        torch.stack([flag[plans[p][3]] for p in pairs]),
-    )
-    return {p: Sufficient(p1=out.p1[i], pt1=out.pt1[i], px=out.px[i], error=out.error[i])
-            for i, p in enumerate(pairs)}
-
-
 def cpd_register_batch(
     befores: Cloud,
     afters: Cloud,
@@ -308,51 +288,26 @@ def cpd_register_batch(
     with every trajectory-determining knob of the solo call, so each
     pair's result is its solo run's, bit for bit.  ``use_kernels`` as in
     the solo call: with the kernels the exact and truncated E-steps of
-    all stepping pairs are one call of K4's batch form (truncated ones of
+    all pairs are one call of K4's batch form (truncated ones of
     ``CAND_MIN_ROWS`` rows or more take K5 pair by pair), else each pair
     runs the oracle.  ``iterations`` is an i32[B] tensor."""
     _check_pairs(befores, afters)
-    b = befores.points.shape[0]
     ems = [
         _EM(_pair(befores, p), _pair(afters, p), eps, weight, tolerance, approximation_type,
             ratio_of_far_field, order_of_truncation, use_fgt, fgt_k, use_kernels,
-            centroid_init, assume_sorted=False)
-        for p in range(b)
+            centroid_init, assume_sorted=False, const_scale=const_scale)
+        for p in range(befores.points.shape[0])
     ]
-    states = [em.initial(None) for em in ems]
-    running = list(range(b))
-    while True:
-        running = [p for p in running if states[p].iterations < max_iterations]
-        if not running:
-            break
-        # the one read back of the iteration: each running pair's stop test
-        # and phase; a pair that stops keeps its state from then on
-        flags = torch.stack([ems[p].flags(states[p]) for p in running]).tolist()
-        fast = {p: f for p, (go, f) in zip(running, flags) if go}
-        running = list(fast)
-        if not running:
-            break
-        plans = {p: ems[p].plan(states[p], fast[p]) for p in running}
-        exact = [p for p in running if not plans[p][0]
-                 and not (plans[p][3] and ems[p].rows >= CAND_MIN_ROWS)]
-        stats = {}
-        if exact and ems[0].use_kernels:
-            stats = _cpd_exact_batch(ems, states, plans, exact)
-        for p in running:
-            if p in stats:
-                continue
-            fgt, sigma_e, constant, trunc = plans[p]
-            transformed = ems[p].transformed(states[p])
-            stats[p] = (ems[p].fgt_stats(transformed, sigma_e, states[p]) if fgt
-                        else ems[p].exact_stats(transformed, sigma_e, constant, trunc))
-        for p in running:
-            states[p] = ems[p].advance(states[p], stats[p], const_scale)
+    # every pair is padded alike, so every pair has the first pair's config
+    cfg = ems[0].config._replace(pair_cand=ems[0].rows >= CAND_MIN_ROWS)
+    c, _ = _em_loop(cfg, _stack_trees([em.inputs for em in ems]),
+                    _EMCarry(_stack_trees([em.initial(None) for em in ems])),
+                    int(max_iterations), verbose=False, iter_offset=0)
+    s = c.s
     return RegistrationResult(
-        transform=RigidTransform(*(torch.stack([getattr(s, f) for s in states])
-                                   for f in ("rotation", "translation", "scale"))),
-        iterations=torch.tensor([s.iterations for s in states], dtype=torch.int32,
-                                device=befores.points.device),
-        error=torch.stack([s.sigma2 for s in states]),
+        transform=RigidTransform(s.rotation, s.translation, s.scale),
+        iterations=s.iterations,
+        error=s.sigma2,
     )
 
 

@@ -31,42 +31,80 @@ CPU, as the JAX package's ``use_pallas=None`` takes Pallas on the TPU
 only; ``use_kernels=True`` on the CPU runs the kernel path through the
 plain versions.
 
-The EM loop is one eager Python loop.  It reads the stop condition and
-the Hybrid phase (``sigma^2 > 0.015 sigma^2_0``) back to the host once
-per iteration, and picks the iteration's E-step from them, as the
-reference does (``PHASE_TRACE`` records it).  The JAX package instead
-runs a flat sequence of specialised ``while_loop``s (fast, slow, fast,
-slow, then a loop with a ``lax.cond`` body), and its slow loops call
-K5's checked form, leaving the loop on overflow so the cond-bodied loop
-redoes the iteration.  All of that exists to keep ``lax.cond`` out of
-loops on the TPU.  The eager slow phase calls K5's unchecked form, which
-routes to K4 on overflow.  That is the JAX trajectory: the checked form
-without overflow returns the unchecked form's statistics bit for bit
-(``tests/test_pallas_cpd.py::test_cand_checked_matches_plain``), and an
-overflowing iteration is redone by the JAX package exactly as the
-unchecked form computes it.
+The EM loop keeps all of its state on the device, as the JAX package's
+``lax.while_loop``s do, and freezes a registration once it has stopped
+(an iteration after the stop test fails, after ``max_iterations`` or in
+the other Hybrid phase changes nothing: ``torch.where`` over the carry).
+It runs in chunks of ``LOOP_CHUNK`` iterations with one host read a
+chunk: whether the loop has stopped, the iteration count, the phase the
+next chunk needs, each iteration's E-step and K5 route, and the launches
+the device counted (``PHASE_TRACE`` and ``kernels/cpd_cand.py``'s
+``ROUTE_TRACE`` are booked from it).  Hybrid with the FGT runs one
+phase's E-step a chunk (the JAX package's ``cond_fast``/``cond_slow``
+loops): an iteration of the other phase is frozen and the next chunk
+takes that phase.  Every other mode has one E-step, its phase a device
+flag (the JAX ``else`` branch): Hybrid below the FGT crossover picks its
+constant and truncation flag on the device.  The slow phase calls K5,
+which chooses between its route and K4's on the device inside a CUDA
+graph (``recording_routes``); the JAX package's checked form, which
+leaves the loop on overflow so the cond-bodied loop redoes the
+iteration, gives the same statistics bit for bit
+(``tests/test_pallas_cpd.py::test_cand_checked_matches_plain``).
+
+The chunks run on ``algorithms/device_loop.py``, as ICP's do:
+on CUDA a chunk is captured once as a CUDA graph (after one eager chunk
+of its key, its warm-up) and replayed; the graph is kept, by shape,
+mode, phase and history, in the open ``graph_scope`` (else for the
+registration), and a later registration of the same key loads its
+inputs and replays it.  ``verbose=True`` (the reference's printf),
+``icp.CUDA_GRAPHS = False`` (the eager baseline of a measurement) and
+the CPU run eager chunks, of one iteration on CUDA, of ``LOOP_CHUNK`` on
+the CPU, K5 reading its route on the host.  Whatever the chunk, the
+result is the eager one-iteration loop's, bit for bit.  The pair-axis
+loop (``algorithms/batch.py``) runs the same chunks over a leading pair
+axis; where its E-step runs pair by pair, a chunk runs only the pairs
+that were running in its phase when it began (they are part of its
+key), as the other pairs stay frozen through it.
+
+The M-step's sums come from kernel P's moments entry, float64 over fixed
+row chunks, and its SVD from P's SVD entry (``kernels/procrustes.py``):
+a pair of the pair-axis loop gets its solo run's bits.
 """
 
 from __future__ import annotations
 
 import math
 from collections import deque
-from typing import NamedTuple, Optional
+from typing import Any, NamedTuple, Optional
 
 import torch
 
+from tpuslam_torch import kernels
+from tpuslam_torch.algorithms import icp
+from tpuslam_torch.algorithms.device_loop import (
+    graph_scope,
+    keep,
+    leaves,
+    rebuild,
+    run_chunks,
+    signature,
+)
 from tpuslam_torch.algorithms.icp import RegistrationResult
 from tpuslam_torch.config.configuration import ApproximationType
 from tpuslam_torch.core.types import Cloud, RigidTransform, Sufficient, pick_block
-from tpuslam_torch.kernels.cpd_cand import cpd_estep_cand
+from tpuslam_torch.kernels.cpd_cand import ROUTES, ROUTE_TRACE, cpd_estep_cand, recording_routes
+from tpuslam_torch.kernels.cpd_dense import cpd_estep_dense_batch, device_scalar
+from tpuslam_torch.kernels.procrustes import mstep_moments_batch
 from tpuslam_torch.ops.fgt import (
     FGTModel,
+    SegmentOrder,
     compute_fgt_model_multi,
     fgt_predict,
     fgt_predict_multi,
+    fgt_tables,
     k_center_ordered,
 )
-from tpuslam_torch.ops.geometry import transform_points
+from tpuslam_torch.ops.geometry import matvec3, transform_points
 from tpuslam_torch.ops.procrustes import svd_rotation_det
 from tpuslam_torch.ops.spatial import morton_permutation
 
@@ -74,6 +112,7 @@ __all__ = [
     "CPD_FGT_CROSSOVER", "CPDResume", "CPDState", "MStepResult", "Sufficient",
     "cpd_estep", "cpd_estep_auto", "cpd_estep_fgt", "cpd_mstep",
     "cpd_register", "cpd_register_chunked", "hybrid_fast_threshold", "mstep_from_moments",
+    "mstep_from_sums",
     "resolve_use_fgt", "resolve_use_kernels", "sigma_squared_init",
     "uniform_constant",
 ]
@@ -90,6 +129,13 @@ HYBRID_SWITCH = 0.015
 # the E-step of each recent EM iteration, newest last: "fgt", "exact"
 # (no truncation) or "trunc" (Hybrid's slow phase)
 PHASE_TRACE: deque = deque(maxlen=4096)
+PHASES = ("fgt", "exact", "trunc")  # by phase code
+# EM iterations a chunk of the device-resident loop (one host read a
+# chunk), chosen from card runs of 1, 2, 4 and 8 at 20,480 rows exact and
+# 102,400 rows Hybrid (harness/loop_chunk.py --cpd, PERF.md): 2 was the
+# best Hybrid row, where a frozen FGT iteration at the phase switch costs
+# a whole E-step, and within 8 % of the best exact row
+LOOP_CHUNK = 2
 
 
 def resolve_use_fgt(
@@ -159,9 +205,9 @@ def cpd_estep(
     drops responsibilities whose exponent is below ``log(truncate)``."""
     dev = transformed.device
     m, n = transformed.shape[0], target.shape[0]
-    sigma2 = torch.as_tensor(sigma2, dtype=torch.float32, device=dev)
-    constant = torch.as_tensor(constant, dtype=torch.float32, device=dev)
-    trunc_active = torch.as_tensor(trunc_active, device=dev).to(torch.bool)
+    sigma2 = device_scalar(sigma2, torch.float32, dev)
+    constant = device_scalar(constant, torch.float32, dev)
+    trunc_active = device_scalar(trunc_active, torch.bool, dev)
     tile = pick_block(n)
     multiplier = -0.5 / sigma2
     log_trunc = math.log(truncate)
@@ -230,7 +276,7 @@ def cpd_estep_fgt(
     (then all ``fgt_k`` centres are used: a tighter approximation than
     the reference's adaptive count); ``orders`` = ``(order_y, order_x)``,
     their ``SegmentOrder``s, made with them, skips the sorts."""
-    sigma2 = torch.as_tensor(sigma2, dtype=torch.float32, device=transformed.device)
+    sigma2 = device_scalar(sigma2, torch.float32, transformed.device)
     if sigma2_init is not None and clusters is None:
         k_rt = torch.minimum(
             torch.minimum(m, n),
@@ -289,21 +335,56 @@ def mstep_from_moments(
 ) -> MStepResult:
     """The moment->transform core of the M-step (``MStep``,
     ``coherentpointdrift.cpp:241-278``): det-corrected 3x3 SVD of ``A``
-    (``torch.linalg.svd``/``det``, cuSOLVER on CUDA, as
+    (kernel P's SVD entry on CUDA, ``torch.linalg.svd``/``det`` on the CPU:
     ``ops/procrustes.py``), scale ``tr(S D) / denominator`` and the
-    sigma^2 update."""
+    sigma^2 update, in float32.  With a leading pair axis on every operand
+    each pair gets the bits it gets alone (P's SVD entry is one launch for
+    all pairs; the 3-vector products are elementwise, ``matvec3``)."""
     inv_np = 1.0 / np_
     r, sv, det_uv = svd_rotation_det(a_mat)
     # tr(S diag(1, 1, det(U V^T)))  (coherentpointdrift.cpp:258-260)
-    scale_num = sv[0] + sv[1] + det_uv * sv[2]
+    scale_num = sv[..., 0] + sv[..., 1] + det_uv * sv[..., 2]
     if const_scale:
         scale = prev_scale
         sigma2 = inv_np * torch.abs(sigma_sub + scale_den - 2.0 * scale_num) / 3.0
     else:
         scale = scale_num / scale_den
         sigma2 = inv_np * torch.abs(sigma_sub - scale * scale_num) / 3.0
-    t = mu_a - scale * torch.matmul(r, mu_b)
+    t = mu_a - scale[..., None] * matvec3(r, mu_b)
     return MStepResult(rotation=r, translation=t, scale=scale, sigma2=sigma2)
+
+
+def _dot3(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``a . b`` over the last axis of 3, added left to right: elementwise,
+    so a pair of a batch gets the bits it gets alone."""
+    return a[..., 0] * b[..., 0] + a[..., 1] * b[..., 1] + a[..., 2] * b[..., 2]
+
+
+def mstep_from_sums(sums: torch.Tensor, const_scale: bool,
+                    prev_scale: torch.Tensor) -> MStepResult:
+    """The M-step from kernel P's moments ``sums`` f64[..., 18]
+    (``kernels/procrustes.py::MSTEP_SUMS``): ``Np``, the means, ``A = px^T
+    B - Np mu_a mu_b^T`` (``coherentpointdrift.cpp:240``) and the two
+    sigma^2 terms in float64, rounded to float32 for
+    ``mstep_from_moments``."""
+    np64 = sums[..., 0]
+    mu_b = sums[..., 1:4] / np64[..., None]
+    mu_a = sums[..., 4:7] / np64[..., None]
+    a_mat = (sums[..., 7:16].reshape(sums.shape[:-1] + (3, 3))
+             - np64[..., None, None] * (mu_a[..., :, None] * mu_b[..., None, :]))
+    sigma_sub = sums[..., 16] - np64 * _dot3(mu_a, mu_a)
+    scale_den = sums[..., 17] - np64 * _dot3(mu_b, mu_b)
+    f32 = [x.to(torch.float32) for x in (np64, mu_b, mu_a, a_mat, sigma_sub, scale_den)]
+    return mstep_from_moments(*f32, const_scale, prev_scale)
+
+
+def mstep_sums(moving: torch.Tensor, target: torch.Tensor, stats: Sufficient) -> torch.Tensor:
+    """Kernel P's moments entry on one pair (``moving`` f32[M, 3]) or a
+    batch (f32[B, M, 3]) -> f64[18] or f64[B, 18]."""
+    if moving.dim() == 3:
+        return mstep_moments_batch(stats.p1, moving, stats.px, stats.pt1, target)
+    return mstep_moments_batch(stats.p1[None], moving[None], stats.px[None], stats.pt1[None],
+                               target[None])[0]
 
 
 def cpd_mstep(
@@ -314,25 +395,18 @@ def cpd_mstep(
     prev_scale: torch.Tensor,
 ) -> MStepResult:
     """Closed-form rigid M-step (``MStep``, ``coherentpointdrift.cpp:
-    223-278``).  Padded rows have ``p1 = 0`` and ``pt1 = 0`` by the
-    E-step's construction, so every sum here is mask-clean."""
-    np_ = torch.sum(stats.p1)
-    inv_np = 1.0 / np_
-    mu_b = inv_np * torch.matmul(stats.p1, moving)
-    mu_a = inv_np * torch.matmul(stats.pt1, target)
-    # A = px^T B - Np mu_a mu_b^T   (coherentpointdrift.cpp:240)
-    a_mat = torch.matmul(stats.px.T, moving) - np_ * torch.outer(mu_a, mu_b)
-    sigma_sub = (torch.sum(stats.pt1 * torch.sum(target * target, -1))
-                 - np_ * torch.dot(mu_a, mu_a))
-    scale_den = (torch.sum(stats.p1 * torch.sum(moving * moving, -1))
-                 - np_ * torch.dot(mu_b, mu_b))
-    return mstep_from_moments(np_, mu_b, mu_a, a_mat, sigma_sub, scale_den,
-                              const_scale, prev_scale)
+    223-278``): the sums of kernel P's moments entry, then
+    ``mstep_from_sums``.  Padded rows have ``p1 = 0`` and ``pt1 = 0`` by
+    the E-step's construction, so every sum is mask-clean.  With a leading
+    pair axis, each pair's bits are its solo call's."""
+    return mstep_from_sums(mstep_sums(moving, target, stats), const_scale, prev_scale)
 
 
 class CPDState(NamedTuple):
-    """The EM loop's carry; every field but ``iterations`` stays on the
-    device."""
+    """The EM loop's carry, all on the device; with a leading pair axis in
+    the pair-axis loop.  Inside the loop ``iterations`` is an i32 tensor;
+    a result's ``em`` holds it as an int (a tensor i32[B] on the pair
+    axis)."""
 
     rotation: torch.Tensor  # f32[3,3]
     translation: torch.Tensor  # f32[3]
@@ -340,7 +414,7 @@ class CPDState(NamedTuple):
     sigma2: torch.Tensor  # f32[]
     log_likelihood: torch.Tensor  # f32[]
     ntol: torch.Tensor  # f32[]
-    iterations: int
+    iterations: Any
 
 
 class CPDResume(NamedTuple):
@@ -365,76 +439,148 @@ def _centroid_shift(moving, mask_b, target, mask_a, m, n) -> torch.Tensor:
             - torch.sum(moving * mask_b[:, None], dim=0) / m)
 
 
+class FGTSetup(NamedTuple):
+    """What the FGT E-steps of a registration reuse (``_EM``): both
+    clouds' clusterings and their segment orders."""
+
+    centers_y: torch.Tensor  # f32[K, 3], centres of the untransformed moving cloud
+    indx_y: torch.Tensor  # i32[M]
+    order_y: torch.Tensor  # i64[M]
+    lengths_y: torch.Tensor  # i64[K]
+    centers_x: torch.Tensor  # f32[K, 3]
+    indx_x: torch.Tensor  # i32[N]
+    order_x: torch.Tensor  # i64[N]
+    lengths_x: torch.Tensor  # i64[K]
+
+
+class EMInputs(NamedTuple):
+    """The tensors an EM iteration reads: a CUDA graph's static inputs.
+    With a leading pair axis on every field in the pair-axis loop."""
+
+    moving: torch.Tensor  # f32[M, 3], Morton-sorted with the kernels
+    target: torch.Tensor  # f32[N, 3]
+    mask_b: torch.Tensor  # f32[M]
+    mask_a: torch.Tensor  # f32[N]
+    m: torch.Tensor  # f32[], valid moving rows
+    n: torch.Tensor  # f32[]
+    weight: torch.Tensor  # f32[], clamped
+    eps: torch.Tensor  # f32[]
+    tolerance: torch.Tensor  # f32[]
+    sigma2_0: torch.Tensor  # f32[]
+    c_init: torch.Tensor  # f32[]
+    switch: torch.Tensor  # f32[], the Hybrid switch 0.015 sigma^2_0
+    cap: torch.Tensor  # i32[], max_iterations
+    offset: torch.Tensor  # i32[], iterations done before (the history ring's slots)
+    fgt: Optional[FGTSetup] = None
+
+
+class EMConfig(NamedTuple):
+    """What an EM iteration does, beside its tensors: part of a CUDA
+    graph's key."""
+
+    approximation_type: ApproximationType
+    use_fgt: bool
+    use_kernels: bool
+    fgt_k: int
+    order_of_truncation: int
+    ratio_of_far_field: float
+    const_scale: bool
+    # the pair-axis loop: truncated E-steps pair by pair through K5 (the
+    # solo route) rather than in one call of K4's batch form
+    pair_cand: bool = False
+
+    @property
+    def split(self) -> bool:
+        """One phase's E-step a chunk: Hybrid with the FGT, or with its
+        slow phase pair by pair beside the fast phase's batch form."""
+        return (self.approximation_type == ApproximationType.Hybrid
+                and (self.use_fgt or self.pair_cand))
+
+
+class _EMCarry(NamedTuple):
+    """What a chunk carries: the loop state and, with ``record_history``,
+    the ring f32[H, 4]."""
+
+    s: CPDState
+    history: Optional[torch.Tensor] = None
+
+
 class _EM:
-    """One registration's EM set-up and steps (module docstring): the
-    clouds (Morton-sorted with the kernels unless ``assume_sorted``),
-    sigma^2_0, the constants, the FGT clusterings, and the loop's phase
-    choice, E-step and M-step.  ``cpd_register`` runs one; the batched
-    loop (``algorithms/batch.py``) one per pair, so each pair takes its
+    """One registration's EM set-up (module docstring): the clouds
+    (Morton-sorted with the kernels unless ``assume_sorted``), sigma^2_0,
+    the constants and the FGT clusterings, as ``EMInputs``, and its
+    ``EMConfig``.  ``cpd_register`` runs one; the pair-axis loop
+    (``algorithms/batch.py``) stacks one per pair, so each pair takes its
     solo run's steps."""
 
     def __init__(self, before: Cloud, after: Cloud, eps, weight, tolerance,
                  approximation_type: ApproximationType, ratio_of_far_field: float,
                  order_of_truncation: int, use_fgt: Optional[bool], fgt_k: int,
-                 use_kernels: Optional[bool], centroid_init: bool, assume_sorted: bool):
+                 use_kernels: Optional[bool], centroid_init: bool, assume_sorted: bool,
+                 const_scale: bool = False):
         if before.points.device != after.points.device:
             raise ValueError(
                 f"before lies on {before.points.device}, after on "
                 f"{after.points.device}: register them on one device")
         self.device = device = before.points.device
-        self.approximation_type = approximation_type
-        self.ratio_of_far_field = ratio_of_far_field
-        self.order_of_truncation = order_of_truncation
-        self.use_fgt = resolve_use_fgt(use_fgt, approximation_type, before.padded_size,
-                                       after.padded_size)
-        self.use_kernels = resolve_use_kernels(use_kernels, device)
+        use_fgt = resolve_use_fgt(use_fgt, approximation_type, before.padded_size,
+                                  after.padded_size)
+        use_kernels = resolve_use_kernels(use_kernels, device)
         moving, target = before.points, after.points
         mask_b, mask_a = before.mask(), after.mask()
-        if self.use_kernels and not assume_sorted:
+        if use_kernels and not assume_sorted:
             # Morton-sorted rows give K5 spatially compact blocks to skip
             perm_b = morton_permutation(moving, mask_b).long()
             moving, mask_b = moving[perm_b], mask_b[perm_b]
             perm_a = morton_permutation(target, mask_a).long()
             target, mask_a = target[perm_a], mask_a[perm_a]
-        self.moving, self.target = moving.contiguous(), target.contiguous()
+        moving, target = moving.contiguous(), target.contiguous()
         self.rows = min(len(moving), len(target))  # padded rows of the smaller cloud
-        self.mask_b, self.mask_a = mask_b, mask_a
-        self.m, self.n = m, n = torch.sum(mask_b), torch.sum(mask_a)
+        m, n = torch.sum(mask_b), torch.sum(mask_a)
 
-        self.weight = torch.clamp(self.f32(weight), 1e-6, 1.0 - 1e-6)
-        self.eps = self.f32(eps)
-        self.tolerance = self.f32(tolerance)
+        weight = torch.clamp(self.f32(weight), 1e-6, 1.0 - 1e-6)
         if centroid_init:
             self.t0 = _centroid_shift(moving, mask_b, target, mask_a, m, n)
-            self.sigma2_0 = sigma_squared_init(moving + self.t0, mask_b, target, mask_a)
+            sigma2_0 = sigma_squared_init(moving + self.t0, mask_b, target, mask_a)
         else:
             self.t0 = torch.zeros(3, dtype=torch.float32, device=device)
-            self.sigma2_0 = sigma_squared_init(moving, mask_b, target, mask_a)
-        self.c_init = uniform_constant(self.sigma2_0, self.weight, m, n)
-        self.switch = HYBRID_SWITCH * self.sigma2_0
+            sigma2_0 = sigma_squared_init(moving, mask_b, target, mask_a)
 
         # the FGT clusterings, made once with the order their segment sums
         # take: the target's never changes, and the moving cloud's
         # assignments are invariant under the similarity transforms EM
         # applies, while its centres (segment means) move with it
-        self.fgt_kk = min(fgt_k, before.padded_size, after.padded_size)
-        if self.use_fgt and approximation_type != ApproximationType.NONE:
-            self.fgt_y = k_center_ordered(moving, mask_b, self.fgt_kk)
-            self.fgt_x = k_center_ordered(target, mask_a, self.fgt_kk)
+        fgt_kk = min(fgt_k, before.padded_size, after.padded_size)
+        fgt = None
+        if use_fgt and approximation_type != ApproximationType.NONE:
+            cy, iy, oy = k_center_ordered(moving, mask_b, fgt_kk)
+            cx, ix, ox = k_center_ordered(target, mask_a, fgt_kk)
+            fgt = FGTSetup(cy, iy, oy.order, oy.lengths, cx, ix, ox.order, ox.lengths)
+            # the static tables on the device before any capture
+            fgt_tables(order_of_truncation, device)
+        zero = torch.zeros((), dtype=torch.int32, device=device)
+        self.inputs = EMInputs(
+            moving=moving, target=target, mask_b=mask_b, mask_a=mask_a, m=m, n=n,
+            weight=weight, eps=self.f32(eps), tolerance=self.f32(tolerance), sigma2_0=sigma2_0,
+            c_init=uniform_constant(sigma2_0, weight, m, n), switch=HYBRID_SWITCH * sigma2_0,
+            cap=zero, offset=zero, fgt=fgt)
+        self.config = EMConfig(approximation_type, use_fgt, use_kernels, fgt_kk,
+                               order_of_truncation, ratio_of_far_field, const_scale)
 
     def f32(self, x) -> torch.Tensor:
-        return torch.as_tensor(x, dtype=torch.float32, device=self.device)
+        return device_scalar(x, torch.float32, self.device)
 
     def initial(self, resume: Optional[CPDResume]) -> CPDState:
+        zero = torch.zeros((), dtype=torch.int32, device=self.device)
         if resume is None:
             return CPDState(
                 rotation=torch.eye(3, dtype=torch.float32, device=self.device),
                 translation=self.t0,
                 scale=self.f32(1.0),
-                sigma2=self.sigma2_0,
+                sigma2=self.inputs.sigma2_0,
                 log_likelihood=self.f32(0.0),
-                ntol=self.tolerance + 10.0,
-                iterations=0,
+                ntol=self.inputs.tolerance + 10.0,
+                iterations=zero,
             )
         return CPDState(
             rotation=self.f32(resume.rotation),
@@ -443,75 +589,256 @@ class _EM:
             sigma2=self.f32(resume.sigma2),
             log_likelihood=self.f32(resume.log_likelihood),
             ntol=self.f32(resume.ntol),
-            iterations=0,
+            iterations=zero,
         )
 
-    def flags(self, s: CPDState) -> torch.Tensor:
-        """bool[2] on the device: whether the loop goes on (a non-finite
-        sigma^2 or ntol fails its comparison), and the Hybrid phase."""
-        return torch.stack([
-            torch.isfinite(s.log_likelihood) & (s.ntol > self.tolerance) & (s.sigma2 > self.eps),
-            s.sigma2 > self.switch,
-        ])
 
-    def plan(self, s: CPDState, fast: bool):
-        """The iteration's E-step: ``(fgt, sigma_e, constant, trunc)``
-        (``constant`` None for the FGT, which makes its own)."""
-        if self.approximation_type == ApproximationType.NONE:
-            return False, s.sigma2, self.c_init, False
-        if self.approximation_type == ApproximationType.Full:
-            # sigma^2 floor (coherentpointdrift.cpp:152-155) and the
-            # FGT-mode constant from the current sigma^2 (cpdutils.cpp:44)
-            sigma_e = torch.clamp_min(s.sigma2, 0.05)
-            if self.use_fgt:
-                return True, sigma_e, None, False
-            return False, sigma_e, uniform_constant(sigma_e, self.weight, self.m, self.n), False
-        # Hybrid (coherentpointdrift.cpp:157-164)
-        if not fast:
-            return False, s.sigma2, self.c_init, True
-        if self.use_fgt:
-            return True, s.sigma2, None, False
-        return False, s.sigma2, uniform_constant(s.sigma2, self.weight, self.m, self.n), False
+def _pair_of(tree, p: int):
+    """Pair ``p``'s slice of every tensor of a tree with a leading pair axis."""
+    return rebuild(tree, (t[p] for t in leaves(tree)))
 
-    def transformed(self, s: CPDState) -> torch.Tensor:
-        return transform_points(self.moving, s.rotation, s.translation, s.scale)
 
-    def fgt_stats(self, transformed, sigma_e, s: CPDState) -> Sufficient:
-        PHASE_TRACE.append("fgt")
-        centers_y0, indx_y, order_y = self.fgt_y
-        centers_x, indx_x, order_x = self.fgt_x
-        centers_y = transform_points(centers_y0, s.rotation, s.translation, s.scale)
-        return cpd_estep_fgt(
-            transformed, self.mask_b, self.target, self.mask_a, sigma_e, self.weight, self.m,
-            self.n, self.fgt_kk, self.order_of_truncation, self.ratio_of_far_field,
-            sigma2_init=self.sigma2_0, clusters=(centers_y, indx_y, centers_x, indx_x),
-            orders=(order_y, order_x),
-        )
+def _stack_trees(trees):
+    """Trees of one structure stacked leaf by leaf on a new leading axis."""
+    stacked = [torch.stack(ls) for ls in zip(*(leaves(t) for t in trees))]
+    return rebuild(trees[0], iter(stacked))
 
-    def exact_stats(self, transformed, sigma_e, constant, trunc: bool) -> Sufficient:
-        PHASE_TRACE.append("trunc" if trunc else "exact")
-        return cpd_estep_auto(transformed, self.mask_b, self.target, self.mask_a, sigma_e,
-                              constant, trunc, use_kernels=self.use_kernels)
 
-    def estep(self, s: CPDState, fast: bool) -> Sufficient:
-        fgt, sigma_e, constant, trunc = self.plan(s, fast)
+def _going(t: EMInputs, s: CPDState) -> torch.Tensor:
+    """The reference's loop condition (``coherentpointdrift.cpp:104``): a
+    finite log-likelihood, ntol above the tolerance, sigma^2 above eps
+    (a non-finite sigma^2 or ntol fails its comparison), and iterations
+    left under the cap."""
+    return (torch.isfinite(s.log_likelihood) & (s.ntol > t.tolerance) & (s.sigma2 > t.eps)
+            & (s.iterations < t.cap))
+
+
+def _plan(cfg: EMConfig, t: EMInputs, s: CPDState, fast: torch.Tensor, phase: Optional[str]):
+    """The iteration's E-step: ``(fgt, sigma_e, constant, trunc, code)``
+    (``constant`` None for the FGT, which makes its own; ``trunc`` False,
+    or a device flag; ``code`` the PHASES code, an int or a device
+    tensor)."""
+    if cfg.approximation_type == ApproximationType.NONE:
+        return False, s.sigma2, t.c_init, False, 1
+    if cfg.approximation_type == ApproximationType.Full:
+        # sigma^2 floor (coherentpointdrift.cpp:152-155) and the FGT-mode
+        # constant from the current sigma^2 (cpdutils.cpp:44)
+        sigma_e = torch.clamp_min(s.sigma2, 0.05)
+        if cfg.use_fgt:
+            return True, sigma_e, None, False, 0
+        return False, sigma_e, uniform_constant(sigma_e, t.weight, t.m, t.n), False, 1
+    # Hybrid (coherentpointdrift.cpp:157-164)
+    if cfg.split:
+        if phase == "slow":
+            return False, s.sigma2, t.c_init, torch.ones_like(fast), 2
+        if cfg.use_fgt:
+            return True, s.sigma2, None, False, 0
+        return False, s.sigma2, uniform_constant(s.sigma2, t.weight, t.m, t.n), False, 1
+    constant = torch.where(fast, uniform_constant(s.sigma2, t.weight, t.m, t.n), t.c_init)
+    return False, s.sigma2, constant, torch.logical_not(fast), torch.where(fast, 1, 2)
+
+
+def _fgt_estep(cfg: EMConfig, t: EMInputs, s: CPDState, transformed, sigma_e) -> Sufficient:
+    f = t.fgt
+    centers_y = transform_points(f.centers_y, s.rotation, s.translation, s.scale)
+    return cpd_estep_fgt(
+        transformed, t.mask_b, t.target, t.mask_a, sigma_e, t.weight, t.m, t.n, cfg.fgt_k,
+        cfg.order_of_truncation, cfg.ratio_of_far_field, sigma2_init=t.sigma2_0,
+        clusters=(centers_y, f.indx_y, f.centers_x, f.indx_x),
+        orders=(SegmentOrder(f.order_y, f.lengths_y), SegmentOrder(f.order_x, f.lengths_x)),
+    )
+
+
+def _routed(routes: list, start: int, active: torch.Tensor) -> None:
+    """The route codes appended since ``start``, plus 2 where their
+    iteration was frozen (not booked)."""
+    for i in range(start, len(routes)):
+        routes[i] = torch.where(active, routes[i], routes[i] + 2)
+
+
+def _pair_by_pair(cfg: EMConfig, phase: Optional[str]) -> bool:
+    """Whether the pair-axis E-step of a chunk of ``phase`` runs pair by
+    pair: the FGT's, the oracle's, and the truncated one of clouds of
+    ``CAND_MIN_ROWS`` rows (``cfg.pair_cand``); the rest is one call of
+    K4's batch form."""
+    if not cfg.use_kernels:
+        return True
+    approx = cfg.approximation_type
+    fgt = cfg.use_fgt and (approx == ApproximationType.Full
+                           or (approx == ApproximationType.Hybrid and phase == "fast"))
+    return fgt or (cfg.pair_cand and phase == "slow")
+
+
+def _estep(cfg: EMConfig, t: EMInputs, s: CPDState, fast, phase, eligible, active,
+           routes: list) -> tuple:
+    """The iteration's E-step, solo or over the pair axis, and its phase
+    code(s).  Pair by pair, only the ``eligible`` pairs run theirs (None:
+    every pair); the others are frozen for the whole chunk and get zero
+    statistics, which the freeze discards."""
+    fgt, sigma_e, constant, trunc, code = _plan(cfg, t, s, fast, phase)
+    batched = t.moving.dim() == 3
+    scale = s.scale[..., None, None]
+    transformed = transform_points(t.moving, s.rotation, s.translation, scale)
+    if not batched:
+        start = len(routes)
         if fgt:
-            return self.fgt_stats(self.transformed(s), sigma_e, s)
-        return self.exact_stats(self.transformed(s), sigma_e, constant, trunc)
+            stats = _fgt_estep(cfg, t, s, transformed, sigma_e)
+        else:
+            stats = cpd_estep_auto(transformed, t.mask_b, t.target, t.mask_a, sigma_e,
+                                   constant, trunc, use_kernels=cfg.use_kernels)
+        _routed(routes, start, active)
+        return stats, code
+    b = t.moving.shape[0]
+    flags = (torch.zeros(b, dtype=torch.bool, device=t.moving.device) if trunc is False
+             else trunc)
+    if not _pair_by_pair(cfg, phase):
+        # one call of K4's batch form: a pair gets the bits of its B = 1 call
+        stats = cpd_estep_dense_batch(transformed, t.mask_b, t.target, t.mask_a, sigma_e,
+                                      constant, flags)
+        return stats, code
+    runs = range(b) if eligible is None else eligible
+    per = []
+    for p in range(b):
+        tp, sp = _pair_of(t, p), _pair_of(s, p)
+        if p not in runs:
+            per.append(Sufficient(
+                p1=torch.zeros_like(tp.mask_b), pt1=torch.zeros_like(tp.mask_a),
+                px=torch.zeros_like(tp.moving), error=torch.zeros_like(sp.sigma2)))
+            continue
+        start = len(routes)
+        if fgt:
+            per.append(_fgt_estep(cfg, tp, sp, transformed[p], sigma_e[p]))
+        else:
+            per.append(cpd_estep_auto(transformed[p], tp.mask_b, tp.target, tp.mask_a,
+                                      sigma_e[p], constant[p],
+                                      trunc if trunc is False else flags[p],
+                                      use_kernels=cfg.use_kernels))
+        _routed(routes, start, active[p])
+    return Sufficient(*(torch.stack(f) for f in zip(*per))), code
 
-    def advance(self, s: CPDState, stats: Sufficient, const_scale: bool) -> CPDState:
-        """The M-step after ``stats``: the next loop state."""
-        ntol = torch.abs((stats.error - s.log_likelihood) / stats.error)
-        mres = cpd_mstep(self.moving, self.target, stats, const_scale, s.scale)
-        return CPDState(
-            rotation=mres.rotation,
-            translation=mres.translation,
-            scale=mres.scale,
-            sigma2=mres.sigma2,
-            log_likelihood=stats.error,
-            ntol=ntol,
-            iterations=s.iterations + 1,
-        )
+
+def _em_step(cfg: EMConfig, t: EMInputs, c: _EMCarry, phase: Optional[str], eligible,
+             routes: list) -> tuple:
+    """One EM iteration on the device, frozen where the loop has stopped or
+    (Hybrid with the FGT) where the phase is not the chunk's: the new
+    carry and the iteration's phase code(s), plus 3 where frozen."""
+    s = c.s
+    go = _going(t, s)
+    fast = s.sigma2 > t.switch
+    active = go
+    if cfg.split:
+        active = go & (fast if phase == "fast" else torch.logical_not(fast))
+    stats, code = _estep(cfg, t, s, fast, phase, eligible, active, routes)
+    ntol = torch.abs((stats.error - s.log_likelihood) / stats.error)
+    mres = mstep_from_sums(mstep_sums(t.moving, t.target, stats), cfg.const_scale, s.scale)
+    new = CPDState(rotation=mres.rotation, translation=mres.translation, scale=mres.scale,
+                   sigma2=mres.sigma2, log_likelihood=stats.error, ntol=ntol,
+                   iterations=s.iterations + 1)
+    history = c.history
+    if history is not None:
+        slot = ((s.iterations + t.offset) % history.shape[0]).to(torch.int64).reshape(1)
+        row = torch.stack([new.sigma2, new.ntol, new.log_likelihood, new.scale])[None]
+        history = history.index_copy(0, slot, row)
+    code = torch.full_like(s.iterations, code) if isinstance(code, int) else code
+    return keep(active, _EMCarry(new, history), c), torch.where(active, code, code + 3)
+
+
+def _pair_states(t: EMInputs, s: CPDState) -> torch.Tensor:
+    """Each problem's state, i32 (one a pair): 0 stopped, 1 running in the
+    fast phase, 2 running in the slow one."""
+    return torch.where(_going(t, s), torch.where(s.sigma2 > t.switch, 1, 2), 0).to(
+        torch.int32).reshape(-1)
+
+
+def _em_chunk(cfg: EMConfig, k: int, phase: Optional[str], eligible, predicated: bool,
+              t: EMInputs, c: _EMCarry) -> tuple:
+    """``k`` EM iterations on the device with no host read (``predicated``:
+    none in K5's routing either).  Returns the carry, the status i32
+    vector (the launches the device counted, ``len(kernels.TALLIED)`` of
+    them; the iteration count or counts; each problem's state
+    (``_pair_states``); each iteration's phase codes; each K5 call's route
+    code, plus 2 where its iteration was frozen) and sigma^2."""
+    device = t.moving.device
+    tally = kernels.tally(device)
+    ran = None if tally is None else tally[:, 0].clone()
+    codes = []
+    with recording_routes(predicated) as routes:
+        for _ in range(k):
+            c, code = _em_step(cfg, t, c, phase, eligible, routes)
+            codes.append(code.to(torch.int32).reshape(-1))
+    launched = (torch.zeros(len(kernels.TALLIED), dtype=torch.int32, device=device)
+                if tally is None else tally[:, 0] - ran)
+    status = torch.cat([launched, c.s.iterations.to(torch.int32).reshape(-1),
+                        _pair_states(t, c.s), *codes,
+                        *(r.to(torch.int32).reshape(-1) for r in routes)])
+    return c, status, c.s.sigma2
+
+
+def _read_em_status(vals: list, nb: int, k: int) -> tuple:
+    """The iteration counts and each problem's state (``_pair_states``)
+    from a chunk's status; each iteration that ran is appended to
+    ``PHASE_TRACE``, each of its K5 routes to ``ROUTE_TRACE``."""
+    at = len(kernels.TALLIED)
+    counts, states = vals[at:at + nb], vals[at + nb:at + 2 * nb]
+    phases = vals[at + 2 * nb:at + 2 * nb + k * nb]
+    PHASE_TRACE.extend(PHASES[code] for code in phases if code < 3)
+    ROUTE_TRACE.extend(ROUTES[code] for code in vals[at + 2 * nb + k * nb:] if code < 2)
+    return counts, states
+
+
+def _em_loop(cfg: EMConfig, t: EMInputs, c: _EMCarry, max_iterations: int, verbose: bool,
+             iter_offset: int) -> tuple:
+    """The whole EM loop after its set-up (module docstring): the final
+    carry and the iteration count(s).  ``t``'s ``cap`` and ``offset`` are
+    filled in here.  A chunk's key holds its phase and, where its
+    pair-axis E-step runs pair by pair, the pairs that run theirs: those
+    that were running in the chunk's phase when it began (any other pair
+    stays frozen through the chunk)."""
+    device = t.moving.device
+    batched = t.moving.dim() == 3
+    nb = t.moving.shape[0] if batched else 1
+    use_graph = device.type == "cuda" and icp.CUDA_GRAPHS and not verbose
+    single = verbose or (device.type == "cuda" and not use_graph)
+    k = 1 if single else int(LOOP_CHUNK)
+    if k < 1:
+        raise ValueError(f"a chunk must be >= 1 iteration (LOOP_CHUNK), got {k}")
+    # filled on the device: no blocking host-to-device copy
+    t = t._replace(
+        cap=torch.full(t.cap.shape, max(int(max_iterations), -1), dtype=torch.int32,
+                       device=device),
+        offset=torch.full(t.offset.shape, int(iter_offset), dtype=torch.int32, device=device))
+    counts = [0] * nb
+    if max_iterations <= 0:
+        return c, counts
+    # the set-up's one read: each problem's state, whether the loop runs
+    # and its first phase
+    states = _pair_states(t, c.s).tolist()
+    base = ("cpd", cfg, k, c.history is not None, str(device),
+            tuple(signature(x) for x in leaves(t)), signature(c))
+
+    def key_of():
+        phase = ("fast" if 1 in states else "slow") if cfg.split else None
+        eligible = None
+        if batched and _pair_by_pair(cfg, phase):
+            want = {"fast": (1,), "slow": (2,), None: (1, 2)}[phase]
+            eligible = tuple(p for p, st in enumerate(states) if st in want)
+        return base + (phase, eligible)
+
+    def chunk_of(key):
+        return lambda inp, carry: _em_chunk(cfg, k, key[-2], key[-1], use_graph, inp, carry)
+
+    def read(vals, sigma2):
+        before = counts[0]
+        counts[:], states[:] = _read_em_status(vals, nb, k)
+        if verbose and counts[0] > before:
+            # the reference's per-iteration printf
+            # (coherentpointdrift.cpp:121: "loop_nr %d, error: %f")
+            print(f"loop_nr {counts[0] + iter_offset}, error: {float(sigma2)}")
+        return not any(states)
+
+    if any(states):
+        c = run_chunks(key_of, chunk_of, t, c, read, use_graph)
+    return c, counts
 
 
 def cpd_register(
@@ -551,40 +878,29 @@ def cpd_register(
     ``record_history`` keeps a ring of the last ``history_length``
     iterations' (sigma^2, ntol, log-likelihood, scale), iteration i in
     slot i % history_length.  ``resume`` continues from a ``CPDResume``.
-    The result's ``error`` is sigma^2, its ``em`` the final loop state."""
+    The result's ``error`` is sigma^2, its ``em`` the final loop state.
+    The loop runs ``LOOP_CHUNK`` iterations between host reads, which
+    changes no bit of the result (module docstring; ``graph_scope``
+    keeps its CUDA graphs for later registrations of the same key)."""
     em = _EM(before, after, eps, weight, tolerance, approximation_type, ratio_of_far_field,
-             order_of_truncation, use_fgt, fgt_k, use_kernels, centroid_init, assume_sorted)
+             order_of_truncation, use_fgt, fgt_k, use_kernels, centroid_init, assume_sorted,
+             const_scale)
     iter_offset = 0 if resume is None else int(resume.done_before)
-    s = em.initial(resume)
     history = None
     if record_history:
         history = torch.full((history_length, 4), float("nan"),
                              dtype=torch.float32, device=em.device)
-
-    while s.iterations < max_iterations:
-        # the one read back of the iteration: the stop condition and the phase
-        go, fast = em.flags(s).tolist()
-        if not go:
-            break
-        stats = em.estep(s, fast)
-        done = s.iterations + iter_offset
-        s = em.advance(s, stats, const_scale)
-        if record_history:
-            history[done % history_length] = torch.stack(
-                [s.sigma2, s.ntol, s.log_likelihood, s.scale])
-        if verbose:
-            # the reference's per-iteration printf
-            # (coherentpointdrift.cpp:121: "loop_nr %d, error: %f")
-            print(f"loop_nr {done + 1}, error: {float(s.sigma2)}")
+    c, counts = _em_loop(em.config, em.inputs, _EMCarry(em.initial(resume), history),
+                         int(max_iterations), verbose, iter_offset)
+    s = c.s._replace(iterations=counts[0])
     return RegistrationResult(
         transform=RigidTransform(
             rotation=s.rotation, translation=s.translation, scale=s.scale),
         iterations=s.iterations,
         error=s.sigma2,  # the reference reports sigma^2 as "error"
-        history=history,
+        history=c.history,
         em=s,
     )
-
 
 def hybrid_fast_threshold(
     before: Cloud, after: Cloud, centroid_init: bool = False
@@ -698,30 +1014,32 @@ def cpd_register_chunked(
     if phase_aware:
         thr = float(hybrid_fast_threshold(
             before, after, centroid_init=bool(kwargs.get("centroid_init", False))))
-    while True:
-        in_fast = phase_aware and (resume is None or float(resume.sigma2) > thr)
-        k = min(chunk_fast if in_fast else chunk, max_iterations - total)
-        result = cpd_register(before, after, max_iterations=k, resume=resume, **kwargs)
-        did = int(result.iterations)
-        total += did
-        s = result.em
-        resume = CPDResume(
-            rotation=s.rotation,
-            translation=s.translation,
-            scale=s.scale,
-            sigma2=s.sigma2,
-            log_likelihood=s.log_likelihood,
-            ntol=s.ntol,
-            done_before=total,
-        )
-        if checkpoint_path is not None:
-            from tpuslam_torch.harness.checkpoint import save_cpd_checkpoint
+    # the chunks share their shapes: one CUDA graph a phase serves them
+    with graph_scope():
+        while True:
+            in_fast = phase_aware and (resume is None or float(resume.sigma2) > thr)
+            k = min(chunk_fast if in_fast else chunk, max_iterations - total)
+            result = cpd_register(before, after, max_iterations=k, resume=resume, **kwargs)
+            did = int(result.iterations)
+            total += did
+            s = result.em
+            resume = CPDResume(
+                rotation=s.rotation,
+                translation=s.translation,
+                scale=s.scale,
+                sigma2=s.sigma2,
+                log_likelihood=s.log_likelihood,
+                ntol=s.ntol,
+                done_before=total,
+            )
+            if checkpoint_path is not None:
+                from tpuslam_torch.harness.checkpoint import save_cpd_checkpoint
 
-            save_cpd_checkpoint(checkpoint_path, resume, ckpt_meta)
-        # the loop stops early (converged, sigma^2 floor, non-finite) only
-        # by running fewer than the k iterations it was allowed
-        if did < k or total >= max_iterations:
-            break
+                save_cpd_checkpoint(checkpoint_path, resume, ckpt_meta)
+            # the loop stops early (converged, sigma^2 floor, non-finite)
+            # only by running fewer than the k iterations it was allowed
+            if did < k or total >= max_iterations:
+                break
     return RegistrationResult(
         transform=result.transform,
         iterations=total,

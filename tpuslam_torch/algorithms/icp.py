@@ -32,16 +32,17 @@ device and freezes a problem once it has stopped (an iteration after
 iterations changes nothing).  It runs in chunks of ``LOOP_CHUNK``
 iterations with one host read a chunk: whether the loop has stopped, the
 iteration count, the hierarchical arm of each query and the launches the
-device counted.  On CUDA a chunk is captured once as a CUDA graph
-(``_ChunkGraph``) over static input buffers and replayed, the
-hierarchical search then choosing its arm on the device.  The graph is
-kept for the registration, or, inside ``graph_scope``, for the scope's
-owner (a sequence, a stream, a chunked run, a server, a measurement),
-one per shape it meets: a later registration of the same shapes copies
-its inputs in and replays it.  ``verbose=True`` (the reference prints
-each iteration's error), ``CUDA_GRAPHS = False`` (the eager baseline of
-a measurement) and an arm that cannot be captured (``Arm.key`` None: the
-sharded arm's collectives) run eager chunks of one iteration, the search
+device counted.  ``algorithms/device_loop.py`` drives the chunks: on
+CUDA a chunk is captured once as a CUDA graph over static input buffers
+and replayed, the hierarchical search then choosing its arm on the
+device.  The graph is kept for the registration, or, inside
+``graph_scope``, for the scope's owner (a sequence, a stream, a chunked
+run, a server, a measurement), one per shape it meets: a later
+registration of the same shapes copies its inputs in and replays it.
+``verbose=True`` (the reference prints each iteration's error),
+``CUDA_GRAPHS = False`` (the eager baseline of a measurement) and an arm
+that cannot be captured (``Arm.key`` None: the sharded arm's
+collectives) run eager chunks of one iteration, the search
 reading its arm on the host; so does the CPU, at ``LOOP_CHUNK``.
 Whatever the chunk, the result is the one-iteration loop's, bit for bit.
 
@@ -53,12 +54,12 @@ with one NICP shot.
 
 from __future__ import annotations
 
-from contextlib import contextmanager
 from typing import Any, Callable, NamedTuple, Optional, Tuple
 
 import torch
 
 from tpuslam_torch import kernels
+from tpuslam_torch.algorithms.device_loop import graph_scope, keep, run_chunks, signature
 from tpuslam_torch.core.types import Cloud, RigidTransform, round_up
 from tpuslam_torch.ops.geometry import matmul3, matvec3, transform_points
 from tpuslam_torch.ops.nn import nearest_neighbors, nearest_neighbors_batch
@@ -334,46 +335,6 @@ class _Carry(NamedTuple):
     streak: Optional[torch.Tensor] = None
 
 
-def _leaves(tree) -> list:
-    """The tensors of a tree of named tuples, in order (None skipped)."""
-    if tree is None:
-        return []
-    if isinstance(tree, torch.Tensor):
-        return [tree]
-    return [t for sub in tree for t in _leaves(sub)]
-
-
-def _rebuild(tree, leaves):
-    """``tree`` with its tensors replaced, in order, from the iterator
-    ``leaves``."""
-    if tree is None:
-        return None
-    if isinstance(tree, torch.Tensor):
-        return next(leaves)
-    return type(tree)(*(_rebuild(sub, leaves) for sub in tree))
-
-
-def _signature(tree):
-    """Shapes, types and structure of a tree: part of a graph's cache key."""
-    if tree is None:
-        return None
-    if isinstance(tree, torch.Tensor):
-        return (tuple(tree.shape), tree.dtype)
-    return (type(tree).__name__, tuple(_signature(sub) for sub in tree))
-
-
-def _keep(cond: torch.Tensor, new, old):
-    """``new`` where ``cond`` holds, else ``old``, leaf by leaf (``cond``
-    broadcast over each leaf's trailing axes); an absent old leaf takes
-    the new one."""
-    if old is None or new is None:
-        return new
-    if isinstance(new, torch.Tensor):
-        c = cond.reshape(cond.shape + (1,) * (new.dim() - cond.dim()))
-        return torch.where(c, new, old)
-    return type(new)(*(_keep(cond, n, o) for n, o in zip(new, old)))
-
-
 def _running(c: _Carry, cap: torch.Tensor, patience: torch.Tensor, has_patience: bool):
     """The JAX loop's ``cond``: not done, under the cap, within patience."""
     go = torch.logical_not(c.s.done) & (c.s.iterations < cap)
@@ -405,11 +366,11 @@ def _chunk(step: Callable, k: int, has_patience: bool, predicated: bool, inputs:
         if has_patience:
             improved = new.error < c.best_e
             better = go & improved
-            best = (_keep(better, new.rotation, c.best_r),
-                    _keep(better, new.translation, c.best_t),
-                    _keep(better, new.error, c.best_e),
+            best = (keep(better, new.rotation, c.best_r),
+                    keep(better, new.translation, c.best_t),
+                    keep(better, new.error, c.best_e),
                     torch.where(go, torch.where(improved, 0, c.streak + 1), c.streak))
-        c = _Carry(_keep(go, new, c.s), *best)
+        c = _Carry(keep(go, new, c.s), *best)
         active = go if go.dim() == 0 else go.any()
         codes += [torch.where(active, code, code + 3) for code in arms]
         errs.append(err)
@@ -419,64 +380,6 @@ def _chunk(step: Callable, k: int, has_patience: bool, predicated: bool, inputs:
     status = torch.cat([launched, stopped.to(torch.int32).reshape(1),
                         c.s.iterations.to(torch.int32).reshape(-1), *codes])
     return c, status, errs
-
-
-class _ChunkGraph:
-    """One chunk of the loop captured as a CUDA graph over static buffers:
-    ``load`` copies a registration's inputs and carry in, ``replay`` runs
-    the chunk and reads its status (the buffers then hold the new carry).
-    A replay runs no wrapper, so it books the launches the device counted
-    in it (the status's first entries) to the wrappers' counters."""
-
-    def __init__(self, fn: Callable, inputs: tuple, carry: _Carry, batch: int):
-        self.batch = batch
-        self.inputs = [t.clone() for t in inputs]
-        self.carry = [t.clone() for t in _leaves(carry)]
-        self.template = _rebuild(carry, iter(self.carry))
-        kernels.tally(inputs[0].device)  # made before the capture records it
-        self.graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(self.graph):
-            out, self.status, _ = fn(tuple(self.inputs), self.template)
-            for buf, new in zip(self.carry, _leaves(out)):
-                buf.copy_(new)
-
-    def load(self, inputs: tuple, carry: _Carry) -> None:
-        for buf, t in zip(self.inputs, inputs):
-            buf.copy_(t)
-        for buf, t in zip(self.carry, _leaves(carry)):
-            buf.copy_(t)
-
-    def replay(self) -> list:
-        """Run the chunk; its status, read once, with its launches booked."""
-        self.graph.replay()
-        vals = self.status.tolist()
-        kernels.book_replay(vals[:_TALLY_ROWS], self.batch)
-        return vals
-
-    def result(self) -> _Carry:
-        """The carry after the last replay, copied out of the buffers."""
-        return _rebuild(self.template, (t.clone() for t in self.carry))
-
-
-# the graphs of the open ``graph_scope`` by shape key, or None
-_SCOPE: Optional[dict] = None
-
-
-@contextmanager
-def graph_scope(graphs: Optional[dict] = None):
-    """Within the block, the loop keeps the CUDA graph it captures for a
-    shape key in ``graphs`` (default: the open scope's, else a new dict)
-    and replays it for every later registration of that key: the owner of
-    a run of registrations holds one graph per shape it meets, for as long
-    as it holds the dict.  Outside any scope a registration's graph serves
-    that registration alone."""
-    global _SCOPE
-    prev = _SCOPE
-    _SCOPE = graphs if graphs is not None else ({} if prev is None else prev)
-    try:
-        yield _SCOPE
-    finally:
-        _SCOPE = prev
 
 
 def _read_status(vals: list, nb: int) -> Tuple[bool, list]:
@@ -556,34 +459,20 @@ def _icp_loop(
         return _chunk(step, k, has_patience, use_graph, inp, carry)
 
     counts = [0]
-    runner = None
     if max_iterations != 0:
-        graphs = key = None
-        if use_graph:
-            graphs = {} if _SCOPE is None else _SCOPE
-            key = (arm.key, divergence_guard, has_patience, k, str(device),
-                   tuple(_signature(t) for t in inputs), _signature(c))
-            runner = graphs.get(key)
-        if runner is not None:
-            runner.load(inputs, c)
-        stopped = False
-        it_before = 0
-        while not stopped:
-            if runner is None:
-                c, status, errs = fn(inputs, c)
-                vals = status.tolist()
-            else:
-                vals, errs = runner.replay(), None
-            stopped, counts = _read_status(vals, nb)
+        key = (arm.key, divergence_guard, has_patience, k, str(device),
+               tuple(signature(t) for t in inputs), signature(c))
+        it_before = [0]
+
+        def read(vals, errs):
+            stopped, counts[:] = _read_status(vals, nb)
             if verbose:
                 # the reference's per-iteration printf (basicicp.cpp:50)
-                print(f"loop_nr {it_before + 1 + iter_offset}, error: {float(errs[0])}")
-                it_before = counts[0]
-            if use_graph and runner is None and not stopped:
-                # the eager chunk was the warm-up: capture the next one
-                runner = graphs[key] = _ChunkGraph(fn, inputs, c, nb)
-        if runner is not None:
-            c = runner.result()
+                print(f"loop_nr {it_before[0] + 1 + iter_offset}, error: {float(errs[0])}")
+                it_before[0] = counts[0]
+            return stopped
+
+        c = run_chunks(lambda: key, lambda _: fn, inputs, c, read, use_graph)
     s = c.s
     iters = s.iterations if batch else counts[0]
     one = torch.ones(batch, dtype=torch.float32, device=device)

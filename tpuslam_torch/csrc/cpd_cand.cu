@@ -30,6 +30,13 @@
 // Bound: as K4's, on the pairs of the masked segments, plus one staging of
 // 1.5 KB (3.5 KB) per visited segment per CTA.
 //
+// Predication, as K4's (cpd_dense.cu): given a device route code `pred`, a
+// launch runs only where *pred == pred_value (K5's route: the admission did
+// not overflow), else every CTA returns at once and writes nothing; the
+// tally (tally.cuh) counts each launch, and such a one as skipped.  The EM
+// loop captured as a CUDA graph launches K5 and K4 both, each predicated on
+// the same code.
+//
 // The C entry points launch on the caller's stream, allocate nothing, do not
 // synchronise, and return cudaGetLastError() after the launch.
 
@@ -38,6 +45,7 @@
 #include <cstddef>
 
 #include "cpd_gauss.cuh"
+#include "tally.cuh"
 
 namespace {
 
@@ -54,9 +62,13 @@ __global__ void __launch_bounds__(kCpdThreads)
                     const float4* __restrict__ weights4,
                     const int* __restrict__ table,
                     const int* __restrict__ counts, int n_rows, int n_other,
-                    int width, float* __restrict__ out) {
+                    int width, const int* __restrict__ pred, int pred_value,
+                    int* __restrict__ tally, float* __restrict__ out) {
   __shared__ __align__(16) tpuslam::CpdRing<kMoments> ring;
   extern __shared__ int tab[];
+  const bool skipped = pred != nullptr && *pred != pred_value;
+  tally_launch(tally, skipped);
+  if (skipped) return;
   const int cta = blockIdx.x;
   const tpuslam::CpdScalars s = tpuslam::load_scalars(scalars);
   const int live = min(max(counts[cta], 0), width);
@@ -84,17 +96,20 @@ template <bool kMoments>
 int launch(const float* scalars, const float* rows, const float* other,
            const float* weights4, const int* table, const int* counts,
            int n_rows, int n_other, int width, int rows_per_thread,
-           float* out, void* stream) {
+           const int* pred, int pred_value, int* tally, float* out,
+           void* stream) {
   const int grid = n_rows / (kCpdThreads * rows_per_thread);
   const size_t smem = sizeof(int) * static_cast<size_t>(width);
   const auto w4 = reinterpret_cast<const float4*>(weights4);
   const auto st = static_cast<cudaStream_t>(stream);
   if (rows_per_thread == 2) {
     cpd_cand_kernel<kMoments, 2><<<grid, kCpdThreads, smem, st>>>(
-        scalars, rows, other, w4, table, counts, n_rows, n_other, width, out);
+        scalars, rows, other, w4, table, counts, n_rows, n_other, width,
+        pred, pred_value, tally, out);
   } else {
     cpd_cand_kernel<kMoments, 1><<<grid, kCpdThreads, smem, st>>>(
-        scalars, rows, other, w4, table, counts, n_rows, n_other, width, out);
+        scalars, rows, other, w4, table, counts, n_rows, n_other, width,
+        pred, pred_value, tally, out);
   }
   return static_cast<int>(cudaGetLastError());
 }
@@ -106,35 +121,42 @@ int launch(const float* scalars, const float* rows, const float* other,
 // segment masks), counts i32[n / (threads * rows_per_thread)], all on the
 // device and contiguous, n and m multiples of 1024, threads and
 // rows_per_thread the wrapper's geometry (64, and 1 or 2); denom f32[n] is
-// written here.  Returns a cudaError_t as int.
+// written here.  pred (device i32[1], or null: always run), pred_value and
+// tally (device i32[2], or null) as the header says.  Returns a cudaError_t
+// as int.
 extern "C" int tpuslam_cpd_denom_cand(const float* scalars, const float* ty,
                                       const float* target, const int* table,
                                       const int* counts, int n, int m,
                                       int width, int threads,
-                                      int rows_per_thread, float* denom,
+                                      int rows_per_thread, const int* pred,
+                                      int pred_value, int* tally, float* denom,
                                       void* stream) {
   if (n == 0) return 0;  // nothing to launch
   if (bad_shape(n, m, width, threads, rows_per_thread)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   return launch<false>(scalars, target, ty, nullptr, table, counts, n, m,
-                       width, rows_per_thread, denom, stream);
+                       width, rows_per_thread, pred, pred_value, tally, denom,
+                       stream);
 }
 
 // weights4 f32[n, 4] (16-byte aligned), table i32[m / (threads *
-// rows_per_thread), width] (target blocks and masks), counts beside the
-// above; acc f32[4, m] is written here.  Returns a cudaError_t as int.
+// rows_per_thread), width] (target blocks and masks), counts, pred and
+// tally beside the above; acc f32[4, m] is written here.  Returns a
+// cudaError_t as int.
 extern "C" int tpuslam_cpd_moments_cand(const float* scalars, const float* ty,
                                         const float* target,
                                         const float* weights4,
                                         const int* table, const int* counts,
                                         int n, int m, int width, int threads,
-                                        int rows_per_thread, float* acc,
+                                        int rows_per_thread, const int* pred,
+                                        int pred_value, int* tally, float* acc,
                                         void* stream) {
   if (m == 0) return 0;  // nothing to launch
   if (bad_shape(n, m, width, threads, rows_per_thread)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   return launch<true>(scalars, ty, target, weights4, table, counts, m, n,
-                      width, rows_per_thread, acc, stream);
+                      width, rows_per_thread, pred, pred_value, tally, acc,
+                      stream);
 }

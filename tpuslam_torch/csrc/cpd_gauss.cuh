@@ -355,15 +355,16 @@ __device__ __forceinline__ void cpd_cta(CpdRing<kMoments>& ring,
 // The running totals from stored per-block partials, one thread a row and
 // pair: run starts at c (denominator) or 0 and adds the partials of blocks
 // 0, 1, ... in order, so the totals equal cpd_cta's unsplit ones bit for
-// bit.  parts [batch, blocks, kC, n_rows]; out [batch, kC, n_rows].
+// bit.  parts [batch, blocks, kC, n_rows]; out [batch, kC, n_rows]; rows
+// from `rows` on (the live ones end there) are left as they are.
 template <int kC>
 __device__ __forceinline__ void cpd_combine(const float* __restrict__ scalars,
                                             const float* __restrict__ parts,
-                                            int n_rows, int blocks,
+                                            int rows, int n_rows, int blocks,
                                             float* __restrict__ out) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   const int b = blockIdx.y;
-  if (i >= n_rows) return;
+  if (i >= rows) return;
   const float* p = parts + static_cast<size_t>(b) * blocks * kC * n_rows;
 #pragma unroll
   for (int c = 0; c < kC; ++c) {

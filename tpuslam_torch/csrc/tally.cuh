@@ -1,8 +1,9 @@
-// The launch tally of the kernels that the ICP loop runs (K1, K2, K3, P):
-// a device i32[2] per kernel (kernels/__init__.py::tally), (launches run,
-// launches that returned at once as an unselected arm).  A replayed CUDA
-// graph runs no wrapper, so the loop books its launches from these counts.
-// A null tally records nothing.
+// The launch tally of the kernels that the device-resident ICP and CPD loops
+// run (K1, K2, K3, K4's and K5's passes, P's entries): a device i32[2] per
+// kernel (kernels/__init__.py::tally), (launches run, launches that returned
+// at once as an unselected arm or route).  A replayed CUDA graph runs no
+// wrapper, so the loops book its launches from these counts.  A null tally
+// records nothing.
 #pragma once
 
 #include <cuda_runtime.h>

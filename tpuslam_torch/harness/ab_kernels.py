@@ -5,7 +5,7 @@ in turns, on one CUDA card; with ``--cpd``, kernels K4 and K5 and the
 headline's dense arm and the FGT E-step.
 
     python3 tpuslam_torch/harness/ab_kernels.py OLD NEW [--out DIR]
-        [--skip-1m] [--sweep] [--cpd | --nn]
+        [--skip-1m] [--sweep] [--cpd | --nn | --procrustes]
 
 OLD and NEW are directories that each hold a ``tpuslam_torch`` package:
 for example the parent commit's, unpacked with ``git archive HEAD
@@ -42,6 +42,16 @@ pass visits; one 376,401-point Hybrid registration (30 iterations,
 tolerance 0: ``chip_smoke.py`` phase 10's protocol); last, the device
 time by kernel of one of each 376k E-step (``torch.profiler``).
 
+With ``--procrustes`` a run measures instead (``p_worker``) kernel P's
+entries on one seed's uniform rows: the Procrustes entry and the error
+entry at [1, 102,400, 3], the SVD entry on [1, 3, 3], the M-step's
+moments entry (where the checkout has it) and the whole CPD M-step
+(``cpd.cpd_mstep``) at 20,480 rows, and ``torch.linalg.svd`` on the same
+[1, 3, 3]: each by a CUDA graph of many calls (device time, the host's
+Python left out) and by back-to-back eager calls timed by CUDA events
+(the host included), with the kernels one call launches
+(``torch.profiler``'s device events).
+
 With ``--nn`` a run measures instead (``nn_worker``), on uniform boxes
 of side 10 made from one seed: K1 (identity with its plain version
 included, up to 102,400^2) at 102,400^2, 8,192^2, 16 x 2,048^2, 16,384^2,
@@ -70,6 +80,12 @@ import os
 import subprocess
 import sys
 import time
+
+if __name__ == "__main__":
+    # run as a script: its own directory, which holds harness/logging.py,
+    # must not shadow the standard library's module of that name
+    sys.path = [p for p in sys.path
+                if os.path.abspath(p or ".") != os.path.dirname(os.path.abspath(__file__))]
 
 
 HEADLINE_CALLS = 3  # measure_icp_100k calls per run (each: warm-up + 3 x 50 iterations)
@@ -668,6 +684,66 @@ def nn_worker(tree: str, label: str, out_dir: str, skip_1m: bool, sweep: bool) -
     return res
 
 
+def p_worker(tree: str, label: str, out_dir: str) -> dict:
+    """``--procrustes``: kernel P's entries in the checkout under ``tree``
+    (module docstring)."""
+    sys.path.insert(0, os.path.abspath(tree))
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    import tpuslam_torch
+    from tpuslam_torch.algorithms import cpd
+    from tpuslam_torch.core.types import Sufficient
+    from tpuslam_torch.kernels import build, procrustes
+
+    if not torch.cuda.is_available():
+        raise SystemExit("ab_kernels: no CUDA device")
+    package = os.path.dirname(os.path.abspath(tpuslam_torch.__file__))
+    if os.path.dirname(package) != os.path.abspath(tree):
+        raise SystemExit(f"ab_kernels: imported {package}, not the one under {tree}")
+    res = {"label": label, "tree": os.path.abspath(tree)}
+    res["nvidia_smi"] = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60).stdout.strip()
+    _build_and_dump(build, res, out_dir, label)
+    dev = torch.device("cuda", 0)
+    rng = np.random.Generator(np.random.PCG64(13))
+
+    def rand(*shape, lo=0.0, hi=10.0):
+        return torch.from_numpy((lo + rng.random(shape) * (hi - lo)).astype(np.float32)).to(dev)
+
+    def launches(fn):
+        fn()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        return sum(1 for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA)
+
+    n, m = 102_400, 20_480
+    before = rand(1, n, 3)
+    after = before + rand(1, n, 3, lo=-0.05, hi=0.05)
+    w = (rand(1, n, hi=1.0) > 0.3).float()
+    diff, h = after - before, rand(1, 3, 3, lo=-1.0, hi=1.0)
+    stats = Sufficient(p1=rand(m, hi=1.0), pt1=rand(m, hi=1.0), px=rand(m, 3), error=None)
+    mv, tg, one = rand(m, 3), rand(m, 3), torch.ones((), device=dev)
+    calls = {
+        "procrustes": lambda: procrustes.weighted_procrustes_batch(before, after, w),
+        "svd": lambda: procrustes.svd_rotation_det_batch(h),
+        "error": lambda: procrustes.mean_sq_error_batch(diff, w, w.sum(1)),
+        "mstep_20480": lambda: cpd.cpd_mstep(mv, tg, stats, False, one),
+    }
+    if hasattr(procrustes, "mstep_moments_batch"):
+        calls["moments_20480"] = lambda: procrustes.mstep_moments_batch(
+            stats.p1[None], mv[None], stats.px[None], stats.pt1[None], tg[None])
+    for name, fn in calls.items():
+        res[name] = {"graph_ms": graph_ms(torch, fn, 200), "eager_ms": _time_ms(torch, fn, 200),
+                     "kernels": launches(fn)}
+    res["torch_linalg_svd"] = {"eager_ms": _time_ms(torch, lambda: torch.linalg.svd(h), 50)}
+    return res
+
+
 def _build_and_dump(build, res, out_dir, label) -> None:
     """Build the checkout's kernels; keep ptxas's report and the SASS."""
     build.build(force=True)
@@ -692,6 +768,7 @@ def main(argv) -> int:
     parser.add_argument("--sweep", action="store_true")
     parser.add_argument("--cpd", action="store_true", help="K4, K5 and CPD instead")
     parser.add_argument("--nn", action="store_true", help="K1, the dense arm and the FGT instead")
+    parser.add_argument("--procrustes", action="store_true", help="kernel P's entries instead")
     a = parser.parse_args(argv)
     out_dir = os.path.abspath(a.out)
     if a.worker:
@@ -699,13 +776,15 @@ def main(argv) -> int:
             res = cpd_worker(a.trees[0], a.worker, out_dir)
         elif a.nn:
             res = nn_worker(a.trees[0], a.worker, out_dir, a.skip_1m, a.sweep)
+        elif a.procrustes:
+            res = p_worker(a.trees[0], a.worker, out_dir)
         else:
             res = worker(a.trees[0], a.worker, out_dir, a.skip_1m, a.sweep)
         print(json.dumps({k: v for k, v in res.items() if k != "ptxas"}))
         return 0
     old, new = a.trees
     extra = (["--out", out_dir] + ["--skip-1m"] * a.skip_1m + ["--sweep"] * a.sweep
-             + ["--cpd"] * a.cpd + ["--nn"] * a.nn)
+             + ["--cpd"] * a.cpd + ["--nn"] * a.nn + ["--procrustes"] * a.procrustes)
     rc = 0
     for tree, label in ((old, "old_1"), (new, "new_1"), (new, "new_2"), (old, "old_2")):
         cmd = [sys.executable, os.path.abspath(__file__), tree, "--worker", label, *extra]

@@ -26,6 +26,19 @@ after an untimed one (which captures the graph):
 A chunk past the stop runs its remaining iterations frozen, so a larger
 ``k`` reads the host less and wastes up to ``k - 1`` iterations of
 device time.  Writes ``bench_results/h100_loop_chunk.json``.
+
+With ``--cpd`` the program sweeps the CPD loop's chunk
+(``algorithms/cpd.py::LOOP_CHUNK``) instead, on uniform boxes of side 10
+moved by (0.1 rad, 0.5) made from one seed (``--cpd-sizes``, default
+20,480:102,400): at the first size the exact mode run to its stop
+(weight 0.1, tolerance 1e-5, at most 100 iterations), at the second
+Hybrid (the FGT fast phase, then the slow phase; weight 0.1, constant
+scale, tolerance 0, 60 iterations, ``chip_smoke.py`` phase 10's
+protocol): the eager one-iteration loop, then each ``k`` replaying the
+graphs one untimed call captured (a hit, inside one
+``icp.graph_scope``), ms an EM iteration and the synchronising calls of
+one more call (the card only).  Writes
+``bench_results/h100_loop_chunk_cpd.json``.
 """
 
 from __future__ import annotations
@@ -107,18 +120,85 @@ def run(bench: benchkit.Bench, sizes, chunks, reps: int) -> dict:
     return summary
 
 
+CPD_SIZES = (20_480, 102_400)
+
+
+def run_cpd(bench: benchkit.Bench, sizes, chunks, reps: int) -> dict:
+    """The CPD loop's chunk sweep (module docstring)."""
+    import numpy as np
+
+    from tpuslam_torch.algorithms import cpd, icp
+    from tpuslam_torch.config.configuration import ApproximationType
+    from tpuslam_torch.core.types import pad_cloud
+    from tpuslam_torch.data.synthesis import (
+        get_random_rotation_matrix,
+        get_random_translation_vector,
+    )
+
+    dev = bench.dev
+    rng = np.random.Generator(np.random.PCG64(13))
+    modes = (
+        ("exact", dict(approximation_type=ApproximationType.NONE, weight=0.1,
+                       tolerance=1e-5, max_iterations=100)),
+        ("hybrid", dict(approximation_type=ApproximationType.Hybrid, weight=0.1,
+                        tolerance=0.0, const_scale=True, max_iterations=60)),
+    )
+    summary = {}
+    saved = (cpd.LOOP_CHUNK, icp.CUDA_GRAPHS)
+    try:
+        for n, (mode, kw) in zip(sizes, modes):
+            before = (rng.random((n, 3)) * 10).astype(np.float32)
+            r = get_random_rotation_matrix(rng, 0.1)
+            t = get_random_translation_vector(rng, 0.5)
+            after = (before @ r.T + t).astype(np.float32)[rng.permutation(n)]
+            pair = (pad_cloud(before, device=dev), pad_cloud(after, device=dev))
+            for label, k, graphs in [("eager", 1, False),
+                                     *((f"k{k}", k, True) for k in chunks)]:
+                cpd.LOOP_CHUNK, icp.CUDA_GRAPHS = k, graphs
+
+                def call():
+                    return cpd.cpd_register(*pair, **kw)
+
+                with icp.graph_scope({}):
+                    timed, res = bench.time_calls(call, reps)
+                    syncs = sites = None
+                    if dev.type == "cuda":
+                        _, syncs, sites = benchkit.count_syncs(call)
+                iters = int(res.iterations)
+                row = bench.row(f"cpd_{mode}_{n}_{label}", timed, chunk=k, graphs=graphs,
+                                n_points=n, mode=mode, iterations=iters, syncs=syncs,
+                                sync_sites=sites, ms_per_iter=timed["median_ms"] / iters)
+                summary[f"{mode}_{n}_{label}"] = {
+                    "ms_per_iter": row["ms_per_iter"],
+                    "ms_per_iter_min": timed["min_ms"] / iters,
+                    "ms_per_iter_max": timed["max_ms"] / iters,
+                    "iterations": iters, "syncs": syncs}
+                print(json.dumps({f"{mode}_{n}_{label}": summary[f"{mode}_{n}_{label}"]}),
+                      flush=True)
+    finally:
+        cpd.LOOP_CHUNK, icp.CUDA_GRAPHS = saved
+    return summary
+
+
 def main(argv=None) -> int:
     p = benchkit.parser(__doc__.split("\n\n")[0], reps=5)
     p.add_argument("--sizes", type=lambda s: tuple(int(v) for v in s.split(":")),
                    default=SIZES)
     p.add_argument("--chunks", type=lambda s: tuple(int(v) for v in s.split(":")),
                    default=CHUNKS)
+    p.add_argument("--cpd", action="store_true", help="the CPD loop's chunk instead")
+    p.add_argument("--cpd-sizes", type=lambda s: tuple(int(v) for v in s.split(":")),
+                   default=CPD_SIZES)
     args = p.parse_args(argv)
     dev = benchkit.bench_device(args.device)
     bench = benchkit.Bench(dev)
-    summary = run(bench, args.sizes, args.chunks, args.reps)
-    benchkit.write_json(args.out or benchkit.default_out("loop_chunk", dev),
-                        {"program": "loop_chunk", **bench.stamp, "reps": args.reps,
+    if args.cpd:
+        summary = run_cpd(bench, args.cpd_sizes, args.chunks, args.reps)
+    else:
+        summary = run(bench, args.sizes, args.chunks, args.reps)
+    name = "loop_chunk_cpd" if args.cpd else "loop_chunk"
+    benchkit.write_json(args.out or benchkit.default_out(name, dev),
+                        {"program": name, **bench.stamp, "reps": args.reps,
                          "summary": summary, "rows": bench.rows})
     return 0
 

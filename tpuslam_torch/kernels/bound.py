@@ -43,7 +43,7 @@ REF_ELEMS = 1 << 24
 
 # kernel launches made by the wrappers below (CPU calls do not count),
 # in all and by batch size B; a launch captured into a CUDA graph counts
-# at each replay, booked by the ICP loop (kernels.book_replay)
+# at each replay, booked by the device-resident loops (kernels.book_replay)
 LAUNCHES = 0
 BATCH_LAUNCHES: Counter = Counter()
 
@@ -207,7 +207,7 @@ def bound_pass_batch(
     b, n, _ = saug.shape
     c = caug.shape[2]
 
-    from tpuslam_torch.kernels import counting, tally_ptr
+    from tpuslam_torch.kernels import counted, tally_ptr
     from tpuslam_torch.kernels.build import launch
 
     geo = bound_geometry(b, n, c, gsrc)
@@ -219,7 +219,7 @@ def bound_pass_batch(
         eps.data_ptr(), warm.data_ptr(), b, n, c, gsrc, *geo,
         tally_ptr("K2", saug.device), adm.data_ptr(),
     )
-    if counting():
+    if counted("bound", b):
         LAUNCHES += 1
         BATCH_LAUNCHES[b] += 1
     return adm

@@ -137,25 +137,29 @@ def load_library() -> ctypes.CDLL:
             #  tally, idx, dist, stream)
             ("tpuslam_nn_cand", [p, p, p, p, *[i] * 12, p, i, p, p, p, p]),
             # (scalars, ty, target, batch, n, m, threads, rows_per_thread,
-            #  splits, parts, denom, stream)
-            ("tpuslam_cpd_denom", [p, p, p, i, i, i, i, i, i, p, p, p]),
+            #  splits, parts, pred, pred_value, live, tally, denom, stream)
+            ("tpuslam_cpd_denom", [p, p, p, *[i] * 6, p, p, i, p, p, p, p]),
             # (scalars, ty, target, weights4, batch, n, m, threads,
-            #  rows_per_thread, splits, parts, acc, stream)
-            ("tpuslam_cpd_moments", [p, p, p, p, i, i, i, i, i, i, p, p, p]),
+            #  rows_per_thread, splits, parts, pred, pred_value, live, tally,
+            #  acc, stream)
+            ("tpuslam_cpd_moments", [p, p, p, p, *[i] * 6, p, p, i, p, p, p, p]),
             # (scalars, ty, target, table, counts, n, m, width, threads,
-            #  rows_per_thread, denom, stream)
-            ("tpuslam_cpd_denom_cand", [p, p, p, p, p, i, i, i, i, i, p, p]),
+            #  rows_per_thread, pred, pred_value, tally, denom, stream)
+            ("tpuslam_cpd_denom_cand", [p, p, p, p, p, *[i] * 5, p, i, p, p, p]),
             # (scalars, ty, target, weights4, table, counts, n, m, width,
-            #  threads, rows_per_thread, acc, stream)
-            ("tpuslam_cpd_moments_cand", [p, p, p, p, p, p, i, i, i, i, i, p, p]),
+            #  threads, rows_per_thread, pred, pred_value, tally, acc, stream)
+            ("tpuslam_cpd_moments_cand", [p, p, p, p, p, p, *[i] * 5, p, i, p, p, p]),
             # (before, after, w, batch, n, chunk_rows, nchunks, part1, means,
-            #  part2, r, t, tally, stream)
-            ("tpuslam_procrustes", [p, p, p, i, i, i, i, p, p, p, p, p, p, p]),
+            #  part2, arrivals, r, t, tally, stream)
+            ("tpuslam_procrustes", [p, p, p, i, i, i, i, p, p, p, p, p, p, p, p]),
             # (h, batch, r, s, det, tally, stream)
             ("tpuslam_svd_rotation_det", [p, i, p, p, p, p, p]),
-            # (diff, w, n_corr, batch, n, chunk_rows, nchunks, part, err,
-            #  tally, stream)
-            ("tpuslam_masked_sq_error", [p, p, p, i, i, i, i, p, p, p, p]),
+            # (diff, w, n_corr, batch, n, chunk_rows, nchunks, part, arrivals,
+            #  err, tally, stream)
+            ("tpuslam_masked_sq_error", [p, p, p, i, i, i, i, p, p, p, p, p]),
+            # (p1, y, px, m, pt1, x, n, batch, chunk_rows, chunks_m, chunks_n,
+            #  part, arrivals, sums, tally, stream)
+            ("tpuslam_mstep_moments", [p, p, p, i, p, p, *[i] * 5, p, p, p, p, p]),
         ):
             fn = getattr(lib, name)
             fn.argtypes = argtypes

@@ -30,13 +30,25 @@ of ``cpd_geometry(rows).cta_rows`` output rows gets its own table
 admitted against its rows, ascending, each with a mask of the 128-row
 segments to fold.
 
-Eager torch reads the overflow flag and the fat counts back to the host
-once per call (one small copy) to choose K4 or K5 and to size the fat
-subsets; ``ROUTE_TRACE`` records the choice.  A host ``False`` for the
-truncation flag (the exact mode) goes to K4 at once: its admission would
-admit everything.  ``checked=True`` returns ``(Sufficient, overflow)``
-instead of routing: on overflow its statistics are invalid (counts
-zeroed, fat passes skipped) and must be discarded.
+Outside a captured loop, eager torch reads the overflow flag and the fat
+counts back to the host once per call (one small copy) to choose K4 or
+K5 and to size the fat subsets; ``ROUTE_TRACE`` records the choice.  A
+host ``False`` for the truncation flag (the exact mode) goes to K4 at
+once: its admission would admit everything, and a device flag that is
+false takes K4's route too.  ``checked=True`` returns ``(Sufficient,
+overflow)`` instead of routing: on overflow its statistics are invalid
+(counts zeroed, fat passes skipped) and must be discarded.
+
+Inside a CUDA graph (``recording_routes(predicated=True)``, the CPD
+loop's chunks) nothing is read: the route is a device code (0 K5, 1 K4),
+and K5's two passes, K4's two passes over the whole clouds and K4's two
+passes over the fat blocks are all launched, each predicated on the code
+(``cpd_dense``'s predication), so the selected route writes the result
+and the others return at once.  The fat subsets have a fixed capacity of
+``fat_budget`` blocks, a device count of live rows, and go back by a
+masked scatter.  The statistics are the host route's, bit for bit.  Each
+call hands its route code to the recorder, which the loop reads once a
+chunk into ``ROUTE_TRACE``.
 
 Dispatch of the kernels: tensors on the CPU take the plain versions;
 CUDA tensors launch the kernels, or raise.  There is no other path.
@@ -46,7 +58,8 @@ from __future__ import annotations
 
 import math
 from collections import deque
-from typing import NamedTuple, Tuple, Union
+from contextlib import contextmanager
+from typing import List, NamedTuple, Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -55,10 +68,14 @@ from tpuslam_torch.core.types import Sufficient, round_up
 from tpuslam_torch.kernels.cpd_dense import (
     SENTINEL,
     TILE,
+    _predicate,
+    _ptr,
+    _selected,
     cpd_estep_dense,
     cpd_geometry,
     cuda_ready,
     denom_pass_batch,
+    device_scalar,
     denom_rows,
     estep_scalars,
     moment_weights,
@@ -88,6 +105,43 @@ MOMENTS_LAUNCHES = 0
 # the route of each recent cpd_estep_cand call, newest last: "k5", or
 # "k4" where the whole E-step went to K4
 ROUTE_TRACE: deque = deque(maxlen=4096)
+ROUTES = ("k5", "k4")  # by route code
+
+
+class _Recorder(NamedTuple):
+    codes: List[torch.Tensor]  # each call's route code, i32[1] on its device
+    predicated: bool  # choose the route on the device (a CUDA graph)
+
+
+# the open recorder of route codes (``recording_routes``), or None
+_RECORDER: Optional[_Recorder] = None
+
+
+@contextmanager
+def recording_routes(predicated: bool = False):
+    """Within the block, each ``cpd_estep_cand`` call hands its route code
+    (an i32[1] tensor on its device: 0 K5, 1 K4) to the returned list
+    instead of appending its route to ``ROUTE_TRACE``: the CPD loop reads
+    the codes once a chunk.  With ``predicated`` a call chooses its route
+    on the device (module docstring), as a CUDA graph must."""
+    global _RECORDER
+    prev, _RECORDER = _RECORDER, _Recorder([], predicated)
+    try:
+        yield _RECORDER.codes
+    finally:
+        _RECORDER = prev
+
+
+def _book_route(route, device) -> None:
+    """A call's route code (an int chosen on the host, or an i32[1] chosen
+    on the device): to the open recorder, else to ``ROUTE_TRACE``."""
+    if _RECORDER is None:
+        ROUTE_TRACE.append(ROUTES[int(route)])
+    elif isinstance(route, torch.Tensor):
+        _RECORDER.codes.append(route)
+    else:
+        # filled on the device: no blocking host-to-device copy
+        _RECORDER.codes.append(torch.full((1,), route, dtype=torch.int32, device=device))
 
 
 def fat_budget(t_blocks: int) -> int:
@@ -329,56 +383,145 @@ def _check(scalars, ty, target, table, counts, out_rows, weights4=None) -> None:
 
 
 def denom_cand(scalars: torch.Tensor, ty: torch.Tensor, target: torch.Tensor,
-               table: torch.Tensor, counts: torch.Tensor) -> torch.Tensor:
+               table: torch.Tensor, counts: torch.Tensor,
+               pred: Optional[torch.Tensor] = None, pred_value: int = 0,
+               out: Optional[torch.Tensor] = None) -> torch.Tensor:
     """K5's phase 1: ``denom`` f32[N] over each CTA's live table entries
     (``cta_tables``).  The CPU takes the plain version; CUDA launches the
-    kernel on the current stream (counts and table stay on the device)."""
+    kernel on the current stream (counts and table stay on the device).
+    ``pred`` (a device i32[1] route code) and ``pred_value``: the launch
+    writes ``out`` only where they are equal (``cpd_dense``'s
+    predication)."""
     global DENOM_LAUNCHES
     _check(scalars, ty, target, table, counts, target.shape[0])
+    n, m = target.shape[0], ty.shape[0]
+    denom = _predicate(pred, pred_value, None, out, (n,), ty.device)
     if ty.device.type == "cpu":
-        return denom_cand_ref(scalars, ty, target, table, counts)
+        if _selected(pred, pred_value):
+            denom.copy_(denom_cand_ref(scalars, ty, target, table, counts))
+        return denom
     cuda_ready("K5 denom", scalars, ty, target, table, counts)
+    from tpuslam_torch.kernels import counted, tally_ptr
     from tpuslam_torch.kernels.build import launch
 
-    n, m = target.shape[0], ty.shape[0]
     geo = cpd_geometry(n)
-    denom = torch.empty(n, dtype=torch.float32, device=ty.device)
     launch("tpuslam_cpd_denom_cand", ty.device, scalars.data_ptr(),
            ty.data_ptr(), target.data_ptr(), table.data_ptr(), counts.data_ptr(),
-           n, m, table.shape[1], geo.threads, geo.rows_per_thread, denom.data_ptr())
-    DENOM_LAUNCHES += 1
+           n, m, table.shape[1], geo.threads, geo.rows_per_thread, _ptr(pred),
+           pred_value, tally_ptr("K5_denom", ty.device), denom.data_ptr())
+    if counted("cpd_cand", 1):
+        DENOM_LAUNCHES += 1
     return denom
 
 
 def moments_cand(scalars: torch.Tensor, ty: torch.Tensor, target: torch.Tensor,
                  weights4: torch.Tensor, table: torch.Tensor,
-                 counts: torch.Tensor) -> torch.Tensor:
+                 counts: torch.Tensor, pred: Optional[torch.Tensor] = None,
+                 pred_value: int = 0, out: Optional[torch.Tensor] = None) -> torch.Tensor:
     """K5's phase 2: ``acc`` f32[4, M] over each CTA's live table entries.
-    Same dispatch as ``denom_cand``."""
+    Same dispatch and predication as ``denom_cand``."""
     global MOMENTS_LAUNCHES
     _check(scalars, ty, target, table, counts, ty.shape[0], weights4)
+    n, m = target.shape[0], ty.shape[0]
+    acc = _predicate(pred, pred_value, None, out, (4, m), ty.device)
     if ty.device.type == "cpu":
-        return moments_cand_ref(scalars, ty, target, weights4, table, counts)
+        if _selected(pred, pred_value):
+            acc.copy_(moments_cand_ref(scalars, ty, target, weights4, table, counts))
+        return acc
     cuda_ready("K5 moments", scalars, ty, target, weights4, table, counts)
+    from tpuslam_torch.kernels import counted, tally_ptr
     from tpuslam_torch.kernels.build import launch
 
-    n, m = target.shape[0], ty.shape[0]
     geo = cpd_geometry(m)
-    acc = torch.empty((4, m), dtype=torch.float32, device=ty.device)
     launch("tpuslam_cpd_moments_cand", ty.device, scalars.data_ptr(),
            ty.data_ptr(), target.data_ptr(), weights4.data_ptr(),
            table.data_ptr(), counts.data_ptr(), n, m, table.shape[1],
-           geo.threads, geo.rows_per_thread, acc.data_ptr())
-    MOMENTS_LAUNCHES += 1
+           geo.threads, geo.rows_per_thread, _ptr(pred), pred_value,
+           tally_ptr("K5_moments", ty.device), acc.data_ptr())
+    if counted("cpd_cand", 1):
+        MOMENTS_LAUNCHES += 1
     return acc
 
 
 def _block_rows(fat: torch.Tensor, count: int) -> torch.Tensor:
-    """Row indices of the first ``count`` flagged blocks (all of them,
-    ascending), without another read back."""
+    """Row indices of the first ``count`` blocks in the order flagged blocks
+    first, each group ascending (so every flagged block among them when
+    ``count`` covers them all), without another read back."""
     ids = torch.argsort(torch.logical_not(fat).to(torch.uint8), stable=True)[:count]
     within = torch.arange(TILE, device=fat.device)
     return (ids[:, None] * TILE + within[None, :]).reshape(-1)
+
+
+class _Padded(NamedTuple):
+    """One E-step's operands padded to ``TILE`` rows, its scalars and its
+    admission."""
+
+    ty: torch.Tensor  # f32[M, 3], padded moving rows at SENTINEL
+    tgt: torch.Tensor  # f32[N, 3]
+    mov_mask: torch.Tensor  # f32[M]
+    tgt_mask: torch.Tensor  # f32[N]
+    scalars: torch.Tensor  # f32[1, 4]
+    adm: Admission
+
+
+def _finish(p: _Padded, denom, pt1, acc, sigma2, m0: int, n0: int) -> Sufficient:
+    out = sufficient_from(acc[None], denom[None], pt1, p.mov_mask[None], p.tgt_mask[None],
+                          sigma2.reshape(1), m0, n0)
+    return Sufficient(p1=out.p1[0], pt1=out.pt1[0], px=out.px[0], error=out.error[0])
+
+
+def _estep_predicated(p: _Padded, constant, sigma2, trunc_active, m0: int,
+                      n0: int) -> Tuple[Sufficient, torch.Tensor]:
+    """The E-step with its route chosen on the device (module docstring):
+    every pass launched, each predicated on the route code, which is
+    returned beside the statistics (i32[1]: 0 K5, 1 K4)."""
+    a = p.adm
+    n, m = p.tgt.shape[0], p.ty.shape[0]
+    tn, tm = n // TILE, m // TILE
+    dense = torch.logical_or(a.overflow, torch.logical_not(trunc_active))
+    route = dense.to(torch.int32).reshape(1)
+    s0 = p.scalars[0]
+    dev = p.ty.device
+
+    def fat_subset(fat, blocks):
+        cap = min(fat_budget(blocks), blocks)
+        rows = _block_rows(fat, cap)
+        n_fat = torch.clamp_max(torch.sum(fat, dtype=torch.int32), cap)
+        live = (torch.where(dense, 0, n_fat) * TILE).to(torch.int32).reshape(1)
+        valid = torch.arange(cap * TILE, device=dev) < live
+        return rows, live, valid
+
+    table_m, counts_n = cta_tables(a.sub_adm, a.f_sub, cpd_geometry(n).cta_rows,
+                                   ~a.fat_n & ~dense, a.width_m)
+    denom = torch.empty(n, dtype=torch.float32, device=dev)
+    denom_cand(s0, p.ty, p.tgt, table_m, counts_n, pred=route, pred_value=0, out=denom)
+    denom_pass_batch(p.scalars, p.ty[None], p.tgt[None], pred=route, pred_value=1,
+                     out=denom.view(1, 1, n))
+    # fat target blocks: K4's phase 1 on their rows, in the same moving-block
+    # order, so bit-identical to the full K4 pass
+    rows, live, valid = fat_subset(a.fat_n, tn)
+    fat = torch.empty((1, 1, rows.shape[0]), dtype=torch.float32, device=dev)
+    denom_pass_batch(p.scalars, p.ty[None], p.tgt.index_select(0, rows)[None].contiguous(),
+                     pred=route, pred_value=0, live=live, out=fat)
+    denom = denom.index_copy(0, rows, torch.where(valid, fat.reshape(-1),
+                                                  denom.index_select(0, rows)))
+
+    pt1, weights4 = moment_weights(denom[None], p.tgt[None], p.tgt_mask[None],
+                                   constant.reshape(1))
+    table_n, counts_m = cta_tables(a.sub_adm.T, a.f_sub, cpd_geometry(m).cta_rows,
+                                   ~a.fat_m & ~dense, a.width_n)
+    acc = torch.empty((4, m), dtype=torch.float32, device=dev)
+    moments_cand(s0, p.ty, p.tgt, weights4[0], table_n, counts_m, pred=route, pred_value=0,
+                 out=acc)
+    moments_pass_batch(p.scalars, p.ty[None], p.tgt[None], weights4, pred=route,
+                       pred_value=1, out=acc.view(1, 4, m))
+    # fat moving blocks: K4's phase 2 on their rows
+    rows, live, valid = fat_subset(a.fat_m, tm)
+    fat = torch.empty((1, 4, rows.shape[0]), dtype=torch.float32, device=dev)
+    moments_pass_batch(p.scalars, p.ty.index_select(0, rows)[None].contiguous(), p.tgt[None],
+                       weights4, pred=route, pred_value=0, live=live, out=fat)
+    acc = acc.index_copy(1, rows, torch.where(valid[None], fat[0], acc.index_select(1, rows)))
+    return _finish(p, denom, pt1, acc, sigma2, m0, n0), route
 
 
 def cpd_estep_cand(
@@ -391,6 +534,7 @@ def cpd_estep_cand(
     trunc_active,
     truncate: float = 1e-3,
     checked: bool = False,
+    predicated: Optional[bool] = None,
 ) -> Union[Sufficient, Tuple[Sufficient, torch.Tensor]]:
     """Drop-in for ``cpd_dense.cpd_estep_dense`` (same contract, same
     bits) that skips the row segments proven to add exact zeros.  Most
@@ -399,12 +543,18 @@ def cpd_estep_cand(
     (tensors or Python numbers; a ``trunc_active`` that is not a tensor
     and is false runs K4 at once, with no admission and no read back).
     With ``checked=True`` returns ``(Sufficient, overflow bool[])`` and
-    does not route to K4 on overflow (see the module docstring)."""
+    does not route to K4 on overflow (see the module docstring).
+    ``predicated`` (None: the open ``recording_routes``'s choice) chooses
+    the route on the device, with no read back."""
     dev = transformed.device
+    if predicated is None:
+        predicated = _RECORDER is not None and _RECORDER.predicated
+    if predicated and checked:
+        raise ValueError("checked=True reads the overflow back: it cannot be predicated")
     exact = not isinstance(trunc_active, torch.Tensor) and not trunc_active
-    sigma2 = torch.as_tensor(sigma2, dtype=torch.float32, device=dev)
-    constant = torch.as_tensor(constant, dtype=torch.float32, device=dev)
-    trunc_active = torch.as_tensor(trunc_active, device=dev).to(torch.bool)
+    sigma2 = device_scalar(sigma2, torch.float32, dev)
+    constant = device_scalar(constant, torch.float32, dev)
+    trunc_active = device_scalar(trunc_active, torch.bool, dev)
     m0, n0 = transformed.shape[0], target.shape[0]
     m, n = round_up(m0, TILE), round_up(n0, TILE)
     tn, tm = n // TILE, m // TILE
@@ -414,7 +564,7 @@ def cpd_estep_cand(
                                sigma2, constant, trunc_active, truncate)
 
     if exact or tn < 2 or tm < 2:  # nothing to skip
-        ROUTE_TRACE.append("k4")
+        _book_route(1, dev)
         out = dense()
         return (out, torch.zeros((), dtype=torch.bool, device=dev)) if checked else out
 
@@ -424,21 +574,30 @@ def cpd_estep_cand(
     tgt_mask = pad_rows(target_mask[None], n)[0]
     a = block_admission(mov, mov_mask, tgt, tgt_mask, sigma2, trunc_active,
                         truncate)
-    # the one read back of the call: route, and size the fat subsets
+    p = _Padded(
+        ty=torch.where(mov_mask[:, None] > 0, mov, torch.full_like(mov, SENTINEL)).contiguous(),
+        tgt=tgt, mov_mask=mov_mask, tgt_mask=tgt_mask,
+        scalars=estep_scalars(sigma2.reshape(1), constant.reshape(1),
+                              trunc_active.reshape(1), truncate),
+        adm=a)
+    if predicated:
+        out, route = _estep_predicated(p, constant, sigma2, trunc_active, m0, n0)
+        _book_route(route, dev)
+        return out
+
+    # the one read back of the call: route, and size the fat subsets (a
+    # false truncation flag admits everything: K4's route)
+    go_dense = a.overflow if checked else a.overflow | ~trunc_active
     overflow, n_fat_n, n_fat_m = torch.stack(
-        [a.overflow.to(torch.int64), a.fat_n.sum(), a.fat_m.sum()]).tolist()
+        [go_dense.to(torch.int64), a.fat_n.sum(), a.fat_m.sum()]).tolist()
     if overflow and not checked:
-        ROUTE_TRACE.append("k4")
+        _book_route(1, dev)
         return dense()
-    ROUTE_TRACE.append("k5")
+    _book_route(0, dev)
 
     # on overflow (checked only) every count is zeroed: the kernels become
     # count-gated no-ops and the caller discards the result
-    ty = torch.where(mov_mask[:, None] > 0, mov,
-                     torch.full_like(mov, SENTINEL)).contiguous()
-    scalars = estep_scalars(sigma2.reshape(1), constant.reshape(1),
-                            trunc_active.reshape(1), truncate)
-
+    ty, scalars = p.ty, p.scalars
     table_m, counts_n = cta_tables(a.sub_adm, a.f_sub, cpd_geometry(n).cta_rows,
                                    ~a.fat_n & (not overflow), a.width_m)
     denom = denom_cand(scalars[0], ty, tgt, table_m, counts_n)
@@ -462,9 +621,7 @@ def cpd_estep_cand(
         acc = acc.index_copy(
             1, rows, moments_pass_batch(scalars, sub, tgt[None], weights4)[0])
 
-    out = sufficient_from(acc[None], denom[None], pt1, mov_mask[None],
-                          tgt_mask[None], sigma2.reshape(1), m0, n0)
-    out = Sufficient(p1=out.p1[0], pt1=out.pt1[0], px=out.px[0], error=out.error[0])
+    out = _finish(p, denom, pt1, acc, sigma2, m0, n0)
     if checked:
         return out, torch.tensor(bool(overflow), device=dev)
     return out

@@ -28,6 +28,15 @@ kernel); the C entry points refuse any other.  The kernel's summation
 order does not depend on it, so K5 (which uses the same function)
 equals K4 bit for bit at any geometry.
 
+Predication (``pred``, ``pred_value``, ``live``, ``out``), for the CPD
+loop captured as a CUDA graph, which cannot read the host to choose K5's
+route: a pass given a device route code runs only where it equals
+``pred_value`` and otherwise writes nothing into ``out``; a pass given a
+device count of ``live`` rows covers a fixed capacity of rows and writes
+only the first ``live`` (``kernels/cpd_cand.py``'s fat blocks).  The
+launch is counted all the same, and the device's tally counts it as
+skipped where it did no work.  The plain versions read both on the host.
+
 Dispatch: tensors on the CPU take the plain versions; CUDA tensors
 launch the kernels, or raise.  There is no other path.
 """
@@ -36,7 +45,7 @@ from __future__ import annotations
 
 import math
 from collections import Counter
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import torch
 
@@ -233,56 +242,121 @@ def _partials(geo: CpdGeometry, shape, device):
     return torch.empty(shape, dtype=torch.float32, device=device)
 
 
+def _predicate(pred, pred_value: int, live, out, shape, device):
+    """Check a predicated pass's operands and give its output: ``out``, or
+    a new tensor of ``shape``.  ``pred`` (a device i32[1] route code) needs
+    ``out``, as only the selected pass of several writes it; ``live`` (a
+    device i32[1] row count) is one pair's."""
+    for name, t in (("pred", pred), ("live", live)):
+        if t is not None and (t.dtype != torch.int32 or t.numel() != 1 or t.device != device):
+            raise ValueError(f"{name} must be an int32 tensor of one element on {device}")
+    if live is not None and shape[0] != 1:
+        raise ValueError("live counts the rows of one pair")
+    if out is None:
+        if pred is not None or live is not None:
+            raise ValueError("a predicated pass writes into out")
+        return torch.empty(shape, dtype=torch.float32, device=device)
+    if (tuple(out.shape) != tuple(shape) or out.dtype != torch.float32
+            or not out.is_contiguous() or out.device != device):
+        raise ValueError(f"out must be a contiguous f32{list(shape)} on {device}")
+    return out
+
+
+def _selected(pred, pred_value: int) -> bool:
+    """The plain versions' predicate, read on the host."""
+    return pred is None or int(pred.reshape(())) == pred_value
+
+
+def _live_rows(live, rows: int) -> int:
+    return rows if live is None else max(0, min(rows, int(live.reshape(()))))
+
+
+def _ptr(t) -> Optional[int]:
+    return None if t is None else t.data_ptr()
+
+
 def denom_pass_batch(scalars: torch.Tensor, ty: torch.Tensor,
-                     target: torch.Tensor) -> torch.Tensor:
+                     target: torch.Tensor, pred: Optional[torch.Tensor] = None,
+                     pred_value: int = 0, live: Optional[torch.Tensor] = None,
+                     out: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Phase 1 (``pallas_cpd.denom_pass_batch``): ``denom`` f32[B, 1, N]
     for every target row over all moving rows, starting from the uniform
     constant.  Shapes must be ``TILE`` multiples.  The CPU takes the plain
-    version; CUDA launches the kernel on the current stream."""
+    version; CUDA launches the kernel on the current stream.  ``pred``,
+    ``pred_value``, ``live`` (target rows) and ``out``: the module
+    docstring's predication."""
     global DENOM_LAUNCHES
     _check(scalars, ty, target)
-    if ty.device.type == "cpu":
-        return denom_pass_ref(scalars, ty, target)
-    cuda_ready("K4 denom", scalars, ty, target)
-    from tpuslam_torch.kernels.build import launch
-
     b, m, _ = ty.shape
     n = target.shape[1]
-    geo = cpd_geometry(n, b, m // TILE)
-    denom = torch.empty((b, 1, n), dtype=torch.float32, device=ty.device)
+    denom = _predicate(pred, pred_value, live, out, (b, 1, n), ty.device)
+    if ty.device.type == "cpu":
+        if _selected(pred, pred_value):
+            rows = _live_rows(live, n)
+            if rows:
+                denom[:, :, :rows] = denom_pass_ref(scalars, ty, target[:, :rows])
+        return denom
+    cuda_ready("K4 denom", scalars, ty, target)
+    from tpuslam_torch.kernels import counted, tally_ptr
+    from tpuslam_torch.kernels.build import launch
+
+    # over a capacity of rows: the splits any live count may need
+    geo = cpd_geometry(TILE if live is not None else n, b, m // TILE)
     parts = _partials(geo, (b, m // TILE, 1, n), ty.device)
     launch("tpuslam_cpd_denom", ty.device, scalars.data_ptr(), ty.data_ptr(),
            target.data_ptr(), b, n, m, geo.threads, geo.rows_per_thread,
-           geo.splits, 0 if parts is None else parts.data_ptr(), denom.data_ptr())
-    DENOM_LAUNCHES += 1
-    BATCH_LAUNCHES[b] += 1
+           geo.splits, _ptr(parts), _ptr(pred), pred_value, _ptr(live),
+           tally_ptr("K4_denom", ty.device), denom.data_ptr())
+    if counted("cpd_dense", b):
+        DENOM_LAUNCHES += 1
+        BATCH_LAUNCHES[b] += 1
     return denom
 
 
 def moments_pass_batch(scalars: torch.Tensor, ty: torch.Tensor,
-                       target: torch.Tensor, weights4: torch.Tensor) -> torch.Tensor:
+                       target: torch.Tensor, weights4: torch.Tensor,
+                       pred: Optional[torch.Tensor] = None, pred_value: int = 0,
+                       live: Optional[torch.Tensor] = None,
+                       out: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Phase 2 (``pallas_cpd.moments_pass_batch``): ``acc`` f32[B, 4, M],
     the moment accumulators of every moving row over all target rows.
-    Same dispatch as ``denom_pass_batch``."""
+    Same dispatch and predication as ``denom_pass_batch`` (``live``:
+    moving rows)."""
     global MOMENTS_LAUNCHES
     _check(scalars, ty, target, weights4)
-    if ty.device.type == "cpu":
-        return moments_pass_ref(scalars, ty, target, weights4)
-    cuda_ready("K4 moments", scalars, ty, target, weights4)
-    from tpuslam_torch.kernels.build import launch
-
     b, m, _ = ty.shape
     n = target.shape[1]
-    geo = cpd_geometry(m, b, n // TILE)
-    acc = torch.empty((b, 4, m), dtype=torch.float32, device=ty.device)
+    acc = _predicate(pred, pred_value, live, out, (b, 4, m), ty.device)
+    if ty.device.type == "cpu":
+        if _selected(pred, pred_value):
+            rows = _live_rows(live, m)
+            if rows:
+                acc[:, :, :rows] = moments_pass_ref(scalars, ty[:, :rows], target, weights4)
+        return acc
+    cuda_ready("K4 moments", scalars, ty, target, weights4)
+    from tpuslam_torch.kernels import counted, tally_ptr
+    from tpuslam_torch.kernels.build import launch
+
+    geo = cpd_geometry(TILE if live is not None else m, b, n // TILE)
     parts = _partials(geo, (b, n // TILE, 4, m), ty.device)
     launch("tpuslam_cpd_moments", ty.device, scalars.data_ptr(), ty.data_ptr(),
            target.data_ptr(), weights4.data_ptr(), b, n, m, geo.threads,
-           geo.rows_per_thread, geo.splits, 0 if parts is None else parts.data_ptr(),
-           acc.data_ptr())
-    MOMENTS_LAUNCHES += 1
-    BATCH_LAUNCHES[b] += 1
+           geo.rows_per_thread, geo.splits, _ptr(parts), _ptr(pred), pred_value,
+           _ptr(live), tally_ptr("K4_moments", ty.device), acc.data_ptr())
+    if counted("cpd_dense", b):
+        MOMENTS_LAUNCHES += 1
+        BATCH_LAUNCHES[b] += 1
     return acc
+
+
+def device_scalar(x, dtype: torch.dtype, device) -> torch.Tensor:
+    """``x`` as a tensor of ``dtype`` on ``device``: a Python number is
+    filled there (rounded to ``dtype`` on the host, as ``torch.tensor``
+    rounds it), not copied from the host, which a CUDA graph's capture
+    refuses and which blocks otherwise; a tensor or array is converted."""
+    if isinstance(x, (bool, int, float)):
+        return torch.full((), torch.tensor(x, dtype=dtype).item(), dtype=dtype, device=device)
+    return torch.as_tensor(x, dtype=dtype, device=device)
 
 
 def estep_scalars(sigma2: torch.Tensor, constant: torch.Tensor,
@@ -395,9 +469,9 @@ def cpd_estep_dense(
     dev = transformed.device
     out = cpd_estep_dense_batch(
         transformed[None], moving_mask[None], target[None], target_mask[None],
-        torch.as_tensor(sigma2, dtype=torch.float32, device=dev).reshape(1),
-        torch.as_tensor(constant, dtype=torch.float32, device=dev).reshape(1),
-        torch.as_tensor(trunc_active, device=dev).reshape(1),
+        device_scalar(sigma2, torch.float32, dev).reshape(1),
+        device_scalar(constant, torch.float32, dev).reshape(1),
+        device_scalar(trunc_active, torch.bool, dev).reshape(1),
         truncate=truncate,
     )
     return Sufficient(p1=out.p1[0], pt1=out.pt1[0], px=out.px[0],

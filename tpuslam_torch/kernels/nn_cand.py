@@ -33,7 +33,7 @@ REF_ELEMS = 1 << 24
 
 # kernel launches made by the wrappers below (CPU calls do not count),
 # in all and by batch size B; a launch captured into a CUDA graph counts
-# at each replay, booked by the ICP loop (kernels.book_replay)
+# at each replay, booked by the device-resident loops (kernels.book_replay)
 LAUNCHES = 0
 BATCH_LAUNCHES: Counter = Counter()
 
@@ -194,7 +194,7 @@ def nearest_neighbors_cand_batch(
     if max(n, m) >= 2**31 or width * g >= 2**31:
         raise ValueError("sizes exceed the kernel's int32 indexing")
 
-    from tpuslam_torch.kernels import counting, tally_ptr
+    from tpuslam_torch.kernels import counted, tally_ptr
     from tpuslam_torch.kernels.build import launch
 
     launch(
@@ -205,7 +205,7 @@ def nearest_neighbors_cand_batch(
         None if arm is None else arm.data_ptr(), arm_value,
         tally_ptr("K3", src.device), idx.data_ptr(), dist.data_ptr(),
     )
-    if counting():
+    if counted("nn_cand", b):
         LAUNCHES += 1
         BATCH_LAUNCHES[b] += 1
     return idx, dist

@@ -27,7 +27,7 @@ REF_CHUNK = 1024
 
 # kernel launches made by the wrappers below (CPU calls do not count),
 # in all and by batch size B; a launch captured into a CUDA graph counts
-# at each replay, booked by the ICP loop (kernels.book_replay)
+# at each replay, booked by the device-resident loops (kernels.book_replay)
 LAUNCHES = 0
 BATCH_LAUNCHES: Counter = Counter()
 
@@ -226,7 +226,7 @@ def nearest_neighbors_dense_batch(
     if max(n, m) >= 2**31:
         raise ValueError(f"row counts {n}, {m} exceed the kernel's int32 indices")
 
-    from tpuslam_torch.kernels import counting, tally_ptr
+    from tpuslam_torch.kernels import counted, tally_ptr
     from tpuslam_torch.kernels.build import launch
 
     launch(
@@ -236,7 +236,7 @@ def nearest_neighbors_dense_batch(
         None if arm is None else arm.data_ptr(), arm_value,
         tally_ptr("K1", src.device), idx.data_ptr(), dist.data_ptr(),
     )
-    if counting():
+    if counted("nn_dense", b):
         LAUNCHES += 1
         BATCH_LAUNCHES[b] += 1
     return idx, dist

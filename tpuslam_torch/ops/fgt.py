@@ -9,7 +9,9 @@ O(N + M) instead of O(N M), as the reference's CPU FGT (``fgt.cpp``):
   device tensors (no host read), then centres as segment means;
 * Taylor monomials ``dy^alpha`` in the reference's graded-lex order,
   from per-dimension power tables and a static multi-index table
-  (``_alpha_table``, built on the host);
+  (``_alpha_table``, built on the host; ``fgt_tables`` puts it and the
+  coefficients on each device once and keeps them, so that a call copies
+  and reads nothing after the first, as a CUDA graph needs);
 * source expansion ``A_k`` (``ComputeA_k``, ``fgt.cpp:262-303``): a
   segment sum over the cluster assignments, scaled by
   ``C_alpha = 2^|alpha| / alpha!``;
@@ -170,13 +172,49 @@ def k_center_ordered(
     return centers, indx, seg
 
 
+class FGTTables(NamedTuple):
+    """The static tables of order ``p`` on a device: the multi-indices
+    (``_alpha_table``) and ``C_alpha`` (``_c_coefficients``).  Their
+    largest exponent is ``p - 1`` (``max_pow``)."""
+
+    alpha: torch.Tensor  # i64[pd, 3]
+    coeff: torch.Tensor  # f32[pd]
+
+
+def max_pow(p: int) -> int:
+    """The largest single exponent of ``_alpha_table(p)``: the degree
+    ``p - 1`` of its last terms."""
+    return max(p - 1, 0)
+
+
+# FGTTables by (order, device), each made once (fgt_tables)
+_TABLES: dict = {}
+
+
+def fgt_tables(p: int, device) -> FGTTables:
+    """``FGTTables`` of order ``p`` on ``device``: two host-to-device
+    copies on the first call, kept for every later one.  A registration's
+    set-up makes them (``algorithms/cpd.py``), so that no copy falls
+    inside a captured E-step."""
+    key = (p, str(torch.device(device)))
+    tables = _TABLES.get(key)
+    if tables is None:
+        alpha = _alpha_table(p)
+        if int(alpha.max(initial=0)) != max_pow(p):
+            raise AssertionError(f"alpha table of order {p} tops at {int(alpha.max())}")
+        tables = _TABLES[key] = FGTTables(
+            torch.from_numpy(alpha.astype(np.int64)).to(device),
+            torch.from_numpy(_c_coefficients(p)).to(device))
+    return tables
+
+
 def _monomials(dy: torch.Tensor, p: int) -> torch.Tensor:
     """``dy^alpha`` for every multi-index, in the reference's order, from
     ``dy`` f32[..., 3] (already divided by sigma) -> f32[..., pd]."""
-    alpha = torch.from_numpy(_alpha_table(p).astype(np.int64)).to(dy.device)
+    alpha = fgt_tables(p, dy.device).alpha
     d = torch.movedim(dy, -1, 0)  # [3, ...]: each coordinate contiguous
     pows = [torch.ones_like(d)]
-    for _ in range(int(alpha.max())):
+    for _ in range(max_pow(p)):
         pows.append(pows[-1] * d)
     pow_stack = torch.stack(pows, dim=1)  # [3, max_pow + 1, ...]
     mx = torch.index_select(pow_stack[0], 0, alpha[:, 0])
@@ -232,7 +270,7 @@ def compute_fgt_model_multi(
     contrib = prods[:, :, None] * (g[:, None, None]
                                    * weights.index_select(0, rows)[:, None, :])
     ak = segment_sum(contrib, order.lengths)
-    c = torch.from_numpy(_c_coefficients(p)).to(points.device)
+    c = fgt_tables(p, points.device).coeff
     return FGTModel(centers=centers, ak=ak * c[None, :, None])
 
 
