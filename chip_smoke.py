@@ -211,10 +211,23 @@ exits non-zero without printing a result:
    on a fixture the table does not hold, every config ``ok``.
 20. the sharded layer (``tpuslam_torch.parallel``) — two worlds started
    by ``parallel/launch.py::run_world``, each case against a solo run of
-   this process on the same inputs: (a) one rank under NCCL, dense ICP on
-   the headline pair (50 iterations, eps 0, no guard) equal to solo
-   ``icp_register(use_spatial=False)`` bit for bit with 2,048,000 bytes of
-   collectives an iteration (``comm_model.icp_comm_bytes``); (b) four
+   this process on the same inputs: (a) one rank under NCCL, the sharded
+   loops captured as CUDA graphs with their collectives: dense ICP on the headline pair (50 iterations, eps 0, no guard),
+   hierarchical ICP on phase 6's box and Hybrid CPD at 102,400 (as in
+   (b5)), each run four times in the world's one ``graph_scope`` (the
+   first captures, the next two replay, the last of them counting its
+   synchronising calls) and once on the eager one-iteration loop
+   (``run_cases``' ``eager``): every captured run equal to the eager one
+   bit for bit (R, t, scale, iterations, error, E-steps); dense ICP equal
+   to solo ``icp_register(use_spatial=False)`` bit for bit, hierarchical
+   ICP within 1e-4 of phase 6's run, Hybrid CPD within 2e-4 in R of solo
+   ``cpd_register``; each prints ms per iteration captured and eager,
+   its host reads (at most one a chunk at ``device_loop.py``, none in
+   the search, the kernels' fronts, P or the collectives), each kernel's
+   launches and skipped launches, and the collectives and bytes of each
+   iteration the loop ran against ``comm_model`` (``icp_comm_bytes``;
+   ``cpd_fgt_comm_bytes`` or ``cpd_comm_bytes`` by the iteration's
+   E-step), which must equal it; (b) four
    ranks under gloo on one card: (1) the same dense ICP, bit for bit, every
    rank equal; (2) hierarchical ICP on phase 6's 1,048,576-point box, 20
    iterations, R and t within 1e-4 of phase 6's run and, at the final
@@ -2175,6 +2188,7 @@ def sharded_phases(dev, smi, kind, sizes, phase6) -> dict:
     launches on the ranks and the figures printed."""
     import torch
 
+    from tpuslam_torch.algorithms import cpd, icp
     from tpuslam_torch.algorithms.cpd import cpd_estep_auto, cpd_register
     from tpuslam_torch.algorithms.icp import icp_register
     from tpuslam_torch.config.configuration import ApproximationType
@@ -2185,6 +2199,7 @@ def sharded_phases(dev, smi, kind, sizes, phase6) -> dict:
     )
     from tpuslam_torch.harness.measure import build_headline_pair
     from tpuslam_torch.kernels import cpd_cand, nn_dense
+    from tpuslam_torch.ops.fgt import pd_size
     from tpuslam_torch.ops.spatial import morton_permutation
     from tpuslam_torch.parallel import comm_model
     from tpuslam_torch.parallel.launch import run_cases, run_world
@@ -2320,21 +2335,94 @@ def sharded_phases(dev, smi, kind, sizes, phase6) -> dict:
             for k in SHARD_KERNELS:
                 launches[which][k] += r["launches"][k]
 
-    # (a) one rank under NCCL ----------------------------------------------------
+    # (a) one rank under NCCL: each loop captured (the first run captures,
+    # the later ones replay the kept graph; the last counts its host reads)
+    # against the eager one-iteration loop of the same world -------------------
+    gloo_cases = list(cases)
+    solo_cpd = cpd_register(pad_cloud(cpd_b, device=dev), pad_cloud(cpd_a, device=dev), **cpd_kw)
+    runs = (("capture", {}), ("replay", {}), ("reads", dict(syncs=True)),
+            ("eager", dict(eager=True)))
+    captured = ("dense", "hier", "cpd hybrid")
+    for k in captured:
+        kind, kw = cases[k]
+        for run, extra in runs:
+            cases[f"{k} {run}"] = (kind, dict(kw, final_nn=False, **extra) if kind == "icp"
+                                   else dict(kw, **extra))
     one = world("(a)", 1, "nccl" if on_card else "gloo", None if on_card else str(dev),
-                ["dense"])
-    recs = one["dense"]
-    solo_equal("(a) dense ICP", recs[0]["result"], solo_dense)
+                [f"{k} {run}" for k in captured for run, _ in runs])
+    for recs in one.values():
+        add("nccl_1_rank", recs)
+    m_pad = len(pad_cloud(cpd_b, device="cpu").points)
+    for k in captured:
+        eager = one[f"{k} eager"][0]
+        for run, _ in runs[:3]:
+            got = one[f"{k} {run}"][0]["result"]
+            same = all(np.array_equal(got[f], eager["result"][f])
+                       for f in ("rotation", "translation", "scale", "iterations", "error"))
+            same = same and one[f"{k} {run}"][0]["phases"] == eager["phases"]
+            log(f"[sharded] (a) {k}, {run}: equal to the eager one-iteration loop bit for bit: "
+                f"{same} (tolerance 0)")
+            check(same, f"(a) {k} {run}: differs from the eager one-iteration loop")
+        rec, res = one[f"{k} replay"][0], one[f"{k} replay"][0]["result"]
+        its = int(res["iterations"])
+        chunk = cpd.LOOP_CHUNK if k == "cpd hybrid" else icp.LOOP_CHUNK
+        if k == "cpd hybrid":
+            # the set-up: the FGT's clusters (an all_gather), sigma^2_0 (3 psums)
+            with_fgt = rec["collectives"][0].op == "all_gather"
+            per = comm_model.logged_cpd_iterations(rec["collectives"], 3 + with_fgt)
+            model = {"fgt": comm_model.cpd_fgt_comm_bytes(min(128, m_pad), pd_size(8))["total"],
+                     "exact": comm_model.cpd_comm_bytes(m_pad)["total"]}
+            bytes_ok = all(b == model[e] for e, b in per)
+            per_bytes = [b for _, b in per]
+        else:
+            n_rows = len(pad_cloud(head_b if k == "dense" else big_b, device="cpu").points)
+            model = comm_model.icp_comm_bytes(n_rows)["total"]
+            per_bytes = comm_model.logged_iterations(rec["collectives"], 3)
+            bytes_ok = all(b == model for b in per_bytes)
+        reads = one[f"{k} reads"][0]["syncs"] or {"count": None, "sites": {}}
+        loop_reads = sum(v for site, v in reads["sites"].items()
+                         if site.startswith("device_loop.py"))
+        inner = [site for site in reads["sites"] if site.startswith(
+            ("nn_hier.py", "nn.py", "cpd_cand.py", "cpd_dense.py", "procrustes.py",
+             "collectives.py"))]
+        t_eager = one[f"{k} eager"][0]["result"]["seconds"]
+        fig = {"ms_per_iter": res["seconds"] * 1e3 / max(its, 1),
+               "eager_ms_per_iter": t_eager * 1e3 / max(its, 1), "iterations": its,
+               "iterations_run": len(per_bytes), "chunk": chunk,
+               "host_reads": reads["count"], "host_read_sites": reads["sites"],
+               "loop_reads": loop_reads, "chunks_at_most": -(-(its + 1) // chunk),
+               "collectives_per_iter": len(rec["collectives"]) / max(len(per_bytes), 1),
+               "bytes_per_iter": sorted(set(per_bytes)), "model_bytes_per_iter": model,
+               "bytes_equal_model": bytes_ok,
+               "launches": rec["launches"], "eager_launches": eager["launches"],
+               "routes": sorted(set(rec["routes"]))}
+        log(f"[sharded] (a) {k} on the one-rank world, on {smi}: " + json.dumps(fig))
+        figs[f"(a) {k}"] = fig
+        check(bytes_ok, f"(a) {k}: bytes per iteration differ from comm_model")
+        if on_card:
+            check(not inner and 1 <= loop_reads <= fig["chunks_at_most"],
+                  f"(a) {k}: host reads inside an iteration or more than one a chunk: "
+                  f"{reads['sites']}")
+    solo_equal("(a) dense ICP", one["dense replay"][0]["result"], solo_dense)
+    res = one["hier replay"][0]["result"]
+    r6, t6, _, _ = phase6["result"]
+    d_r = float(np.abs(res["rotation"] - r6).max())
+    d_t = float(np.abs(res["translation"] - t6).max())
+    log(f"[sharded] (a) hierarchical ICP: |dR| {d_r}, |dt| {d_t} against the solo "
+        f"hierarchical run (tolerance 1e-4)")
+    check(d_r <= 1e-4 and d_t <= 1e-4, "(a): the hierarchical run differs from solo")
+    res = one["cpd hybrid replay"][0]["result"]
+    d_r = float(np.abs(res["rotation"] - solo_cpd.transform.rotation.cpu().numpy()).max())
+    log(f"[sharded] (a) Hybrid CPD: |dR| {d_r} against solo cpd_register (tolerance 2e-4)")
+    check(d_r <= 2e-4, "(a): the Hybrid run differs from solo")
+    na = launches["nccl_1_rank"]
+    for k in ("K1", "K2", "K3", "P"):
+        check(na[k] > 0, f"(a): {k} was not launched on the rank")
+    check(na["K4_denom"] + na["K5_denom"] > 0, "(a): neither K4 nor K5 was launched on the rank")
     model = comm_model.icp_comm_bytes(cb.points.shape[0])["total"]
-    figs["(a) dense"] = report("(a) dense ICP at headline size", recs, solo_dense.iterations,
-                               model)
-    check(figs["(a) dense"]["bytes_per_iter"] == model,
-          "(a): bytes per iteration differ from icp_comm_bytes")
-    add("nccl_1_rank", recs)
-    check(launches["nccl_1_rank"]["K1"] > 0, "(a): K1 was not launched on the rank")
 
     # (b) four ranks under gloo, all on one card -----------------------------------
-    four = world("(b)", ranks, "gloo", str(dev), list(cases))
+    four = world("(b)", ranks, "gloo", str(dev), gloo_cases)
     for recs in four.values():
         add("gloo_4_ranks", recs)
 
@@ -2439,7 +2527,7 @@ def sharded_phases(dev, smi, kind, sizes, phase6) -> dict:
 
     recs = four["cpd hybrid"]
     res = recs[0]["result"]
-    solo = cpd_register(pad_cloud(cpd_b, device=dev), pad_cloud(cpd_a, device=dev), **cpd_kw)
+    solo = solo_cpd
     d_r = float(np.abs(res["rotation"] - solo.transform.rotation.cpu().numpy()).max())
     ang = rotation_error_deg(res["rotation"], cpd_r)
     log(f"[sharded] (b5) Hybrid CPD at {n_c} points moved by (0.1 rad, 0.5): "

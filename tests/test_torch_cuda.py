@@ -1590,3 +1590,155 @@ def test_replayed_cpd_graph_books_the_launches_the_device_counted(rng, cuda):
     assert [counts[k] for k in kernels.TALLIED] == on_device
     assert counts["P moments"] == counts["P svd"] >= 3 * res.iterations
     assert counts["K5_denom skipped"] + counts["K4_denom skipped"] > 0
+
+
+# -- the sharded loops captured under NCCL ----------------------------------------
+
+# name -> (kind, settings): each run captured twice (the second a warm
+# registration that replays the kept graph, its synchronising calls
+# counted) and once on the eager one-iteration loop.  The "cap" cases run
+# to an even cap with no stop before it, so no iteration is frozen and
+# the collectives of the two loops match op for op.
+_SHARDED = {
+    "dense": ("icp", dict(eps=1e-7, max_distance_squared=1e4, max_iterations=30)),
+    "hier": ("icp", dict(eps=1e-7, max_distance_squared=1e4, max_iterations=30,
+                         use_spatial=True)),
+    "dense cap": ("icp", dict(eps=0.0, max_distance_squared=1e18, max_iterations=10,
+                              divergence_guard=False)),
+    "hier cap": ("icp", dict(eps=0.0, max_distance_squared=1e18, max_iterations=10,
+                             divergence_guard=False, use_spatial=True)),
+    "hybrid": ("cpd", dict(approximation_type=ApproximationType.Hybrid, use_fgt=True,
+                           weight=0.1, tolerance=0.0, const_scale=True, max_iterations=40)),
+    "exact cap": ("cpd", dict(weight=0.1, tolerance=0.0, eps=1e-9, max_iterations=10)),
+}
+
+
+# the chunked drivers on two of those cases: case -> driver chunk
+_CHUNKED = {"hier": 5, "hybrid": 7}
+
+
+@pytest.fixture(scope="module")
+def nccl_world():
+    """A one-rank NCCL world running every ``_SHARDED`` case: name ->
+    (first graph run, warm graph run, eager run) records."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from tpuslam_torch.parallel.launch import run_cases, run_world
+
+    rng = np.random.Generator(np.random.PCG64(14))
+    clouds = {}
+    for kind, n, noise in (("icp", 32_768, 0.0), ("cpd", 8192, 0.01)):
+        before = (rng.random((n, 3)) * 10).astype(np.float32)
+        after = before @ get_random_rotation_matrix(rng, 0.15).T + 0.3
+        after = after + rng.normal(0.0, noise, after.shape) if noise else after
+        clouds[kind] = dict(before=before, after=after.astype(np.float32)[rng.permutation(n)])
+    cases = []
+    for kind, kw in _SHARDED.values():
+        for extra in ({}, dict(syncs=True), dict(eager=True)):
+            cases.append((kind, dict(clouds[kind], **kw, **extra)))
+    for name, chunk in _CHUNKED.items():
+        kind, kw = _SHARDED[name]
+        cases.append((kind, dict(clouds[kind], chunk=chunk, **kw)))
+    rank0, _ = run_world(run_cases, 1, "nccl", None, 300.0, cases)
+    out = {name: tuple(rank0[3 * i:3 * i + 3]) for i, name in enumerate(_SHARDED)}
+    out.update(("chunked " + name, rec) for name, rec in zip(_CHUNKED, rank0[3 * len(_SHARDED):]))
+    return out
+
+
+def _colls(rec):
+    return [(c.op, c.dtype, c.shape, c.nbytes) for c in rec["collectives"]]
+
+
+@pytest.mark.parametrize("name", list(_SHARDED))
+def test_sharded_graph_loop_equals_eager_one_iteration_loop(nccl_world, name):
+    """On one NCCL rank the captured sharded loops (dense and hierarchical
+    ICP, Hybrid CPD with the FGT, exact CPD) equal the eager loop of one
+    iteration a read, bit for bit, in both captured runs, with the same
+    E-steps and K5 routes; the hierarchical arm's unselected searches are
+    launched predicated (skipped), the eager loop's never."""
+    first, warm, eager = nccl_world[name]
+    for rec in (first, warm):
+        for k in ("rotation", "translation", "scale", "iterations", "error"):
+            np.testing.assert_array_equal(rec["result"][k], eager["result"][k], err_msg=k)
+        assert rec["phases"] == eager["phases"] and rec["routes"] == eager["routes"]
+    if name.startswith("hier"):
+        assert warm["launches"]["K2"] > 0 and warm["launches"]["K3"] > 0
+        assert warm["launches"]["K1 skipped"] + warm["launches"]["K3 skipped"] > 0
+        assert eager["launches"]["K1 skipped"] + eager["launches"]["K3 skipped"] == 0
+    if name == "hybrid":
+        assert "fgt" in eager["phases"] and "trunc" in eager["phases"]
+
+
+@pytest.mark.parametrize("name", list(_SHARDED))
+def test_sharded_second_registration_replays_the_kept_graph(nccl_world, name):
+    """The second registration of a shape in one ``graph_scope`` (a world's
+    cases share one) replays the kept graph from its first chunk: no eager
+    warm-up chunk and no capture, so every collective of its loop is a
+    replay's, booked with NaN seconds; the first registration's warm-up
+    chunk measured its own."""
+    first, warm, _ = nccl_world[name]
+    kind, kw = _SHARDED[name]
+    # the set-up's collectives: CPD's sigma^2_0 (3), the FGT's clusters (1)
+    init = (3 if kind == "cpd" else 0) + (1 if kw.get("use_fgt") else 0)
+    loop = [c.seconds for c in warm["collectives"][init:]]
+    assert loop and all(np.isnan(loop))
+    assert not any(np.isnan([c.seconds for c in first["collectives"][:init + 3]]))
+    assert not any(np.isnan([c.seconds for c in warm["collectives"][:init]]))
+
+
+@pytest.mark.parametrize("name", ["dense cap", "hier cap", "exact cap"])
+def test_sharded_replays_book_the_eager_runs_collectives(nccl_world, name):
+    """A run to an even cap freezes no iteration: the collectives booked by
+    its replays (with its warm-up chunk's) equal the eager run's, op for
+    op, and the bytes an iteration equal ``comm_model``'s."""
+    from tpuslam_torch.parallel import comm_model
+
+    first, warm, eager = nccl_world[name]
+    assert _colls(first) == _colls(eager) == _colls(warm)
+    its = int(eager["result"]["iterations"])
+    if name == "exact cap":
+        per = comm_model.cpd_comm_bytes(8192)
+        ran = comm_model.logged_iterations(warm["collectives"], per["n_collectives"], 3)
+    else:
+        per = comm_model.icp_comm_bytes(32_768)
+        ran = comm_model.logged_iterations(warm["collectives"], per["n_collectives"])
+    assert ran == [per["total"]] * its == [per["total"]] * 10
+
+
+@pytest.mark.parametrize("name", list(_SHARDED))
+def test_sharded_warm_registration_reads_the_host_once_a_chunk(nccl_world, name):
+    """A warm captured registration reads the host once a chunk of
+    ``LOOP_CHUNK`` iterations (its status) and never inside an iteration:
+    no stop-test, arm, K5-route or phase read, nothing in the search, the
+    collectives or the M-step (a read inside a chunk would also fail its
+    capture)."""
+    from tpuslam_torch.algorithms import cpd, icp
+
+    _, warm, _ = nccl_world[name]
+    sites = warm["syncs"]["sites"]
+    inner = ("nn_hier.py", "nn.py", "cpd_cand.py", "cpd_dense.py", "procrustes.py",
+             "collectives.py")
+    assert not any(s.startswith(inner) for s in sites), sites
+    k = icp.LOOP_CHUNK if _SHARDED[name][0] == "icp" else cpd.LOOP_CHUNK
+    its = int(warm["result"]["iterations"])
+    reads = sum(v for s, v in sites.items() if s.startswith("device_loop.py"))
+    assert 1 <= reads <= -(-(its + 1) // k), sites
+
+
+@pytest.mark.parametrize("name", list(_CHUNKED))
+def test_sharded_chunked_driver_replays_and_equals_the_whole_run(nccl_world, name):
+    """The chunked drivers on one NCCL rank, inside the world's
+    ``graph_scope`` where the whole run's graphs are kept: every driver
+    chunk replays them (no collective of theirs measured on the host) and
+    the trajectory is the whole eager run's, bit for bit."""
+    rec, eager = nccl_world["chunked " + name], nccl_world[name][2]
+    for k in ("rotation", "translation", "scale", "iterations", "error"):
+        np.testing.assert_array_equal(rec["result"][k], eager["result"][k], err_msg=k)
+    kind, kw = _SHARDED[name]
+    # each driver chunk's set-up runs on the host: CPD's sigma^2_0 (3 psums
+    # of f32[] and f32[3]) and the FGT's all_gather; ICP's has none
+    setup = (3 if kind == "cpd" else 0) + (1 if kw.get("use_fgt") else 0)
+    finite = [c for c in rec["collectives"] if not np.isnan(c.seconds)]
+    assert all(c.op == "all_gather" or c.shape in ((), (3,)) for c in finite), finite
+    assert len(finite) % max(setup, 1) == 0 and (setup or not finite)
+    assert len(finite) < len(rec["collectives"])

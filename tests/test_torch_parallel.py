@@ -441,13 +441,17 @@ def test_shard_pairs_needs_a_divisible_batch():
 def test_comm_model_matches_logged_collectives(world):
     """The byte models equal the collectives the port issues, per loop
     iteration (the JAX package checks its traced program the same way,
-    ``tests/test_parallel.py:446-511``)."""
+    ``tests/test_parallel.py:446-511``).  On the CPU the loops run whole
+    chunks of ``LOOP_CHUNK`` iterations, and an iteration frozen past the
+    cap runs its collectives too: 5 iterations run 6 at a chunk of 2."""
+    from tpuslam_torch.algorithms import cpd, icp
+
     icp_log = world["comm_icp"][0]["collectives"]
     steps = int(_res(world, "comm_icp")["iterations"])
     assert steps == 5
-    assert comm_model.total_collective_bytes(icp_log) == (
-        steps * comm_model.icp_comm_bytes(COMM_N)["total"])
-    assert len(icp_log) == steps * comm_model.icp_comm_bytes(COMM_N)["n_collectives"]
+    per_icp = comm_model.icp_comm_bytes(COMM_N)
+    ran = comm_model.logged_iterations(icp_log, per_icp["n_collectives"])
+    assert ran == [per_icp["total"]] * (-(-steps // icp.LOOP_CHUNK) * icp.LOOP_CHUNK)
     assert [c.op for c in icp_log[:3]] == ["pmin", "pmin", "psum"]
 
     cpd_log = world["comm_cpd"][0]["collectives"]
@@ -455,13 +459,35 @@ def test_comm_model_matches_logged_collectives(world):
     assert iters == 5
     init = comm_model.cpd_init_comm_bytes()
     per = comm_model.cpd_comm_bytes(COMM_N)
-    assert comm_model.total_collective_bytes(cpd_log) == init["total"] + iters * per["total"]
-    assert len(cpd_log) == init["n_collectives"] + iters * per["n_collectives"]
+    assert comm_model.total_collective_bytes(cpd_log[:init["n_collectives"]]) == init["total"]
+    ran = comm_model.logged_iterations(cpd_log, per["n_collectives"], init["n_collectives"])
+    assert ran == [per["total"]] * (-(-iters // cpd.LOOP_CHUNK) * cpd.LOOP_CHUNK)
 
     nicp_log = world["comm_nicp"][0]["collectives"]
     want = comm_model.nicp_comm_bytes(COMM_K)
     assert comm_model.total_collective_bytes(nicp_log) == want["total"]
     assert len(nicp_log) == want["n_collectives"]
+
+
+def test_comm_model_matches_logged_fgt_iterations(world, data):
+    """A Hybrid run with the FGT: after the set-up's all_gather and three
+    psums, each EM iteration's collectives are the FGT model's or the exact
+    model's, fast phase first, with at least one iteration of each phase
+    that ran (frozen iterations run their collectives too)."""
+    from tpuslam_torch.ops.fgt import pd_size
+
+    rec = world["fgt"][0]
+    m_pad = len(pad_cloud(data["fgt"][0], device=CPU).points)
+    want = {"fgt": comm_model.cpd_fgt_comm_bytes(128, pd_size(8))["total"],
+            "exact": comm_model.cpd_comm_bytes(m_pad)["total"]}
+    assert [c.op for c in rec["collectives"][:4]] == ["all_gather", "psum", "psum", "psum"]
+    ran = comm_model.logged_cpd_iterations(rec["collectives"], 4)
+    assert all(b == want[kind] for kind, b in ran), ran
+    kinds = [kind for kind, _ in ran]
+    assert kinds == sorted(kinds, key=("fgt", "exact").index)
+    phases = rec["phases"]
+    assert phases.count("fgt") <= kinds.count("fgt") and phases.count("fgt") > 0
+    assert phases.count("trunc") <= kinds.count("exact") and phases.count("trunc") > 0
 
 
 def test_comm_model_formulas():

@@ -64,7 +64,9 @@ result is the eager one-iteration loop's, bit for bit.  The pair-axis
 loop (``algorithms/batch.py``) runs the same chunks over a leading pair
 axis; where its E-step runs pair by pair, a chunk runs only the pairs
 that were running in its phase when it began (they are part of its
-key), as the other pairs stay frozen through it.
+key), as the other pairs stay frozen through it.  The sharded loop
+(``parallel/cpd.py``) runs the same chunks too, its E-step on a rank's
+block and its replicated M-step given as hooks (``EMConfig.shard``).
 
 The M-step's sums come from kernel P's moments entry, float64 over fixed
 row chunks, and its SVD from P's SVD entry (``kernels/procrustes.py``):
@@ -471,6 +473,7 @@ class EMInputs(NamedTuple):
     switch: torch.Tensor  # f32[], the Hybrid switch 0.015 sigma^2_0
     cap: torch.Tensor  # i32[], max_iterations
     offset: torch.Tensor  # i32[], iterations done before (the history ring's slots)
+    # the sharded loop's: parallel/cpd.py::FGTClusters
     fgt: Optional[FGTSetup] = None
 
 
@@ -488,6 +491,11 @@ class EMConfig(NamedTuple):
     # the pair-axis loop: truncated E-steps pair by pair through K5 (the
     # solo route) rather than in one call of K4's batch form
     pair_cand: bool = False
+    # the sharded loop (parallel/cpd.py::ShardedEM): its E-step on this
+    # rank's block with the moments reduced over the ranks, its replicated
+    # M-step and whether its collectives may be captured; hashed by its
+    # process group
+    shard: Optional[Any] = None
 
     @property
     def split(self) -> bool:
@@ -681,7 +689,9 @@ def _estep(cfg: EMConfig, t: EMInputs, s: CPDState, fast, phase, eligible, activ
     transformed = transform_points(t.moving, s.rotation, s.translation, scale)
     if not batched:
         start = len(routes)
-        if fgt:
+        if cfg.shard is not None:
+            stats = cfg.shard.estep(cfg, t, s, transformed, fgt, sigma_e, constant, trunc)
+        elif fgt:
             stats = _fgt_estep(cfg, t, s, transformed, sigma_e)
         else:
             stats = cpd_estep_auto(transformed, t.mask_b, t.target, t.mask_a, sigma_e,
@@ -730,7 +740,10 @@ def _em_step(cfg: EMConfig, t: EMInputs, c: _EMCarry, phase: Optional[str], elig
         active = go & (fast if phase == "fast" else torch.logical_not(fast))
     stats, code = _estep(cfg, t, s, fast, phase, eligible, active, routes)
     ntol = torch.abs((stats.error - s.log_likelihood) / stats.error)
-    mres = mstep_from_sums(mstep_sums(t.moving, t.target, stats), cfg.const_scale, s.scale)
+    if cfg.shard is not None:
+        mres = cfg.shard.mstep(t, stats, cfg.const_scale, s.scale)
+    else:
+        mres = mstep_from_sums(mstep_sums(t.moving, t.target, stats), cfg.const_scale, s.scale)
     new = CPDState(rotation=mres.rotation, translation=mres.translation, scale=mres.scale,
                    sigma2=mres.sigma2, log_likelihood=stats.error, ntol=ntol,
                    iterations=s.iterations + 1)
@@ -793,11 +806,16 @@ def _em_loop(cfg: EMConfig, t: EMInputs, c: _EMCarry, max_iterations: int, verbo
     filled in here.  A chunk's key holds its phase and, where its
     pair-axis E-step runs pair by pair, the pairs that run theirs: those
     that were running in the chunk's phase when it began (any other pair
-    stays frozen through the chunk)."""
+    stays frozen through the chunk).  The sharded loop (``cfg.shard``) is
+    captured only where its collectives may be (NCCL); under gloo a chunk
+    on CUDA is one eager iteration.  A frozen iteration still runs its
+    E-step and its collectives: every rank freezes on the same replicated
+    values, so the ranks' collectives stay matched."""
     device = t.moving.device
     batched = t.moving.dim() == 3
     nb = t.moving.shape[0] if batched else 1
-    use_graph = device.type == "cuda" and icp.CUDA_GRAPHS and not verbose
+    use_graph = (device.type == "cuda" and icp.CUDA_GRAPHS and not verbose
+                 and (cfg.shard is None or cfg.shard.capturable))
     single = verbose or (device.type == "cuda" and not use_graph)
     k = 1 if single else int(LOOP_CHUNK)
     if k < 1:

@@ -11,6 +11,9 @@ warm-up), the next is captured as a CUDA graph over static buffers
 ``graph_scope``, so a later registration of the same key loads its
 inputs and replays it.  A loop supplies its chunk, its status reader and
 its keys (a loop with phases, as CPD's Hybrid, has one key a phase).
+The sharded loops' chunks hold NCCL collectives (``parallel/``): a
+replay books them to the open ``collectives.collective_log`` as it books
+its launches, and their key names the process group.
 
 The tree helpers (``leaves``, ``rebuild``, ``signature``, ``keep``) act
 on trees of named tuples and tensors: a loop's inputs and carry.
@@ -24,6 +27,7 @@ from typing import Callable, Hashable, Optional
 import torch
 
 from tpuslam_torch import kernels
+from tpuslam_torch.parallel import collectives
 
 
 def leaves(tree) -> list:
@@ -75,7 +79,11 @@ class ChunkGraph:
     (the buffers then hold the new carry).  A replay runs no wrapper, so
     it books the launches the device counted in it (the status's first
     entries) to the wrappers' counters, with the batch sizes the capture
-    recorded."""
+    recorded, and the collectives the capture recorded to the open
+    ``collective_log``.  The capture is "thread_local"
+    (``torch.cuda.graph``'s ``capture_error_mode``): in a rank's process
+    the NCCL process group's watchdog thread queries its events
+    meanwhile, which a "global" capture would count against it."""
 
     def __init__(self, fn: Callable, inputs, carry):
         self.inputs = [t.clone() for t in leaves(inputs)]
@@ -86,7 +94,9 @@ class ChunkGraph:
         kernels.tally(device)
         kernels.arrivals_ptr(device)
         self.graph = torch.cuda.CUDAGraph()
-        with kernels.recording_capture() as self.captured, torch.cuda.graph(self.graph):
+        with kernels.recording_capture() as self.captured, \
+                collectives.recording_capture() as self.collectives, \
+                torch.cuda.graph(self.graph, capture_error_mode="thread_local"):
             out, self.status, _ = fn(rebuild(inputs, iter(self.inputs)), self.template)
             for buf, new in zip(self.carry, leaves(out)):
                 buf.copy_(new)
@@ -102,6 +112,7 @@ class ChunkGraph:
         self.graph.replay()
         vals = self.status.tolist()
         kernels.book_replay(vals[:len(kernels.TALLIED)], self.captured)
+        collectives.book_replay(self.collectives)
         return vals
 
     def result(self):

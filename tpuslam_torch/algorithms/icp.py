@@ -39,12 +39,15 @@ device.  The graph is kept for the registration, or, inside
 ``graph_scope``, for the scope's owner (a sequence, a stream, a chunked
 run, a server, a measurement), one per shape it meets: a later
 registration of the same shapes copies its inputs in and replays it.
-``verbose=True`` (the reference prints each iteration's error),
-``CUDA_GRAPHS = False`` (the eager baseline of a measurement) and an arm
-that cannot be captured (``Arm.key`` None: the sharded arm's
-collectives) run eager chunks of one iteration, the search
-reading its arm on the host; so does the CPU, at ``LOOP_CHUNK``.
-Whatever the chunk, the result is the one-iteration loop's, bit for bit.
+The sharded arm (``parallel/icp.py``) runs the same chunks with its
+collectives inside: captured under NCCL, whose collectives a CUDA graph
+records.  ``verbose=True`` (the reference prints each iteration's
+error), ``CUDA_GRAPHS = False`` (the eager baseline of a measurement)
+and an arm that cannot be captured (``Arm.capturable`` False: the
+sharded arm under gloo, which stages each collective through the host)
+run eager chunks of one iteration, the search reading its arm on the
+host; so does the CPU, at ``LOOP_CHUNK``.  Whatever the chunk, the
+result is the one-iteration loop's, bit for bit.
 
 ``icp_register_chunked`` runs the loop a chunk of iterations at a time
 along the same trajectory, and checkpoints each boundary to disk when
@@ -166,14 +169,15 @@ class Arm(NamedTuple):
     functions of them alone, ``run_nn(inputs, transformed, state)`` ->
     (idx, dist, nn state) and ``gather(inputs, idx, nn state)`` -> matched
     target points.  ``key`` names the functions and their static settings
-    for the CUDA-graph cache; None marks an arm that cannot be captured
-    (it reads more than ``inputs``, as the sharded arm's collectives do),
-    whose loop runs eager chunks of one iteration."""
+    for the CUDA-graph cache (for the sharded arm, its process group too).
+    An arm that is not ``capturable`` (the sharded arm under gloo) runs
+    eager chunks of one iteration on CUDA."""
 
     inputs: Tuple[torch.Tensor, ...]
     run_nn: Callable
     gather: Callable
-    key: Optional[tuple] = None
+    key: tuple
+    capturable: bool = True
 
 
 def hier_arm(src_mask: torch.Tensor, target: HierTarget, l_budget: int, g: int,
@@ -415,16 +419,19 @@ def _icp_loop(
     ``graph_scope`` where it holds the shape; a failed capture raises.
     Eager chunks of one iteration with ``verbose``, without
     ``CUDA_GRAPHS`` or for an arm that cannot be captured; eager chunks of
-    ``LOOP_CHUNK`` iterations on the CPU."""
+    ``LOOP_CHUNK`` iterations on the CPU.  An iteration frozen past the
+    stop still runs its query, collectives included: every rank of a
+    sharded loop freezes on the same replicated values, so the ranks'
+    collectives stay matched."""
     device = src_points.device
     batch = tuple(init.done.shape)
     nb = 1 if not batch else batch[0]
     use_graph = (device.type == "cuda" and CUDA_GRAPHS and not verbose
-                 and arm.key is not None)
-    # one iteration a chunk: the printf's; the uncapturable arm's (each
-    # iteration past the stop would run its collectives); an eager chunk
-    # on CUDA's, which reads the host at each hierarchical query anyway
-    single = verbose or arm.key is None or (device.type == "cuda" and not use_graph)
+                 and arm.capturable)
+    # one iteration a chunk: the printf's; an eager chunk on CUDA's, which
+    # reads the host at each hierarchical query anyway (and, under gloo,
+    # at each collective)
+    single = verbose or (device.type == "cuda" and not use_graph)
     k = 1 if single else int(LOOP_CHUNK)
     if k < 1:
         raise ValueError(f"a chunk must be >= 1 iteration (LOOP_CHUNK), got {k}")

@@ -17,7 +17,15 @@ card's drift.  A turn runs:
   and synchronising calls a pair;
 * ``batch_diag``: 16 x 16,384 and 16 x 2,048, batched and unrolled;
 * ``scaling_bench``: the one-rank NCCL rung at 204,800 rows (the
-  sharded loop, which is never captured);
+  sharded loop, spawned by ``run_world``);
+* ``sharded`` in process (``SHARDED_CHILD``): a one-rank NCCL world in
+  the program's own process, all inside one ``icp.graph_scope``, each row
+  ``SHARDED_REPS`` timed calls after an untimed one and the synchronising
+  calls of one more: sharded hierarchical ICP on ``scaling_bench``'s
+  204,800-row pair (20 iterations, eps 0, no guard) beside the solo
+  loop on the same pair, and sharded Hybrid CPD at 102,400 (``cpd``'s
+  Hybrid row: weight 0.1, constant scale, tolerance 0, 60 iterations)
+  beside its solo run, ms an iteration;
 * ``--serve`` in process (``SERVE_CHILD``): the sizes test set's 25 ICP
   sizes (1,000 to 97,000 rows, synthetic, rotation 0.2, translation 10,
   50 iterations) in order, twice, so each size is first met and then met
@@ -71,9 +79,10 @@ PROGRAMS = {
     "cpd_large": ["-m", "tpuslam_torch.harness.cpd_large", "--reps", "2"],
 }
 # the programs run in process, from a script string: argv[1] is the output
-CHILDREN = ("serve", "cpd", "cpd_pairs")
+CHILDREN = ("serve", "cpd", "cpd_pairs", "sharded")
 CPD_REPS = 3
 CPD_PAIRS_REPS = 2
+SHARDED_REPS = 5
 SERVE_REQUESTS = 6
 # the --serve measurement, run from a checkout's root: argv[1] is the output
 SERVE_CHILD = r"""
@@ -230,11 +239,69 @@ with icp.graph_scope({}):
 json.dump(res, open(sys.argv[1], "w"))
 """ % CPD_PAIRS_REPS
 
+SHARDED_CHILD = r"""
+import json, os, sys, tempfile, time
+import numpy as np
+import torch
+import torch.distributed as dist
+from tpuslam_torch.algorithms import cpd, icp
+from tpuslam_torch.config.configuration import ApproximationType as A
+from tpuslam_torch.core.types import pad_cloud
+from tpuslam_torch.data.synthesis import get_random_rotation_matrix, get_random_translation_vector
+from tpuslam_torch.harness.benchkit import count_syncs
+from tpuslam_torch.harness.scaling_bench import make_clouds
+from tpuslam_torch.parallel import cpd as pcpd
+from tpuslam_torch.parallel import icp as picp
+from tpuslam_torch.parallel.distributed import initialize
+from tpuslam_torch.parallel.mesh import make_mesh, replicate_cloud, shard_cloud
+tmp = tempfile.mkdtemp()
+initialize(backend="nccl", init_method="file://" + os.path.join(tmp, "rendezvous"),
+           world_size=1, rank=0)
+mesh = make_mesh()
+def timed(fn):
+    fn()
+    torch.cuda.synchronize()
+    ms = []
+    for _ in range(%d):
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+    _, syncs, sites = count_syncs(fn)
+    it = int(out.iterations)
+    return {"ms": ms, "iterations": it, "ms_per_iter": [m / it for m in ms],
+            "syncs": syncs, "sync_sites": sites}
+rng = np.random.Generator(np.random.PCG64(13))
+b = (rng.random((102400, 3)) * 10).astype(np.float32)
+r, t = get_random_rotation_matrix(rng, 0.1), get_random_translation_vector(rng, 0.5)
+a = (b @ r.T + t).astype(np.float32)[rng.permutation(102400)]
+src, tgt = make_clouds(204800)
+icp_kw = dict(eps=0.0, max_distance_squared=1e18, max_iterations=20, divergence_guard=False)
+cpd_kw = dict(approximation_type=A.Hybrid, weight=0.1, tolerance=0.0, const_scale=True,
+              max_iterations=60)
+res = {}
+with icp.graph_scope({}):
+    rs, sh = replicate_cloud(src, mesh), shard_cloud(tgt, mesh)
+    ps, pt = pad_cloud(src, device="cuda"), pad_cloud(tgt, device="cuda")
+    res["sharded_icp_hier_204800"] = timed(
+        lambda: picp.icp_register_sharded(rs, sh, mesh, use_spatial=True, **icp_kw))
+    res["solo_icp_hier_204800"] = timed(
+        lambda: icp.icp_register(ps, pt, use_spatial=True, **icp_kw))
+    rb, sa = replicate_cloud(b, mesh), shard_cloud(a, mesh)
+    pb, pa = pad_cloud(b, device="cuda"), pad_cloud(a, device="cuda")
+    res["sharded_cpd_hybrid_102400"] = timed(
+        lambda: pcpd.cpd_register_sharded(rb, sa, mesh, **cpd_kw))
+    res["solo_cpd_hybrid_102400"] = timed(lambda: cpd.cpd_register(pb, pa, **cpd_kw))
+dist.destroy_process_group()
+json.dump(res, open(sys.argv[1], "w"))
+""" % SHARDED_REPS
+
 
 def run_turn(tree: str, label: str, turn: int, out_dir: str, reps, programs) -> dict:
     env = dict(os.environ, PYTHONPATH=os.path.abspath(tree))
     walls, paths = {}, {}
-    children = {"serve": SERVE_CHILD, "cpd": CPD_CHILD, "cpd_pairs": CPD_PAIRS_CHILD}
+    children = {"serve": SERVE_CHILD, "cpd": CPD_CHILD, "cpd_pairs": CPD_PAIRS_CHILD,
+                "sharded": SHARDED_CHILD}
     for name in programs:
         args = PROGRAMS.get(name)
         path = os.path.abspath(os.path.join(out_dir, f"{turn}_{label}_{name}.json"))
@@ -281,12 +348,16 @@ def summarize(paths: dict, walls: dict) -> dict:
                    serve_mixed_again_ms=serve["mixed"]["ms"][25:],
                    serve_mixed_hits=serve["mixed"]["hits"])
     if "scaling_bench" in load:
-        out["scaling_one_rank"] = {k: load["scaling_bench"]["rows"][0][k] for k in (
-            "median_ms", "ms", "iter_per_sec", "solo_max_abs_diff")}
+        row = load["scaling_bench"]["rows"][0]
+        out["scaling_one_rank"] = {k: row.get(k) for k in (
+            "median_ms", "ms", "iter_per_sec", "solo_max_abs_diff", "solo_ms_per_iter",
+            "syncs_per_registration", "sync_sites")}
     if "cpd" in load:
         out["cpd"] = load["cpd"]
     if "cpd_pairs" in load:
         out["cpd_pairs"] = load["cpd_pairs"]
+    if "sharded" in load:
+        out["sharded"] = load["sharded"]
     if "cpd_large" in load:
         out["cpd_large"] = {k: v for k, v in load["cpd_large"].items()
                             if k.startswith(("hybrid_30iter", "estep_", "mstep"))}

@@ -10,14 +10,19 @@ z and shifted by 1 (PCG64 seed 7): the source replicated, the target
 split over the ranks (``parallel/icp.py``), 20 iterations, eps 0, no
 guard, the hierarchical arm a block on the card (the dense arm on the
 CPU, where the plain versions are slow).  Each rung: one untimed
-registration, then ``--reps`` timed ones in the same world (the slowest
-rank's synchronised host time of each), iterations/s, Mpoints/s,
+registration (under NCCL it captures the loop's CUDA graph, which the
+world's later registrations replay), then ``--reps`` timed ones in the
+same world (the slowest rank's synchronised host time of each), then
+one whose synchronising calls rank 0 counts on the card
+(``syncs_per_registration``, ``sync_sites``), iterations/s, Mpoints/s,
 ``efficiency_vs_1`` against the one-rank rung, the kernels' launches on
 all ranks, and ``comm_model.predicted_efficiency`` with the collectives'
 bytes of ``comm_model.icp_comm_bytes`` over an assumed link (NVLink 4's
 published 450 GB/s one way, ``LINK_BYTES_PER_S``, and 10 us a
 collective); the rung's result is held to a solo ``icp_register`` of
-this process (``solo_max_abs_diff``, ``equal_to_solo``).
+this process (``solo_max_abs_diff``, ``equal_to_solo``), whose own ms an
+iteration (one untimed call, then ``--reps`` timed ones in one
+``graph_scope``) stands beside each rung (``solo_ms_per_iter``).
 
 R defaults to the cards on the host, one rank a card under NCCL: on one
 card the sweep is the one-rank rung and ``complete_sweep`` is false, as
@@ -68,7 +73,7 @@ def world_sizes(ranks: int) -> list:
 
 def run(bench: benchkit.Bench, size: int, iters: int, reps: int, ranks: int,
         virtual: bool) -> dict:
-    from tpuslam_torch.algorithms.icp import icp_register
+    from tpuslam_torch.algorithms.icp import graph_scope, icp_register
     from tpuslam_torch.core.types import pad_cloud, round_up
     from tpuslam_torch.parallel import comm_model
     from tpuslam_torch.parallel.launch import run_cases, run_world
@@ -80,14 +85,18 @@ def run(bench: benchkit.Bench, size: int, iters: int, reps: int, ranks: int,
     src, tgt = make_clouds(size)
     kw = dict(eps=0.0, max_distance_squared=1e18, max_iterations=iters,
               divergence_guard=False)
-    solo = icp_register(pad_cloud(src, device=dev), pad_cloud(tgt, device=dev),
-                        use_spatial=use_spatial, **kw)
+    b, a = pad_cloud(src, device=dev), pad_cloud(tgt, device=dev)
+    with graph_scope({}):
+        solo_timed, solo = bench.time_calls(
+            lambda: icp_register(b, a, use_spatial=use_spatial, **kw), reps)
+    solo_ms_per_iter = solo_timed["median_ms"] / iters
     solo_rt = [solo.transform.rotation.cpu().numpy(), solo.transform.translation.cpu().numpy()]
     comm = comm_model.icp_comm_bytes(round_up(size))
     rungs, base = [], None
     for d in world_sizes(ranks):
-        cases = [("icp", dict(before=src, after=tgt, use_spatial=use_spatial, **kw))
-                 for _ in range(reps + 1)]  # the first untimed
+        case = ("icp", dict(before=src, after=tgt, use_spatial=use_spatial, **kw))
+        # the first untimed, the last counting its synchronising calls
+        cases = [case] * (reps + 1) + [(case[0], dict(case[1], syncs=True))]
         _, per_rank = run_world(run_cases, d, backend, None if on_card else "cpu", TIMEOUT_S,
                                 cases)
         seconds = [max(r[i]["result"]["seconds"] for r in per_rank) for i in range(1, reps + 1)]
@@ -97,6 +106,7 @@ def run(bench: benchkit.Bench, size: int, iters: int, reps: int, ranks: int,
         ips = iters / (timed["median_ms"] / 1e3)
         base = ips if base is None else base
         last = per_rank[0][-1]["result"]
+        syncs = per_rank[0][-1]["syncs"] or {}
         diff = max(float(np.max(np.abs(last["rotation"] - solo_rt[0]))),
                    float(np.max(np.abs(last["translation"] - solo_rt[1]))))
         equal = (diff == 0.0 and int(last["iterations"]) == int(solo.iterations)
@@ -108,9 +118,11 @@ def run(bench: benchkit.Bench, size: int, iters: int, reps: int, ranks: int,
             predicted_efficiency=comm_model.predicted_efficiency(
                 comm["total"], comm["n_collectives"], 1.0 / base, d, LINK_BYTES_PER_S,
                 COLLECTIVE_LATENCY_S),
-            solo_max_abs_diff=diff, equal_to_solo=equal)
+            solo_max_abs_diff=diff, equal_to_solo=equal, solo_ms_per_iter=solo_ms_per_iter,
+            syncs_per_registration=syncs.get("count"), sync_sites=syncs.get("sites"))
         rungs.append(row)
-        shown = ("iter_per_sec", "efficiency_vs_1", "predicted_efficiency", "equal_to_solo")
+        shown = ("iter_per_sec", "efficiency_vs_1", "predicted_efficiency", "equal_to_solo",
+                 "solo_ms_per_iter", "syncs_per_registration")
         print(f"devices={d}: {json.dumps({k: row[k] for k in shown})}", flush=True)
     return {
         "backend": backend,

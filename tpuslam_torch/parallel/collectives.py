@@ -14,11 +14,19 @@ wait for the slowest rank.  The payload is the bytes of the
 collective's output, what ``comm_model.py``'s byte models count; the
 JAX package counts the same from the traced program instead
 (``tpuslam/parallel/comm_model.py:99-137``).
+
+Under NCCL a collective may be captured into a CUDA graph (the sharded
+loops' chunks, ``algorithms/device_loop.py``): nothing here touches the
+host then.  A captured collective has not run, so it is not logged; it
+is recorded once in the open ``recording_capture`` list, and each replay
+of the graph books those records again (``book_replay``) with their
+seconds NaN: a replay gives a collective no host time of its own.
 """
 
 from __future__ import annotations
 
 import contextlib
+import math
 import time
 from typing import Iterator, List, NamedTuple, Optional
 
@@ -37,6 +45,9 @@ class Collective(NamedTuple):
 
 
 _log: Optional[List[Collective]] = None
+# the collectives recorded into the CUDA graph being captured, while
+# ``recording_capture`` is open
+_captured: Optional[List[Collective]] = None
 
 
 @contextlib.contextmanager
@@ -48,6 +59,26 @@ def collective_log() -> Iterator[List[Collective]]:
         yield _log
     finally:
         _log = outer
+
+
+@contextlib.contextmanager
+def recording_capture() -> Iterator[List[Collective]]:
+    """Within the block, the collectives recorded into a CUDA graph go to
+    the returned list (their seconds NaN) instead of the log: what each
+    replay of the graph runs."""
+    global _captured
+    outer, _captured = _captured, []
+    try:
+        yield _captured
+    finally:
+        _captured = outer
+
+
+def book_replay(captured: List[Collective]) -> None:
+    """Add a replayed graph's collectives (its capture's records) to the
+    open ``collective_log``."""
+    if _log is not None:
+        _log.extend(captured)
 
 
 def _staged(x: torch.Tensor, mesh: Mesh) -> torch.Tensor:
@@ -67,10 +98,12 @@ def _start(x: torch.Tensor, mesh: Mesh) -> float:
 
 
 def _record(op: str, out: torch.Tensor, t0: float) -> None:
-    if _log is not None:
-        _log.append(Collective(op, str(out.dtype).replace("torch.", ""), tuple(out.shape),
+    capturing = out.device.type == "cuda" and torch.cuda.is_current_stream_capturing()
+    into = _captured if capturing else _log
+    if into is not None:
+        into.append(Collective(op, str(out.dtype).replace("torch.", ""), tuple(out.shape),
                                out.numel() * out.element_size(),
-                               time.perf_counter() - t0))
+                               math.nan if capturing else time.perf_counter() - t0))
 
 
 def _all_reduce(x: torch.Tensor, mesh: Mesh, op, name: str) -> torch.Tensor:

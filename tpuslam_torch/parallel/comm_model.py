@@ -47,6 +47,20 @@ def cpd_comm_bytes(m_padded: int) -> Dict[str, int]:
     }
 
 
+def cpd_fgt_comm_bytes(k: int, terms: int) -> Dict[str, int]:
+    """Per CPD EM iteration with the FGT E-step (``cpd.estep_fgt_sharded``):
+    ``psum`` of the target expansion's coefficients f32[K, terms, 4] (its
+    1/denominator and three weighted columns), of the log-likelihood and
+    of the two pt1 moments.  p1 and px come from the summed expansion, the
+    same on every rank, so they never cross ranks."""
+    return {
+        "psum_coefficients": 16 * k * terms,
+        "psum_scalars": 4 + 4 + 12,
+        "total": 16 * k * terms + 20,
+        "n_collectives": 4,
+    }
+
+
 def cpd_init_comm_bytes() -> Dict[str, int]:
     """Once per registration, sigma^2_0: ``psum`` of the count, sum |a|^2
     and sum a."""
@@ -75,6 +89,41 @@ def collective_bytes(log: Iterable) -> List[Tuple[str, tuple, int]]:
 
 def total_collective_bytes(log: Iterable) -> int:
     return sum(b for _, _, b in collective_bytes(log))
+
+
+def logged_iterations(log: Iterable, n_collectives: int, skip: int = 0) -> List[int]:
+    """The payload bytes of each loop iteration in a sharded run's
+    ``collective_log``: the records after the set-up's ``skip``, in groups
+    of the model's ``n_collectives``.  An iteration frozen past the stop
+    inside a chunk runs its collectives too, so the groups count the
+    iterations the loop ran, not only those it kept.  Raises where the
+    records do not split into whole iterations."""
+    body = collective_bytes(log)[skip:]
+    if len(body) % n_collectives:
+        raise ValueError(f"{len(body)} collectives after the set-up's {skip} are not whole "
+                         f"iterations of {n_collectives}")
+    return [sum(b for _, _, b in body[i:i + n_collectives])
+            for i in range(0, len(body), n_collectives)]
+
+
+def logged_cpd_iterations(log: Iterable, skip: int) -> List[Tuple[str, int]]:
+    """``(E-step, payload bytes)`` of each EM iteration in a sharded CPD
+    run's ``collective_log`` after the set-up's ``skip`` records: an FGT
+    iteration opens with the coefficients' 3-d ``psum`` and has
+    ``cpd_fgt_comm_bytes``' 4 collectives, an exact one
+    ``cpd_comm_bytes``' 5.  Frozen iterations count, as in
+    ``logged_iterations``.  Raises where the records end inside an
+    iteration."""
+    body = collective_bytes(log)[skip:]
+    out, i = [], 0
+    while i < len(body):
+        fgt = len(body[i][1]) == 3
+        n = 4 if fgt else 5
+        if i + n > len(body):
+            raise ValueError(f"the log ends inside an iteration at record {skip + i}")
+        out.append(("fgt" if fgt else "exact", sum(b for _, _, b in body[i:i + n])))
+        i += n
+    return out
 
 
 def allreduce_seconds(payload_bytes: float, n_devices: int, link_bytes_per_s: float) -> float:

@@ -16,7 +16,8 @@ routes to ``pallas_cpd_cand`` on the TPU); on the CPU the oracle.  With
 the kernels, the moving cloud and each block are Morton-sorted once, as
 the solo run sorts its clouds.  K5's route may differ from block to
 block; no collective sits inside the E-step, and K5 equals K4 bit for
-bit, so that is harmless.
+bit, so that is harmless.  The 3x3 M-step runs replicated, in float32
+from the reduced moments (``ShardedEM.mstep``).
 
 The FGT E-step (``:102-170``) is sharded another way than the JAX
 package's.  There each block is clustered anew every E-step with an
@@ -32,10 +33,17 @@ target's centres and one ``psum`` of the coefficients gives the solo
 run's model, up to float32 summation order.  ``resolve_use_fgt`` reads
 the GLOBAL padded sizes.
 
-Each EM iteration reads the stop test and the Hybrid phase back to the
-host on every rank; they come from replicated values (sigma^2, the
-log-likelihood), so every rank takes the same E-step and the
-collectives stay matched.
+The EM loop is the solo port's (``algorithms/cpd.py::_em_loop``), with
+this module's E-step and M-step as its hooks (``ShardedEM``): its state
+on the device, one host read a chunk of ``cpd.LOOP_CHUNK`` iterations,
+an iteration frozen after the stop test fails, after ``max_iterations``
+or (Hybrid with the FGT, one phase a chunk) in the other phase.  On CUDA
+under NCCL a chunk is captured as a CUDA graph with its collectives and
+replayed (K5 then chooses its route on the device); under gloo a chunk
+on CUDA is one eager iteration; on the CPU ``LOOP_CHUNK`` eager ones.
+The stop test and the phase come from replicated values (sigma^2, the
+log-likelihood), so every rank freezes alike, frozen iterations run
+their collectives on every rank, and the collectives stay matched.
 """
 
 from __future__ import annotations
@@ -48,27 +56,35 @@ from tpuslam_torch.algorithms.cpd import (
     HYBRID_SWITCH,
     CPDResume,
     CPDState,
+    EMConfig,
+    EMInputs,
+    MStepResult,
+    _EMCarry,
+    _em_loop,
     cpd_estep_auto,
     mstep_from_moments,
     resolve_use_fgt,
     resolve_use_kernels,
     uniform_constant,
 )
+from tpuslam_torch.algorithms.device_loop import graph_scope
 from tpuslam_torch.algorithms.icp import RegistrationResult
 from tpuslam_torch.config.configuration import ApproximationType
 from tpuslam_torch.core.types import Cloud, RigidTransform
+from tpuslam_torch.kernels.cpd_dense import device_scalar
 from tpuslam_torch.ops.fgt import (
     FGTModel,
     compute_fgt_model_multi,
     fgt_predict,
     fgt_predict_multi,
+    fgt_tables,
     k_center_ordered,
     segment_order,
 )
 from tpuslam_torch.ops.geometry import transform_points
 from tpuslam_torch.ops.spatial import morton_permutation
 from tpuslam_torch.parallel.collectives import all_gather, psum
-from tpuslam_torch.parallel.mesh import Mesh, shard_mask, shard_offset
+from tpuslam_torch.parallel.mesh import Mesh, capturable, mesh_key, shard_mask, shard_offset
 
 
 class Moments(NamedTuple):
@@ -168,6 +184,45 @@ def estep_fgt_sharded(transformed, mask_b, target, mask_a, sigma_e, weight, m, n
     return _reduce(out[:, 0] * mask_b, out[:, 1:4] * mask_b[:, None], error, pt1, target, mesh)
 
 
+class ShardedEM(NamedTuple):
+    """The sharded hooks of the EM loop (``algorithms/cpd.py::EMConfig``'s
+    ``shard``): the E-step of this rank's block reduced over the ranks,
+    the replicated M-step, and whether the loop may be captured.  Part of
+    a CUDA graph's key through ``key`` (``mesh.mesh_key``)."""
+
+    mesh: Mesh
+    key: tuple
+
+    @property
+    def capturable(self) -> bool:
+        return capturable(self.mesh)
+
+    def estep(self, cfg: EMConfig, t: EMInputs, s: CPDState, transformed, fgt: bool, sigma_e,
+              constant, trunc) -> Moments:
+        """The iteration's E-step (``algorithms/cpd.py::_plan``'s choice)."""
+        if fgt:
+            return estep_fgt_sharded(transformed, t.mask_b, t.target, t.mask_a, sigma_e,
+                                     t.weight, t.m, t.n, t.fgt, s, cfg.order_of_truncation,
+                                     cfg.ratio_of_far_field, self.mesh)
+        return estep_sharded(transformed, t.mask_b, t.target, t.mask_a, sigma_e, constant, trunc,
+                             self.mesh)
+
+    def mstep(self, t: EMInputs, mo: Moments, const_scale: bool, prev_scale) -> MStepResult:
+        """The replicated M-step from the reduced moments
+        (``parallel/cpd.py:227-256``)."""
+        moving = t.moving
+        np_ = torch.sum(mo.p1)
+        inv_np = 1.0 / np_
+        mu_b = inv_np * torch.matmul(mo.p1, moving)
+        mu_a = inv_np * mo.s_pt1_a
+        a_mat = torch.matmul(mo.px.T, moving) - np_ * torch.outer(mu_a, mu_b)
+        sigma_sub = mo.t_pt1_a2 - np_ * torch.dot(mu_a, mu_a)
+        scale_den = (torch.sum(mo.p1 * torch.sum(moving * moving, -1))
+                     - np_ * torch.dot(mu_b, mu_b))
+        return mstep_from_moments(np_, mu_b, mu_a, a_mat, sigma_sub, scale_den, const_scale,
+                                  prev_scale)
+
+
 def cpd_register_sharded(
     before: Cloud,
     after: Cloud,
@@ -189,13 +244,14 @@ def cpd_register_sharded(
     (the solo port's: a finite log-likelihood, ``ntol > tolerance``,
     ``sigma^2 > eps``; ``max_iterations < 0`` runs none) and its
     approximation ladder are ``algorithms/cpd.py``'s, with its default
-    E-step (the kernels on the card, the oracle on the CPU).  ``resume`` re-enters with a chunk boundary's full EM carry
-    (``CPDResume``).  The result's ``error`` is sigma^2 and its ``em``
-    the final ``CPDState``."""
+    E-step (the kernels on the card, the oracle on the CPU) on this
+    rank's block (module docstring).  ``resume`` re-enters with a chunk
+    boundary's full EM carry (``CPDResume``).  The result's ``error`` is
+    sigma^2 and its ``em`` the final ``CPDState``."""
     device = before.points.device
 
     def f32(x):
-        return torch.as_tensor(x, dtype=torch.float32, device=device)
+        return device_scalar(x, torch.float32, device)
 
     use_fgt = resolve_use_fgt(use_fgt, approximation_type, before.padded_size,
                               after.points.shape[0] * mesh.size)
@@ -210,10 +266,12 @@ def cpd_register_sharded(
         moving, mask_b = moving[perm_b].contiguous(), mask_b[perm_b]
         perm_a = morton_permutation(target, mask_a).long()
         target, mask_a = target[perm_a].contiguous(), mask_a[perm_a]
+    fgt_kk = min(fgt_k, before.padded_size, after.points.shape[0] * mesh.size)
+    clusters = None
     if use_fgt and approximation_type != ApproximationType.NONE:
-        clusters = fgt_clusters(moving, mask_b, after, mesh,
-                                min(fgt_k, before.padded_size, after.points.shape[0] * mesh.size),
-                                use_kernels, perm_a)
+        clusters = fgt_clusters(moving, mask_b, after, mesh, fgt_kk, use_kernels, perm_a)
+        # the static tables on the device before any capture
+        fgt_tables(order_of_truncation, device)
 
     weight = torch.clamp(f32(weight), 1e-6, 1.0 - 1e-6)
     m = torch.sum(mask_b)
@@ -224,68 +282,29 @@ def cpd_register_sharded(
     sa2 = psum(torch.sum(torch.sum(target * target, -1) * mask_a), mesh)
     sa = psum(torch.sum(target * mask_a[:, None], dim=0), mesh)
     sigma2_0 = (n * sb2 + m * sa2 - 2.0 * torch.dot(sb, sa)) / (3.0 * m * n)
-    c_init = uniform_constant(sigma2_0, weight, m, n)
-    switch = HYBRID_SWITCH * sigma2_0
-    tolerance_t, eps_t = f32(tolerance), f32(eps)
-
-    def exact(transformed, sigma_e, constant, trunc):
-        return estep_sharded(transformed, mask_b, target, mask_a, sigma_e, constant, trunc,
-                             mesh)
-
-    def estep(s: CPDState, fast: bool) -> Moments:
-        transformed = transform_points(moving, s.rotation, s.translation, s.scale)
-
-        def fgt(sigma_e):
-            return estep_fgt_sharded(transformed, mask_b, target, mask_a, sigma_e, weight, m, n,
-                                     clusters, s, order_of_truncation, ratio_of_far_field, mesh)
-
-        if approximation_type == ApproximationType.NONE:
-            return exact(transformed, s.sigma2, c_init, False)
-        if approximation_type == ApproximationType.Full:
-            sigma_e = torch.clamp_min(s.sigma2, 0.05)
-            if use_fgt:
-                return fgt(sigma_e)
-            return exact(transformed, sigma_e, uniform_constant(sigma_e, weight, m, n), False)
-        if not fast:  # Hybrid's slow phase: exact, truncated
-            return exact(transformed, s.sigma2, c_init, True)
-        if use_fgt:
-            return fgt(s.sigma2)
-        return exact(transformed, s.sigma2, uniform_constant(s.sigma2, weight, m, n), False)
+    tolerance_t = f32(tolerance)
+    zero = torch.zeros((), dtype=torch.int32, device=device)
+    inputs = EMInputs(
+        moving=moving, target=target, mask_b=mask_b, mask_a=mask_a, m=m, n=n, weight=weight,
+        eps=f32(eps), tolerance=tolerance_t, sigma2_0=sigma2_0,
+        c_init=uniform_constant(sigma2_0, weight, m, n), switch=HYBRID_SWITCH * sigma2_0,
+        cap=zero, offset=zero, fgt=clusters)
+    config = EMConfig(approximation_type, use_fgt, use_kernels, fgt_kk, order_of_truncation,
+                      ratio_of_far_field, const_scale, shard=ShardedEM(mesh, mesh_key(mesh)))
 
     if resume is None:
         s = CPDState(rotation=torch.eye(3, dtype=torch.float32, device=device),
                      translation=torch.zeros(3, dtype=torch.float32, device=device),
                      scale=f32(1.0), sigma2=sigma2_0, log_likelihood=f32(0.0),
-                     ntol=tolerance_t + 10.0, iterations=0)
+                     ntol=tolerance_t + 10.0, iterations=zero)
     else:
         s = CPDState(rotation=f32(resume.rotation), translation=f32(resume.translation),
                      scale=f32(resume.scale), sigma2=f32(resume.sigma2),
                      log_likelihood=f32(resume.log_likelihood), ntol=f32(resume.ntol),
-                     iterations=0)
-
-    while s.iterations < max_iterations:
-        # the one read back of the iteration, from replicated values
-        go, fast = torch.stack([
-            torch.isfinite(s.log_likelihood) & (s.ntol > tolerance_t) & (s.sigma2 > eps_t),
-            s.sigma2 > switch,
-        ]).tolist()
-        if not go:
-            break
-        mo = estep(s, fast)
-        ntol = torch.abs((mo.error - s.log_likelihood) / mo.error)
-        # the replicated M-step from the reduced moments
-        np_ = torch.sum(mo.p1)
-        inv_np = 1.0 / np_
-        mu_b = inv_np * torch.matmul(mo.p1, moving)
-        mu_a = inv_np * mo.s_pt1_a
-        a_mat = torch.matmul(mo.px.T, moving) - np_ * torch.outer(mu_a, mu_b)
-        sigma_sub = mo.t_pt1_a2 - np_ * torch.dot(mu_a, mu_a)
-        scale_den = torch.sum(mo.p1 * torch.sum(moving * moving, -1)) - np_ * torch.dot(mu_b, mu_b)
-        mres = mstep_from_moments(np_, mu_b, mu_a, a_mat, sigma_sub, scale_den, const_scale,
-                                  s.scale)
-        s = CPDState(rotation=mres.rotation, translation=mres.translation, scale=mres.scale,
-                     sigma2=mres.sigma2, log_likelihood=mo.error, ntol=ntol,
-                     iterations=s.iterations + 1)
+                     iterations=zero)
+    iter_offset = 0 if resume is None else int(resume.done_before)
+    c, counts = _em_loop(config, inputs, _EMCarry(s), int(max_iterations), False, iter_offset)
+    s = c.s._replace(iterations=counts[0])
     return RegistrationResult(
         transform=RigidTransform(rotation=s.rotation, translation=s.translation, scale=s.scale),
         iterations=s.iterations,
@@ -309,24 +328,27 @@ def cpd_register_sharded_chunked(
     ``max_iterations < 0`` runs zero iterations, the reference's quirk
     (``coherentpointdrift.cpp:104``).  ``resume`` starts the first chunk
     from a boundary (``CPDResume``), whose ``done_before`` counts toward
-    ``max_iterations``."""
+    ``max_iterations``.  The driver's chunks share their shapes: under
+    NCCL the second and later ones replay the loop's CUDA graphs (the
+    open ``graph_scope``, else one of its own)."""
     if chunk < 1:
         raise ValueError(f"chunk must be >= 1, got {chunk}")
     if max_iterations < 0:
         return cpd_register_sharded(before, after, mesh, max_iterations=max_iterations,
                                     resume=resume, **kwargs)
     total = 0 if resume is None else int(resume.done_before)
-    while True:
-        k = min(chunk, max_iterations - total)
-        result = cpd_register_sharded(before, after, mesh, max_iterations=k, resume=resume,
-                                      **kwargs)
-        did = int(result.iterations)
-        total += did
-        s = result.em
-        resume = CPDResume(rotation=s.rotation, translation=s.translation, scale=s.scale,
-                           sigma2=s.sigma2, log_likelihood=s.log_likelihood, ntol=s.ntol,
-                           done_before=total)
-        if did < k or total >= max_iterations:
-            break
+    with graph_scope():
+        while True:
+            k = min(chunk, max_iterations - total)
+            result = cpd_register_sharded(before, after, mesh, max_iterations=k,
+                                          resume=resume, **kwargs)
+            did = int(result.iterations)
+            total += did
+            s = result.em
+            resume = CPDResume(rotation=s.rotation, translation=s.translation, scale=s.scale,
+                               sigma2=s.sigma2, log_likelihood=s.log_likelihood, ntol=s.ntol,
+                               done_before=total)
+            if did < k or total >= max_iterations:
+                break
     return RegistrationResult(transform=result.transform, iterations=total,
                               error=result.error, em=result.em)

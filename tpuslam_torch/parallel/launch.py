@@ -19,8 +19,10 @@ error.
 in order on every rank, host arrays in and host arrays out
 (``CASES``), each with the rank's kernel launches, K5's routes, its
 collectives (``collectives.collective_log``) and the seconds the
-registration itself took.  It is how the tests and the smoke run drive
-the sharded layer.
+registration itself took.  The cases share one ``graph_scope``, so a
+case that repeats an earlier one's shapes replays the sharded loop's
+kept CUDA graph (under NCCL).  It is how the tests, the smoke run and
+``harness/scaling_bench.py`` drive the sharded layer.
 """
 
 from __future__ import annotations
@@ -32,6 +34,7 @@ import sys
 import tempfile
 import time
 import traceback
+from contextlib import contextmanager
 from typing import Callable, List, Optional, Tuple
 
 import numpy as np
@@ -145,10 +148,23 @@ def _sync(device) -> None:
         torch.cuda.synchronize(device)
 
 
+# the open case's synchronising calls, where it asked for them (``syncs``)
+_SYNCS: Optional[dict] = None
+
+
 def _timed(mesh, fn):
+    """``fn()`` and its seconds on the host's clock, the card synchronised
+    on both sides; in a case that asked for its synchronising calls, on
+    the card, counted inside (``benchkit.count_syncs``)."""
     _sync(mesh.device)
     t0 = time.perf_counter()
-    res = fn()
+    if _SYNCS is not None and mesh.device.type == "cuda":
+        from tpuslam_torch.harness.benchkit import count_syncs
+
+        res, count, sites = count_syncs(fn)
+        _SYNCS.update(count=count, sites=sites)
+    else:
+        res = fn()
     _sync(mesh.device)
     return res, time.perf_counter() - t0
 
@@ -292,30 +308,65 @@ CASES = {
 
 
 def _reset_counts() -> None:
+    from tpuslam_torch.algorithms import cpd
     from tpuslam_torch.kernels import cpd_cand, reset_launch_counts
 
     reset_launch_counts()
     cpd_cand.ROUTE_TRACE.clear()
+    cpd.PHASE_TRACE.clear()
+
+
+@contextmanager
+def _loop(eager: bool):
+    """The sharded loops as asked: with ``eager``, the eager loop of one
+    iteration a chunk on any device (no CUDA graph), the loop a captured
+    or chunked run is held to."""
+    from tpuslam_torch.algorithms import cpd, icp
+
+    saved = icp.CUDA_GRAPHS, icp.LOOP_CHUNK, cpd.LOOP_CHUNK
+    if eager:
+        icp.CUDA_GRAPHS, icp.LOOP_CHUNK, cpd.LOOP_CHUNK = False, 1, 1
+    try:
+        yield
+    finally:
+        icp.CUDA_GRAPHS, icp.LOOP_CHUNK, cpd.LOOP_CHUNK = saved
 
 
 def run_cases(mesh, cases) -> List[dict]:
-    """Run ``cases``, a list of ``(kind, kwargs)`` of ``CASES``, in order;
-    for each: ``{"result", "launches", "routes", "collectives"}``, the
-    kernel launch counts set to 0 just before the case and read just
-    after, ``collectives`` the case's ``collectives.Collective`` records,
-    ``wall`` the case's start and end on the host's clock (epoch
-    seconds)."""
+    """Run ``cases``, a list of ``(kind, kwargs)`` of ``CASES``, in order,
+    inside one ``graph_scope``; for each: ``{"result", "launches",
+    "routes", "phases", "collectives", "syncs", "wall"}``, the kernel
+    launch counts set to 0 just before the case and read just after,
+    ``collectives`` the case's ``collectives.Collective`` records (a
+    replayed graph's with NaN seconds), ``phases`` the E-step of each CPD
+    iteration that ran (``cpd.PHASE_TRACE``), ``wall`` the case's start
+    and end on the host's clock (epoch seconds).  Two keys of ``kwargs``
+    are the runner's: ``eager=True`` runs the case on the eager
+    one-iteration loop (``_loop``), and ``syncs=True`` counts its
+    registration's synchronising calls on the card (``syncs``:
+    ``{"count", "sites"}``; else None)."""
+    global _SYNCS
+    from tpuslam_torch.algorithms import cpd
+    from tpuslam_torch.algorithms.device_loop import graph_scope
     from tpuslam_torch.kernels import cpd_cand, launch_counts
     from tpuslam_torch.parallel.collectives import collective_log
 
     out = []
-    for kind, kwargs in cases:
-        _reset_counts()
-        start = time.time()
-        with collective_log() as log:
-            result = CASES[kind](mesh, **kwargs)
-        out.append({"result": result, "launches": launch_counts(),
-                    "routes": list(cpd_cand.ROUTE_TRACE),
-                    "collectives": list(log),
-                    "wall": (start, time.time())})
+    with graph_scope({}):
+        for kind, kwargs in cases:
+            kwargs = dict(kwargs)
+            eager, syncs = kwargs.pop("eager", False), kwargs.pop("syncs", False)
+            _reset_counts()
+            _SYNCS = {} if syncs else None
+            start = time.time()
+            try:
+                with collective_log() as log, _loop(eager):
+                    result = CASES[kind](mesh, **kwargs)
+            finally:
+                counted, _SYNCS = _SYNCS, None
+            out.append({"result": result, "launches": launch_counts(),
+                        "routes": list(cpd_cand.ROUTE_TRACE),
+                        "phases": list(cpd.PHASE_TRACE),
+                        "collectives": list(log), "syncs": counted or None,
+                        "wall": (start, time.time())})
     return out

@@ -39,6 +39,24 @@ class Mesh:
         return dist.get_backend(self.group)
 
 
+def mesh_key(mesh: Mesh) -> tuple:
+    """What a sharded loop's CUDA graph depends on beside its tensors'
+    shapes (part of its key, ``algorithms/device_loop.py``): the backend,
+    the world's size, the rank, the device and the process group itself,
+    so that a graph captured against one communicator never replays in
+    another (the key holds the group: its identity is not reused while a
+    graph is kept)."""
+    group = mesh.group if mesh.group is not None else dist.group.WORLD
+    return (mesh.backend, mesh.size, mesh.rank, str(mesh.device), group)
+
+
+def capturable(mesh: Mesh) -> bool:
+    """Whether a loop over this mesh may be captured as a CUDA graph: under
+    NCCL, whose collectives stay on the card; gloo stages each one through
+    the host."""
+    return mesh.backend == "nccl"
+
+
 def make_mesh(device=None, group=None) -> Mesh:
     """This rank's ``Mesh`` over ``group`` (None: the default group,
     ``distributed.initialize``).  ``device`` None is the card: under NCCL
@@ -52,6 +70,8 @@ def make_mesh(device=None, group=None) -> Mesh:
         device = torch.device("cuda", local)
     device = resolve_device(device)
     if device.type == "cuda":
+        if device.index is None:  # "cuda": the current card
+            device = torch.device("cuda", torch.cuda.current_device())
         torch.cuda.set_device(device)
     return Mesh(group=group, rank=rank, size=size, device=device)
 
