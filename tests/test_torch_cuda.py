@@ -1365,6 +1365,47 @@ def test_replayed_graph_books_the_launches_the_device_counted(rng, cuda, use_spa
         assert counts["K1"] == 3 * 20 and counts["K1 skipped"] == counts["K3 skipped"] == 0
 
 
+def test_spans_mark_one_capture_and_add_no_sync(rng, cuda):
+    """Two registrations of one shape through ``tpuslam_torch.register``
+    inside one ``graph_scope``, under the profiler: the first captures the
+    loop's graph (one ``tpuslam.loop.capture`` span, inside its
+    ``tpuslam.register`` span), the second replays it (none); a warm
+    registration makes as many synchronising calls with the spans live as
+    without."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from tpuslam_torch.algorithms import icp
+    from tpuslam_torch.harness.benchkit import count_syncs
+
+    n = 16_384
+    before = (rng.random((n, 3)) * 10).astype(np.float32)
+    r_true = get_random_rotation_matrix(rng, 0.15)
+    after = (before @ r_true.T + get_random_translation_vector(rng, 0.5)).astype(np.float32)
+    kw = dict(convergence_epsilon=1e-7, max_distance_squared=1e4, max_iterations=30)
+
+    def one():
+        return tpuslam_torch.register(before, after, device=cuda, **kw)
+
+    acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+    with icp.graph_scope({}) as graphs:
+        with profile(activities=acts) as prof:
+            first, second = one(), one()
+            torch.cuda.synchronize()
+        _, off, _ = count_syncs(one)
+        with profile(activities=acts):
+            _, on, sites = count_syncs(one)
+    assert len(graphs) == 1 and first[2] == second[2] > icp.LOOP_CHUNK
+    ours = sorted((e for e in prof.events()
+                   if e.name.startswith("tpuslam.") and e.device_type == DeviceType.CPU),
+                  key=lambda e: e.time_range.start)
+    regs = [e.time_range for e in ours if e.name == "tpuslam.register"]
+    captures = [e.time_range for e in ours if e.name == "tpuslam.loop.capture"]
+    assert len(regs) == 2 and len(captures) == 1
+    assert regs[0].start <= captures[0].start <= captures[0].end <= regs[0].end
+    assert on == off, sites
+
+
 def _cpd_pair(rng, n, cuda):
     before = (rng.random((n, 3)) * 10).astype(np.float32)
     r = get_random_rotation_matrix(rng, 0.1)

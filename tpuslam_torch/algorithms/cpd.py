@@ -93,6 +93,7 @@ from tpuslam_torch.algorithms.device_loop import (
 )
 from tpuslam_torch.algorithms.icp import RegistrationResult
 from tpuslam_torch.config.configuration import ApproximationType
+from tpuslam_torch.core.spans import span
 from tpuslam_torch.core.types import Cloud, RigidTransform, Sufficient, pick_block
 from tpuslam_torch.kernels.cpd_cand import ROUTES, ROUTE_TRACE, cpd_estep_cand, recording_routes
 from tpuslam_torch.kernels.cpd_dense import cpd_estep_dense_batch, device_scalar
@@ -899,17 +900,21 @@ def cpd_register(
     The result's ``error`` is sigma^2, its ``em`` the final loop state.
     The loop runs ``LOOP_CHUNK`` iterations between host reads, which
     changes no bit of the result (module docstring; ``graph_scope``
-    keeps its CUDA graphs for later registrations of the same key)."""
-    em = _EM(before, after, eps, weight, tolerance, approximation_type, ratio_of_far_field,
-             order_of_truncation, use_fgt, fgt_k, use_kernels, centroid_init, assume_sorted,
-             const_scale)
-    iter_offset = 0 if resume is None else int(resume.done_before)
-    history = None
-    if record_history:
-        history = torch.full((history_length, 4), float("nan"),
-                             dtype=torch.float32, device=em.device)
-    c, counts = _em_loop(em.config, em.inputs, _EMCarry(em.initial(resume), history),
-                         int(max_iterations), verbose, iter_offset)
+    keeps its CUDA graphs for later registrations of the same key).  The
+    set-up before the loop is the ``tpuslam.entry.prepare`` span
+    (``core/spans.py``)."""
+    with span("tpuslam.entry.prepare"):
+        em = _EM(before, after, eps, weight, tolerance, approximation_type,
+                 ratio_of_far_field, order_of_truncation, use_fgt, fgt_k, use_kernels,
+                 centroid_init, assume_sorted, const_scale)
+        iter_offset = 0 if resume is None else int(resume.done_before)
+        history = None
+        if record_history:
+            history = torch.full((history_length, 4), float("nan"),
+                                 dtype=torch.float32, device=em.device)
+        carry = _EMCarry(em.initial(resume), history)
+    c, counts = _em_loop(em.config, em.inputs, carry, int(max_iterations), verbose,
+                         iter_offset)
     s = c.s._replace(iterations=counts[0])
     return RegistrationResult(
         transform=RigidTransform(

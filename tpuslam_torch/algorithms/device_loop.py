@@ -27,6 +27,7 @@ from typing import Callable, Hashable, Optional
 import torch
 
 from tpuslam_torch import kernels
+from tpuslam_torch.core.spans import span
 from tpuslam_torch.parallel import collectives
 
 
@@ -152,25 +153,29 @@ def run_chunks(key_of: Callable[[], Hashable], chunk_of: Callable[[Hashable], Ca
     status and says whether the loop has stopped (``extra`` is None after
     a replay).  With ``use_graph`` a key's chunk is captured after its
     first, eager, chunk and replayed from then on, kept in the open
-    ``graph_scope``; a failed capture raises."""
-    graphs = ({} if _SCOPE is None else _SCOPE) if use_graph else None
-    runner = None  # the graph whose buffers hold the live carry
-    stopped = False
-    while not stopped:
-        key = key_of()
-        kept = None if graphs is None else graphs.get(key)
-        if runner is not None and runner is not kept:
-            carry, runner = runner.result(), None
-        if kept is not None:
-            if runner is None:
-                kept.load(inputs, carry)
-                runner = kept
-            stopped = read(runner.replay(), None)
-            continue
-        fn = chunk_of(key)
-        carry, status, extra = fn(inputs, carry)
-        stopped = read(status.tolist(), extra)
-        if graphs is not None and not stopped:
-            # the eager chunk was the warm-up: capture the key's chunk
-            runner = graphs[key] = ChunkGraph(fn, inputs, carry)
-    return carry if runner is None else runner.result()
+    ``graph_scope``; a failed capture raises.  The call is the
+    ``tpuslam.loop`` span, each capture a ``tpuslam.loop.capture`` span
+    inside it (``core/spans.py``)."""
+    with span("tpuslam.loop"):
+        graphs = ({} if _SCOPE is None else _SCOPE) if use_graph else None
+        runner = None  # the graph whose buffers hold the live carry
+        stopped = False
+        while not stopped:
+            key = key_of()
+            kept = None if graphs is None else graphs.get(key)
+            if runner is not None and runner is not kept:
+                carry, runner = runner.result(), None
+            if kept is not None:
+                if runner is None:
+                    kept.load(inputs, carry)
+                    runner = kept
+                stopped = read(runner.replay(), None)
+                continue
+            fn = chunk_of(key)
+            carry, status, extra = fn(inputs, carry)
+            stopped = read(status.tolist(), extra)
+            if graphs is not None and not stopped:
+                # the eager chunk was the warm-up: capture the key's chunk
+                with span("tpuslam.loop.capture"):
+                    runner = graphs[key] = ChunkGraph(fn, inputs, carry)
+        return carry if runner is None else runner.result()

@@ -33,6 +33,7 @@ import torch
 
 from tpuslam_torch.config.configuration import ComputationMethod, Configuration
 from tpuslam_torch.core.device import resolve_device
+from tpuslam_torch.core.spans import span
 from tpuslam_torch.core.types import pad_cloud
 
 # (rotation f32[3,3], translation f32[3], iterations, error)
@@ -90,10 +91,31 @@ def run_with_configuration(
     device: Optional[torch.device | str] = None,
 ) -> SlamResult:
     """Register host ``f32[N, 3]`` clouds on ``device`` (see
-    ``resolve_device``) with the method ``config`` names."""
-    return get_slam_func(config.computation_method)(
-        before, after, config, resolve_device(device)
-    )
+    ``resolve_device``) with the method ``config`` names, inside the
+    request's ``tpuslam.register`` span (``core/spans.py``)."""
+    with span("tpuslam.register"):
+        return get_slam_func(config.computation_method)(
+            before, after, config, resolve_device(device)
+        )
+
+
+def _copy_in(before: np.ndarray, after: np.ndarray, device: torch.device):
+    """Both clouds padded and on ``device``, in the ``tpuslam.entry.copy_in``
+    span."""
+    with span("tpuslam.entry.copy_in"):
+        return pad_cloud(before, device=device), pad_cloud(after, device=device)
+
+
+def _read_out(rotation: torch.Tensor, result) -> SlamResult:
+    """The ``SlamResult`` of ``result`` with ``rotation``, read to the host in
+    the ``tpuslam.entry.read_out`` span."""
+    with span("tpuslam.entry.read_out"):
+        return (
+            rotation.cpu().numpy(),
+            result.transform.translation.cpu().numpy(),
+            int(result.iterations),
+            float(result.error),
+        )
 
 
 @register(ComputationMethod.Icp)
@@ -121,7 +143,7 @@ def _run_icp(
     )
     chunk = icp_chunk_size(os.environ.get("TPUSLAM_ICP_CHUNK"))
     ckpt = os.environ.get("TPUSLAM_ICP_CKPT") or None
-    before_c, after_c = pad_cloud(before, device=device), pad_cloud(after, device=device)
+    before_c, after_c = _copy_in(before, after, device)
     if config.icp_prealign:
         result = icp_register_prealigned(
             before_c, after_c, subcloud_size=config.nicp_subcloud_size,
@@ -133,12 +155,7 @@ def _run_icp(
                                       checkpoint_path=ckpt, **common)
     else:
         result = icp_register(before_c, after_c, **common)
-    return (
-        result.transform.rotation.cpu().numpy(),
-        result.transform.translation.cpu().numpy(),
-        int(result.iterations),
-        float(result.error),
-    )
+    return _read_out(result.transform.rotation, result)
 
 
 def nicp_widening(before: np.ndarray, after: np.ndarray, widen: Optional[int]):
@@ -170,9 +187,10 @@ def _run_nicp(
     from tpuslam_torch.algorithms.nicp import nicp_register
 
     angles, axes = nicp_widening(before, after, config.nicp_degenerate_widening)
+    before_c, after_c = _copy_in(before, after, device)
     result = nicp_register(
-        pad_cloud(before, device=device),
-        pad_cloud(after, device=device),
+        before_c,
+        after_c,
         eps=config.convergence_epsilon,
         approximation_type=config.approximation_type,
         subcloud_size=config.nicp_subcloud_size,
@@ -180,12 +198,7 @@ def _run_nicp(
         degenerate_angles=angles,
         degenerate_axes=axes,
     )
-    return (
-        result.transform.rotation.cpu().numpy(),
-        result.transform.translation.cpu().numpy(),
-        int(result.iterations),
-        float(result.error),
-    )
+    return _read_out(result.transform.rotation, result)
 
 
 @register(ComputationMethod.Cpd)
@@ -218,17 +231,11 @@ def _run_cpd(
     )
     chunk = cpd_chunk_size(os.environ.get("TPUSLAM_CPD_CHUNK"))
     ckpt = os.environ.get("TPUSLAM_CPD_CKPT") or None
-    before_c, after_c = pad_cloud(before, device=device), pad_cloud(after, device=device)
+    before_c, after_c = _copy_in(before, after, device)
     if chunk or ckpt:
         result = cpd_register_chunked(before_c, after_c, chunk=chunk or 10,
                                       checkpoint_path=ckpt, **common)
     else:
         result = cpd_register(before_c, after_c, **common)
     # the reference returns (scale * R, t) (coherentpointdrift.cpp:123)
-    rotation = result.transform.scale * result.transform.rotation
-    return (
-        rotation.cpu().numpy(),
-        result.transform.translation.cpu().numpy(),
-        int(result.iterations),
-        float(result.error),
-    )
+    return _read_out(result.transform.scale * result.transform.rotation, result)
