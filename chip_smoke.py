@@ -81,7 +81,12 @@ exits non-zero without printing a result:
    and K5's tight E-step timed at 376,401^2, then each pass alone there
    (K4 at the initial sigma^2 without truncation, K5's kernels at the
    window and at sigma^2 0.002 under their tables), with the admitted
-   fractions and each time's bound on the pairs it visits;
+   fractions and each time's bound on the pairs it visits; then K5's
+   plan kernel (``csrc/cpd_plan.cu``: admission, tables, fat subsets)
+   against its plain version, the torch composition, every output bit
+   for bit at 4,096, 20,480, 102,400 and 376,401 rows, with its device
+   time and the composition's, each in a CUDA graph, and its bound
+   (``ab_kernels.plan_rows``);
 10. the CPD slice — ``tpuslam_torch.register`` with CPD, Hybrid, on a
    376,401-point uniform box moved by (0.1 rad, 0.5), weight 0.1, const
    scale (the JAX records' protocol), for 30 iterations: tolerance 0
@@ -357,7 +362,7 @@ FULL = dict(headline=102_400, small=8192, large=1_048_576, large_iters=20,
             front_icp=102_400, front_nicp=200_000, front_perf=("icp", "nicp"),
             shard_ranks=4, shard_estep=376_401, shard_cpd=102_400, shard_cpd_iters=60,
             shard_pairs=16, shard_pair_points=16_384, bench_reps=2, loop_scans=5,
-            cpd_loop_iters=60)
+            cpd_loop_iters=60, plan_rows=(4096, 20_480, 102_400, 376_401))
 
 # the H100 SXM's published peaks (NVIDIA's data sheet, at 700 W): float32
 # outside the tensor cores and HBM3; and the special-function units' exp2,
@@ -496,8 +501,9 @@ def k4_batch_against_plain(scal, ty, target, weights4=None, moving_mask=None,
 
 
 def cpd_phases(dev, smi, kind, sizes, time_ms) -> tuple:
-    """Phases 8-11 (module docstring); returns the kernels' JSON entries and
-    phase 10's Hybrid run (its clouds and result, for phase 17)."""
+    """Phases 8-11 (module docstring); returns the kernels' JSON entries of
+    K4's and K5's passes, that of K5's plan, and phase 10's Hybrid run (its
+    clouds and result, for phase 17)."""
     import torch
 
     import tpuslam_torch
@@ -827,6 +833,15 @@ def cpd_phases(dev, smi, kind, sizes, time_ms) -> tuple:
     log(f"[k5] times on the cluster case on {smi}: denom {k5_times['denom']:.4f} ms (plain "
         f"{k5_times['denom_plain']:.3f}), moments {k5_times['moments']:.4f} ms (plain "
         f"{k5_times['moments_plain']:.3f})")
+    # K5's plan: the kernel against the torch composition
+    from tpuslam_torch.harness.ab_kernels import plan_rows
+
+    plan = [{**r, **bound_of(0.0, r["bytes"])} for r in plan_rows(torch, dev, sizes["plan_rows"])]
+    for r in plan:
+        r["share"] = r["bound_ms"] / min(r["ms"])
+    log(f"[plan] K5's plan kernel against the torch composition on {smi} (device ms in CUDA "
+        f"graphs): {json.dumps(plan)}")
+    check(not any(r["differing_fields"] for r in plan), "K5's plan differs from its plain version")
 
     # 10. the CPD slice -------------------------------------------------------------
     n = sizes["cpd_large"]
@@ -839,7 +854,8 @@ def cpd_phases(dev, smi, kind, sizes, time_ms) -> tuple:
         return {"K4 denom": cpd_dense.DENOM_LAUNCHES,
                 "K4 moments": cpd_dense.MOMENTS_LAUNCHES,
                 "K5 denom": cpd_cand.DENOM_LAUNCHES,
-                "K5 moments": cpd_cand.MOMENTS_LAUNCHES}
+                "K5 moments": cpd_cand.MOMENTS_LAUNCHES,
+                "K5 plan": cpd_cand.PLAN_LAUNCHES}
 
     def register_cpd(mode, max_iterations):
         """One CPD registration through the entry point; returns its result,
@@ -869,13 +885,16 @@ def cpd_phases(dev, smi, kind, sizes, time_ms) -> tuple:
     # the exact mode, whose full admission overflows K5's table and routes
     # every E-step to K4
     cpd_dense.DENOM_LAUNCHES = cpd_dense.MOMENTS_LAUNCHES = 0
-    cpd_cand.DENOM_LAUNCHES = cpd_cand.MOMENTS_LAUNCHES = 0
+    cpd_cand.DENOM_LAUNCHES = cpd_cand.MOMENTS_LAUNCHES = cpd_cand.PLAN_LAUNCHES = 0
     hybrid, _, phases, _ = register_cpd(ApproximationType.Hybrid, sizes["cpd_iters"])
     phase10 = {"before": before, "after": after, "result": hybrid,
                "max_iterations": sizes["cpd_iters"]}
     check("fgt" in phases and "trunc" in phases, "the run must take both Hybrid phases")
     check(cpd_cand.DENOM_LAUNCHES > 0 and cpd_cand.MOMENTS_LAUNCHES > 0,
           "the Hybrid slow phase did not launch K5")
+    check(cpd_cand.PLAN_LAUNCHES == 3 * cpd_cand.DENOM_LAUNCHES,
+          f"the Hybrid run booked {cpd_cand.PLAN_LAUNCHES} plan launches for "
+          f"{cpd_cand.DENOM_LAUNCHES} K5 calls (three a call)")
     _, _, phases, _ = register_cpd(ApproximationType.NONE, sizes["cpd_exact_iters"])
     check(set(phases) == {"exact"}, "the exact mode ran another E-step")
     launches = launch_counts()
@@ -979,7 +998,14 @@ def cpd_phases(dev, smi, kind, sizes, time_ms) -> tuple:
          "replaces": "tpuslam/kernels/pallas_cpd_cand.py:181", "launches": launches["K5 moments"],
          "max_abs_err": main_errs["K5 moments"], "ms": k5_times["moments"],
          "plain_ms": k5_times["moments_plain"], **bounds["K5 moments"], "library_ms": None},
-    ], phase10
+    ], {
+        # no Pallas kernel: the JAX package's admission is XLA's
+        "name": "cpd_plan (K5 plan)", "route": "cuda", "source": "tpuslam_torch/csrc/cpd_plan.cu",
+        "replaces": None, "launches": launches["K5 plan"],
+        "max_abs_err": max(r["max_abs_err"] for r in plan),
+        "ms": min(plan[-1]["ms"]), "plain_ms": min(plan[-1]["torch_ms"]),
+        "bound_ms": plan[-1]["bound_ms"], "bound_by": plan[-1]["bound_by"],
+        "library_ms": None, "rows": plan}, phase10
 
 
 def cylinder(rng, n):
@@ -3632,7 +3658,7 @@ def main(dev=None, sizes=FULL) -> int:
     per_iter = {k: v / iters for k, v in per_call.items()}
     k1_bound = bound_of(FLOPS_NN * float(n_head) * n_head, n_head * (12 + 12 + 8))
 
-    cpd_kernels, phase10 = cpd_phases(dev, smi, kind, sizes, time_ms)
+    cpd_kernels, plan_entry, phase10 = cpd_phases(dev, smi, kind, sizes, time_ms)
     slice7 = nicp_batch_phases(dev, smi, kind, sizes, time_ms)
     log(f"[nicp] summary: {json.dumps(slice7)}")
     slice8 = drivers_phases(dev, smi, kind, sizes, time_ms, phase6, phase10)
@@ -3720,6 +3746,7 @@ def main(dev=None, sizes=FULL) -> int:
         # the error entry's main path is the ICP registration of phase 5
         *({**e, "launches": launches["P error"]} if e["name"] == "procrustes error (P)" else e
           for e in phase23["entries"]),
+        plan_entry,
     ]
     for entry, key in zip(kernels, SHARD_KERNELS):
         entry["front_end_launches"] = front["launches"][entry["name"]]

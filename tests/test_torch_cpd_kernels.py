@@ -503,3 +503,120 @@ def test_cand_plain_bit_identical_at_coarser_sub_tiles(rng, monkeypatch, s2):
     cand = cpd_cand.cpd_estep_cand(*args, torch.tensor(True))
     assert list(cpd_cand.ROUTE_TRACE) == ["k5"]
     _assert_bitwise(cpd_dense.cpd_estep_dense(*args, True), cand)
+
+
+def _composition(mov, mm, tgt, tm, s2, trunc, checked):
+    """K5's plan as ``cpd_estep_cand`` composed it from the admission, the
+    per-CTA tables and the fat subsets (the plain version's pieces, called
+    one by one): a dict by ``Plan`` field."""
+    a = cpd_cand.block_admission(mov, mm, tgt, tm, s2, trunc)
+    dense = a.overflow if checked else a.overflow | ~trunc
+    n, m = len(tgt), len(mov)
+    out = {}
+    out["table_m"], out["counts_n"] = cpd_cand.cta_tables(
+        a.sub_adm, a.f_sub, cpd_dense.cpd_geometry(n).cta_rows, ~a.fat_n & ~dense, a.width_m)
+    out["table_n"], out["counts_m"] = cpd_cand.cta_tables(
+        a.sub_adm.T, a.f_sub, cpd_dense.cpd_geometry(m).cta_rows, ~a.fat_m & ~dense, a.width_n)
+    for side, fat in (("n", a.fat_n), ("m", a.fat_m)):
+        cap = min(cpd_cand.fat_budget(len(fat)), len(fat))
+        n_fat = min(int(fat.sum()), cap)
+        out[f"rows_{side}"] = cpd_cand._block_rows(fat, cap)
+        live = 0 if bool(dense) else n_fat * 1024
+        out[f"live_{side}"] = torch.tensor([live], dtype=torch.int32)
+        out[f"valid_{side}"] = torch.arange(cap * 1024) < live
+    out["route"] = torch.tensor([int(dense)], dtype=torch.int32)
+    out["read"] = torch.tensor([int(dense), int(a.fat_n.sum()), int(a.fat_m.sum())])
+    out["scalars"] = cpd_dense.estep_scalars(s2.reshape(1), torch.tensor([0.5]),
+                                             trunc.reshape(1), 1e-3)
+    out["ty"] = torch.where(mm[:, None] > 0, mov, torch.full_like(mov, cpd_dense.SENTINEL))
+    out.update(tgt=tgt, mov_mask=mm, tgt_mask=tm)
+    return out
+
+
+@pytest.mark.parametrize("checked", [False, True])
+@pytest.mark.parametrize("fixture,s2,trunc", [
+    ("uniform", 0.05, True), ("uniform", 0.004, True), ("uniform", 0.05, False),
+    ("clusters", 0.05, True), ("clusters", 0.05, False),
+])
+def test_cand_plan_ref_equals_the_composition(rng, fixture, s2, trunc, checked):
+    """The plain plan returns what ``block_admission``, ``cta_tables`` and
+    the fat subsets return, over the admission fixtures, in the checked
+    and the unchecked forms; the route is the overflow (checked) or the
+    overflow or a false truncation flag."""
+    if fixture == "uniform":
+        mov, mm, tgt, tm = _sorted_pair(rng, 3000, 4000, 3072, 4096)
+    else:
+        mov, mm, tgt, tm = _clustered_pair(rng)
+    ops = [_t(x) for x in (mov, mm, tgt, tm)]
+    s2_t, trunc_t = torch.tensor(s2), torch.tensor(trunc)
+    plan = cpd_cand.cand_plan(*ops, s2_t, torch.tensor(0.5), trunc_t, checked=checked)
+    want = _composition(*ops, s2_t, trunc_t, checked)
+    for f in cpd_cand.Plan._fields:
+        got = getattr(plan, f)
+        assert got.dtype == want[f].dtype and torch.equal(got, want[f]), f
+    if not trunc and not checked:
+        assert int(plan.route) == 1 and int(plan.counts_n.max()) == 0
+
+
+@pytest.mark.parametrize("checked", [False, True])
+def test_cand_plan_ref_fat_blocks_and_padding(rng, monkeypatch, checked):
+    """Fat blocks (``SLOTS`` 2, as the fat-block test) listed first in the
+    fat subsets with their live rows; clouds of 8,000 rows padded to
+    8,192 (moving rows at the sentinel); the same plan through the
+    checked and unchecked forms where nothing overflows."""
+    monkeypatch.setattr(cpd_cand, "SLOTS", 2)
+    mov, tgt, ones = _fat_problem(rng)
+    ops = [_t(x[:8000]) for x in (mov, ones, tgt, ones)]
+    plan = cpd_cand.cand_plan(*ops, torch.tensor(0.05), torch.tensor(0.4), torch.tensor(True),
+                              checked=checked)
+    assert plan.read.tolist() == [0, 1, 1]
+    assert plan.rows_n[:1024].tolist() == list(range(5 * 1024, 6 * 1024))
+    assert plan.rows_m[:1024].tolist() == list(range(2 * 1024, 3 * 1024))
+    assert int(plan.live_n) == int(plan.live_m) == 1024 and int(plan.valid_n.sum()) == 1024
+    assert plan.rows_n.shape == (8 * 1024,)  # the capacity: min(FAT_MAX, blocks) blocks
+    assert torch.all(plan.ty[8000:] == cpd_dense.SENTINEL) and plan.ty.shape == (8192, 3)
+    assert torch.equal(plan.tgt[:8000], ops[2]) and torch.all(plan.tgt[8000:] == 0)
+    assert torch.all(plan.tgt_mask[8000:] == 0) and torch.all(plan.mov_mask[:8000] == 1)
+
+
+def test_cand_plan_checks_its_operands():
+    """The plan's operand checks raise as K5's do, before any dispatch:
+    shapes and rows (ValueError), dtypes (TypeError), devices
+    (ValueError), fewer than two blocks a side; a device that is neither
+    the CPU nor CUDA is refused."""
+    pts, ones = torch.zeros(4096, 3), torch.ones(4096)
+    sc = (torch.tensor(0.1), torch.tensor(0.01), torch.tensor(True))
+    with pytest.raises(TypeError, match="float32"):
+        cpd_cand.cand_plan(pts.double(), ones, pts, ones, *sc)
+    with pytest.raises(ValueError, match=r"\[rows, 3\]"):
+        cpd_cand.cand_plan(pts[:, :2], ones, pts, ones, *sc)
+    with pytest.raises(ValueError, match="rows"):
+        cpd_cand.cand_plan(pts, ones[:2048], pts, ones, *sc)
+    with pytest.raises(ValueError, match="trunc_active"):
+        cpd_cand.cand_plan(pts, ones, pts, ones, sc[0], sc[1], torch.tensor(1.0))
+    with pytest.raises(ValueError, match="one device"):
+        cpd_cand.cand_plan(pts, ones, pts.to("meta"), ones, *sc)
+    with pytest.raises(ValueError, match="two blocks"):
+        cpd_cand.cand_plan(pts[:1000], ones[:1000], pts, ones, *sc)
+    meta = [t.to("meta") for t in (pts, ones, pts, ones, *sc)]
+    with pytest.raises(RuntimeError, match="CPU or CUDA"):
+        cpd_cand.cand_plan(*meta)
+
+
+@pytest.mark.parametrize("predicated", [False, True])
+def test_cand_estep_takes_one_plan_a_call(rng, monkeypatch, predicated):
+    """``cpd_estep_cand`` builds its plan once a call through ``cand_plan``
+    (eager and predicated), and K4's bits come out."""
+    calls = []
+    orig = cpd_cand.cand_plan
+
+    def spy(*args):
+        calls.append(args[-1])  # checked
+        return orig(*args)
+
+    monkeypatch.setattr(cpd_cand, "cand_plan", spy)
+    mov, mm, tgt, tm = _sorted_pair(rng, 2500, 3000, 3072, 3072)
+    args = (_t(mov), _t(mm), _t(tgt), _t(tm), 0.05, 0.7)
+    out = cpd_cand.cpd_estep_cand(*args, torch.tensor(True), predicated=predicated)
+    assert calls == [False]
+    _assert_bitwise(cpd_dense.cpd_estep_dense(*args, True), out)

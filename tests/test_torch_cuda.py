@@ -17,7 +17,7 @@ agree with the CPU run within 1e-4 in R and t (cuSOLVER against LAPACK,
 sums in another order).  K4 must agree with its plain version within
 1e-5 relative (the sums inside a block run in another order; the
 Gaussian's distance and truncation are the same), and K5 must equal K4
-bit for bit.
+bit for bit; K5's plan kernel must equal its plain version bit for bit.
 """
 
 import numpy as np
@@ -1590,6 +1590,144 @@ def test_predicated_cpd_estep_equals_the_host_route_on_the_card(rng, cuda, scale
     dev = cpd_cand.cpd_estep_cand(*args, predicated=True)
     for f in ("p1", "pt1", "px", "error"):
         assert torch.equal(getattr(dev, f), getattr(host, f)), f
+
+
+# -- K5's plan (csrc/cpd_plan.cu) ---------------------------------------------------
+
+
+def _plan_operands(rng, cuda, n, ragged=False, scale=0.015):
+    """Morton-sorted boxes of ``n`` rows (``ragged``: 4,321 more target
+    rows, every 97th moving and every 89th target row left out), their
+    masks and a sigma^2 ``scale`` times the initial one (0.015: the Hybrid
+    window)."""
+    from tpuslam_torch.algorithms.cpd import sigma_squared_init
+
+    n_tgt = n + 4321 if ragged else n
+    mov, tgt = _sorted_cloud(rng, n, cuda), _sorted_cloud(rng, n_tgt, cuda)
+    mm, tm = torch.ones(n, device=cuda), torch.ones(n_tgt, device=cuda)
+    if ragged:
+        mm[::97] = 0
+        tm[::89] = 0
+    return mov, mm, tgt, tm, (sigma_squared_init(mov, mm, tgt, tm) * scale).reshape(())
+
+
+def _plan_equal(args, checked=False):
+    """The plan kernel against its plain version, every output bit for
+    bit; returns the kernel's plan."""
+    before = cpd_cand.PLAN_LAUNCHES
+    got = cpd_cand.cand_plan(*args, 1e-3, checked)
+    want = cpd_cand.cand_plan_ref(*args, 1e-3, checked)
+    torch.cuda.synchronize()
+    assert cpd_cand.PLAN_LAUNCHES == before + 3
+    for f in cpd_cand.Plan._fields:
+        a, b = getattr(got, f), getattr(want, f)
+        assert a.dtype == b.dtype and a.shape == b.shape, f
+        assert torch.equal(a, b), f
+    return got
+
+
+@pytest.mark.parametrize("checked", [False, True])
+@pytest.mark.parametrize("trunc", [True, False])
+@pytest.mark.parametrize("n,f_sub,scale", [
+    (4096, 8, 0.015), (12_000, 8, 0.015), (20_480, 8, 0.015), (20_480, 8, 0.002),
+    (20_480, 1, 0.015), (102_400, 8, 0.015), (102_400, 2, 0.015), (376_401, 8, 0.015),
+    (376_401, 4, 0.002),
+])
+def test_plan_kernel_equals_its_plain_version(rng, cuda, monkeypatch, n, f_sub, scale, trunc,
+                                             checked):
+    """K5's plan (route, tables, counts, fat rows, live, valid, scalars,
+    padded operands, read-back values) bit for bit against the torch
+    composition on the card, at the benchmark's sizes and 102,400 and
+    376,401 rows (12,000 against 16,321 target rows: both padded, with
+    masked rows), at the
+    sub-tile factor the rule gives and coarser ones, with truncation on
+    and off, in the checked and the unchecked (eager and predicated)
+    forms."""
+    blocks = -(-n // 1024)
+    if cpd_cand.sub_factor(blocks, blocks) != f_sub:
+        monkeypatch.setattr(cpd_cand, "SUB_BOUND_MAX", (blocks * f_sub) ** 2)
+    assert cpd_cand.sub_factor(blocks, blocks) == f_sub
+    mov, mm, tgt, tm, s2 = _plan_operands(rng, cuda, n, ragged=n == 12_000, scale=scale)
+    args = (mov, mm, tgt, tm, s2, torch.tensor(0.01, device=cuda),
+            torch.tensor(trunc, device=cuda))
+    plan = _plan_equal(args, checked)
+    if not trunc and not checked:
+        assert int(plan.route) == 1 and int(plan.counts_n.max()) == 0
+
+
+@pytest.mark.parametrize("checked", [False, True])
+@pytest.mark.parametrize("case", ["fat", "overflow"])
+def test_plan_kernel_fat_and_overflow_routes(rng, cuda, monkeypatch, case, checked):
+    """``SLOTS`` 1: 20 clusters with one scrambled block a side have fat
+    blocks within the budget (served by K4's subset passes); a uniform box
+    of 4 blocks with ``FAT_MAX`` 1 overflows it (route 1, or every count
+    zeroed where checked).  Every output bit for bit."""
+    monkeypatch.setattr(cpd_cand, "SLOTS", 1)
+    if case == "fat":
+        grid = np.array([[i, j, k] for i in range(3) for j in range(3) for k in range(3)][:20],
+                        np.float32) * 100.0
+        pts = np.concatenate([(rng.random((1024, 3)) * 3).astype(np.float32) + g
+                              for g in grid])
+        mov, tgt = pts.copy(), (pts + 0.01).astype(np.float32)
+        mov[3 * 1024:4 * 1024] = pts[rng.permutation(len(pts))[:1024]]
+        tgt[7 * 1024:8 * 1024] = tgt[rng.permutation(len(pts))[:1024]]
+        mov, tgt = torch.from_numpy(mov).to(cuda), torch.from_numpy(tgt).to(cuda)
+        ones = torch.ones(len(pts), device=cuda)
+        mm, tm, s2 = ones, ones, torch.tensor(0.05, device=cuda)
+    else:
+        monkeypatch.setattr(cpd_cand, "FAT_MAX", 1)
+        mov, mm, tgt, tm, s2 = _plan_operands(rng, cuda, 4096)
+    args = (mov, mm, tgt, tm, s2, torch.tensor(0.01, device=cuda),
+            torch.tensor(True, device=cuda))
+    plan = _plan_equal(args, checked)
+    route, fat_n, fat_m = plan.read.tolist()
+    if case == "fat":
+        assert route == 0 and fat_n >= 1 and fat_m >= 1 and int(plan.live_n) == fat_n * 1024
+    else:
+        assert route == 1 and int(plan.counts_n.max()) == int(plan.counts_m.max()) == 0
+
+
+def test_hybrid_registration_bit_identical_with_the_plain_plan(rng, cuda, monkeypatch):
+    """A Hybrid registration at 20,000 points on the CPD loop's graphs
+    (captured, then replayed) with the plan kernel and with the plain plan
+    patched in: pose, sigma^2, iterations, E-step phases and K5 routes
+    bit-identical, and as many synchronising calls in a warm registration.
+    The replays book three plan launches a K5 call, counted on the
+    device.  ``FAT_MAX`` 32 keeps the uniform box's slow phase off K4's
+    route (its fat blocks exceed the budget of 8 otherwise), so K5's
+    passes and the fat subsets run."""
+    from tpuslam_torch.algorithms import cpd, icp
+    from tpuslam_torch.harness.benchkit import count_syncs
+
+    monkeypatch.setattr(cpd_cand, "FAT_MAX", 32)
+    b, a = _cpd_pair(rng, 20_000, cuda)
+    kw = _CPD_MODES["hybrid_exact"]
+
+    def run():
+        with icp.graph_scope({}):
+            cpd_register(b, a, **kw)  # captures the chunk graphs
+            cpd.PHASE_TRACE.clear()
+            cpd_cand.ROUTE_TRACE.clear()
+            before = kernels.launch_counts()
+            res = cpd_register(b, a, **kw)  # replays them
+            delta = kernels.launch_delta(before)
+            trace = (list(cpd.PHASE_TRACE), list(cpd_cand.ROUTE_TRACE))
+            _, syncs, _ = count_syncs(lambda: cpd_register(b, a, **kw))
+        return res, trace, delta, syncs
+
+    got, got_trace, got_delta, got_syncs = run()
+    monkeypatch.setattr(cpd_cand, "cand_plan", cpd_cand.cand_plan_ref)
+    want, want_trace, want_delta, want_syncs = run()
+    assert got.iterations == want.iterations
+    for f in ("rotation", "translation", "scale"):
+        assert torch.equal(getattr(got.transform, f), getattr(want.transform, f)), f
+    assert torch.equal(got.error, want.error)
+    assert got_trace == want_trace and "k5" in got_trace[1]
+    assert got_syncs == want_syncs
+    assert got_delta["K5_plan"] == 3 * got_delta["K5_denom"] > 0
+    assert want_delta["K5_plan"] == 0
+    assert kernels.launch_counts()["K5_plan"] == kernels.tally(cuda)[
+        list(kernels.TALLIED).index("K5_plan"), 0]
 
 
 def test_procrustes_moments_entry_against_plain(rng, cuda):

@@ -10,7 +10,8 @@ hierarchical search, kernels K2 (``csrc/bound.cu``) and K3
 (``csrc/nn_cand.cu``) with K1 as its overflow arm; ``icp_prealign``
 seeds it with one NICP shot.  NICP scores its candidate rotations with
 one K1 call.  CPD runs its exact E-step on kernel K5
-(``csrc/cpd_cand.cu``, the block-skipping E-step) with K4
+(``csrc/cpd_cand.cu``, the block-skipping E-step, planned by
+``csrc/cpd_plan.cu``) with K4
 (``csrc/cpd_dense.cu``, the dense two-pass E-step) as its overflow arm,
 and its Full/Hybrid fast phase on the Fast Gauss Transform from 74,018
 rows.  ``register_pairs`` registers B pairs in one call, on the batch

@@ -39,8 +39,11 @@ under the tables the checkout builds; fat blocks left out) and its
 whole E-step at the Hybrid window (0.015 sigma^2_0) and at sigma^2
 0.002, with the admitted fraction of block pairs and the pairs each
 pass visits; one 376,401-point Hybrid registration (30 iterations,
-tolerance 0: ``chip_smoke.py`` phase 10's protocol); last, the device
-time by kernel of one of each 376k E-step (``torch.profiler``).
+tolerance 0: ``chip_smoke.py`` phase 10's protocol); where the checkout
+has K5's plan kernel, its rows (``plan_rows``: 4,096 to 376,401 rows,
+the kernel against the torch composition, both in CUDA graphs); last,
+the device time by kernel of one of each 376k E-step
+(``torch.profiler``).
 
 With ``--procrustes`` a run measures instead (``p_worker``) kernel P's
 entries on one seed's uniform rows: the Procrustes entry and the error
@@ -162,6 +165,52 @@ def graph_ms(torch, fn, reps):
     stop.record()
     torch.cuda.synchronize()
     return start.elapsed_time(stop) / reps
+
+
+PLAN_ROWS = (4096, 20_480, 102_400, 376_401)  # cloud rows of plan_rows' sizes
+
+
+def plan_rows(torch, dev, rows=PLAN_ROWS, seed=19) -> list:
+    """K5's plan (``cpd_cand.cand_plan``, ``csrc/cpd_plan.cu``) at each size
+    of ``rows``, on Morton-sorted boxes of side 10 at the Hybrid window
+    (0.015 sigma^2_0, truncation on): the outputs that differ from the
+    plain version (the torch composition) and the largest difference, the
+    kernel's device ms and the composition's, each by a CUDA graph of many
+    calls (``graph_ms``), and the bytes of its bound: both clouds and masks
+    read once (16 bytes a row), the padded copies, tables and fat subsets
+    written (``chip_smoke.py`` turns them into the bound's time)."""
+    import numpy as np
+
+    from tpuslam_torch.algorithms.cpd import sigma_squared_init
+    from tpuslam_torch.kernels import cpd_cand
+    from tpuslam_torch.ops.spatial import morton_permutation
+
+    rng = np.random.Generator(np.random.PCG64(seed))
+    out = []
+    for n in rows:
+        def box():
+            p = torch.from_numpy((rng.random((n, 3)) * 10).astype(np.float32)).to(dev)
+            return p[morton_permutation(p, torch.ones(n, device=dev)).long()].contiguous()
+
+        mov, tgt = box(), box()
+        ones = torch.ones(n, device=dev)
+        s2 = (sigma_squared_init(mov, ones, tgt, ones) * 0.015).reshape(())
+        args = (mov, ones, tgt, ones, s2, torch.tensor(0.01, device=dev),
+                torch.tensor(True, device=dev))
+        got, want = cpd_cand.cand_plan(*args), cpd_cand.cand_plan_ref(*args)
+        fields = list(zip(cpd_cand.Plan._fields, got, want))
+        differ = [f for f, a, b in fields if not torch.equal(a, b)]
+        err = max((float((a.double() - b.double()).abs().max()) if a.shape == b.shape
+                   else float("inf")) for _, a, b in fields if a.numel())
+        reps = 50 if n <= 20_480 else 10
+        kernel_ms = [graph_ms(torch, lambda: cpd_cand.cand_plan(*args), reps) for _ in range(2)]
+        torch_ms = [graph_ms(torch, lambda: cpd_cand.cand_plan_ref(*args), max(2, reps // 5))
+                    for _ in range(2)]
+        written = sum(t.numel() * t.element_size() for t in got)
+        out.append({"rows": n, "differing_fields": differ, "max_abs_err": err,
+                    "read": got.read.tolist(), "ms": kernel_ms, "torch_ms": torch_ms,
+                    "bytes": 2 * n * 16 + written})
+    return out
 
 
 def _clocks_during(torch, fn, seconds=2.0):
@@ -539,6 +588,8 @@ def cpd_worker(tree: str, label: str, out_dir: str) -> dict:
     res["hybrid_376k"] = {"wall_s": wall, "iterations": iters, "phases": list(cpd.PHASE_TRACE),
                           "rotation_err_deg": float(np.degrees(np.arccos(np.clip(cos, -1, 1)))),
                           "sigma2": float(err)}
+    if hasattr(cpd_cand, "cand_plan"):
+        res["plan"] = plan_rows(torch, dev)
     # the profiler last: once started it slows the host for the process
     res["profile_376k"] = {k: profiled(fn) for k, fn in profiles.items()}
     with open(os.path.join(out_dir, f"ab_{label}.json"), "w") as f:

@@ -1,5 +1,5 @@
-"""The hand-written CUDA kernels K1-K5 and P, each behind a wrapper that
-keeps its plain PyTorch version beside it.
+"""The hand-written CUDA kernels K1-K5, K5's plan and P, each behind a
+wrapper that keeps its plain PyTorch version beside it.
 
 Every wrapper adds one to its module's counter where it launches its
 kernel and nowhere else (a launch recorded into a CUDA graph is not yet
@@ -7,7 +7,7 @@ a launch); ``launch_counts`` reads all of them under one set of names,
 ``launch_delta`` subtracts an earlier reading.
 
 The kernels that the device-resident ICP and CPD loops run (K1, K2, K3,
-K4's and K5's passes, P's entries) also count themselves on the device,
+K4's and K5's passes, K5's plan, P's entries) also count themselves on the device,
 in ``tally(device)``: each launch adds one to its kernel's row, and a
 predicated launch that did no work (an unselected arm of the
 hierarchical search, an unselected route of the CPD E-step, a fat-block
@@ -25,7 +25,8 @@ from typing import Optional
 
 import torch
 
-KERNELS = ("K1", "K2", "K3", "K4_denom", "K4_moments", "K5_denom", "K5_moments", "P")
+KERNELS = ("K1", "K2", "K3", "K4_denom", "K4_moments", "K5_denom", "K5_moments", "P",
+           "K5_plan")
 # P's entries, counted apart as well as in "P"
 P_ENTRIES = ("P procrustes", "P svd", "P error", "P moments")
 # the kernels that count themselves on the device (rows of the tally), each
@@ -39,6 +40,7 @@ TALLIED = {
     "K5_denom": ("cpd_cand", "DENOM_LAUNCHES"),
     "K5_moments": ("cpd_cand", "MOMENTS_LAUNCHES"),
     **{name: ("procrustes", "LAUNCHES") for name in P_ENTRIES},
+    "K5_plan": ("cpd_cand", "PLAN_LAUNCHES"),
 }
 # the predicated kernels: their launches that returned at once
 SKIPPED = ("K1 skipped", "K3 skipped", "K4_denom skipped", "K4_moments skipped",
@@ -154,7 +156,7 @@ def launch_counts() -> dict:
     counts = dict(zip(KERNELS, (
         nn_dense.LAUNCHES, bound.LAUNCHES, nn_cand.LAUNCHES, cpd_dense.DENOM_LAUNCHES,
         cpd_dense.MOMENTS_LAUNCHES, cpd_cand.DENOM_LAUNCHES, cpd_cand.MOMENTS_LAUNCHES,
-        procrustes.LAUNCHES)))
+        procrustes.LAUNCHES, cpd_cand.PLAN_LAUNCHES)))
     counts.update((name, procrustes.ENTRY_LAUNCHES[name]) for name in P_ENTRIES)
     skipped = dict.fromkeys(SKIPPED, 0)
     for t in _TALLIES.values():
@@ -177,6 +179,6 @@ def reset_launch_counts() -> None:
     nn_dense.LAUNCHES = bound.LAUNCHES = nn_cand.LAUNCHES = procrustes.LAUNCHES = 0
     procrustes.ENTRY_LAUNCHES.clear()
     cpd_dense.DENOM_LAUNCHES = cpd_dense.MOMENTS_LAUNCHES = 0
-    cpd_cand.DENOM_LAUNCHES = cpd_cand.MOMENTS_LAUNCHES = 0
+    cpd_cand.DENOM_LAUNCHES = cpd_cand.MOMENTS_LAUNCHES = cpd_cand.PLAN_LAUNCHES = 0
     for t in _TALLIES.values():
         t.zero_()

@@ -123,7 +123,7 @@ def load_library() -> ctypes.CDLL:
     global _lib
     if _lib is None:
         lib = ctypes.CDLL(str(build()))
-        p, i = ctypes.c_void_p, ctypes.c_int
+        p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         for name, argtypes in (
             # (src, tgt, count, batch, n, m, threads, rows_per_thread,
             #  splits, stage_rows, depth, smem_bytes, arm, arm_value, tally,
@@ -149,6 +149,12 @@ def load_library() -> ctypes.CDLL:
             # (scalars, ty, target, weights4, table, counts, n, m, width,
             #  threads, rows_per_thread, pred, pred_value, tally, acc, stream)
             ("tpuslam_cpd_moments_cand", [p, p, p, p, p, p, *[i] * 5, p, i, p, p, p]),
+            # (mov, mov_mask, tgt, tgt_mask, m0, n0, m, n, sigma2, constant,
+            #  trunc, cut, log_t, checked, f_sub, cta_rows_n, cta_rows_m,
+            #  width_m, width_n, budget_n, budget_m, cap_n, cap_m, work, the
+            #  17 outputs of cpd_cand.Plan, tally, stream)
+            ("tpuslam_cpd_plan", [p, p, p, p, *[i] * 4, p, p, p, f, f, *[i] * 10,
+                                  *[p] * 20]),
             # (before, after, w, batch, n, chunk_rows, nchunks, part1, means,
             #  part2, arrivals, r, t, tally, stream)
             ("tpuslam_procrustes", [p, p, p, i, i, i, i, p, p, p, p, p, p, p, p]),
@@ -164,6 +170,9 @@ def load_library() -> ctypes.CDLL:
             fn = getattr(lib, name)
             fn.argtypes = argtypes
             fn.restype = ctypes.c_int
+        # (n, m, f_sub, cap_n, cap_m) -> bytes of K5's plan's workspace
+        lib.tpuslam_cpd_plan_workspace.argtypes = [i] * 5
+        lib.tpuslam_cpd_plan_workspace.restype = ctypes.c_longlong
         _lib = lib
     return _lib
 

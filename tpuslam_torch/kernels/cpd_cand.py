@@ -10,7 +10,9 @@ of K4 (``kernels/cpd_dense.py``).  Such pairs are skipped; the rest are
 visited in K4's ascending block order, so the result is K4's bit for
 bit.
 
-The wrapper carries over, as torch on the device:
+The plan of a call (``cand_plan``: everything the passes read beside
+the clouds), in the composition that the plain version ``cand_plan_ref``
+keeps as torch on any device:
 
 * the bounds: 128-row (or coarser, ``f_sub``) sub-tile spheres of both
   Morton-sorted clouds (``ops/spatial.tile_bounds``) with the
@@ -23,6 +25,10 @@ The wrapper carries over, as torch on the device:
   "fat" blocks whose sets overflow the table, served by K4's passes on a
   gathered subset of rows, up to ``fat_budget``; more than that, or
   fewer than two blocks a side, routes the whole E-step to K4.
+
+On CUDA the plan is not torch's: one hand-written kernel,
+``csrc/cpd_plan.cu`` (three launches, no host read), writes it bit-equal
+to that composition on the card.
 
 Unlike the JAX package, the kernels skip at the sub-tile grain: each CTA
 of ``cpd_geometry(rows).cta_rows`` output rows gets its own table
@@ -102,6 +108,7 @@ SEGS = TILE // SEG_ROWS
 # kernel launches made by the wrappers below (CPU calls do not count)
 DENOM_LAUNCHES = 0
 MOMENTS_LAUNCHES = 0
+PLAN_LAUNCHES = 0  # csrc/cpd_plan.cu's: three a plan
 # the route of each recent cpd_estep_cand call, newest last: "k5", or
 # "k4" where the whole E-step went to K4
 ROUTE_TRACE: deque = deque(maxlen=4096)
@@ -452,76 +459,188 @@ def _block_rows(fat: torch.Tensor, count: int) -> torch.Tensor:
     return (ids[:, None] * TILE + within[None, :]).reshape(-1)
 
 
-class _Padded(NamedTuple):
-    """One E-step's operands padded to ``TILE`` rows, its scalars and its
-    admission."""
+def _fat_subset(fat: torch.Tensor, blocks: int, dense: torch.Tensor):
+    """One side's fat subset at its fixed capacity: ``(rows, live,
+    valid)`` (``Plan``)."""
+    cap = min(fat_budget(blocks), blocks)
+    rows = _block_rows(fat, cap)
+    n_fat = torch.clamp_max(torch.sum(fat, dtype=torch.int32), cap)
+    live = (torch.where(dense, 0, n_fat) * TILE).to(torch.int32).reshape(1)
+    valid = torch.arange(cap * TILE, device=fat.device) < live
+    return rows, live, valid
+
+
+class Plan(NamedTuple):
+    """K5's plan of one E-step (``cand_plan``): its operands padded to
+    ``TILE`` rows, its scalars, its route and what each pass reads."""
 
     ty: torch.Tensor  # f32[M, 3], padded moving rows at SENTINEL
     tgt: torch.Tensor  # f32[N, 3]
     mov_mask: torch.Tensor  # f32[M]
     tgt_mask: torch.Tensor  # f32[N]
-    scalars: torch.Tensor  # f32[1, 4]
-    adm: Admission
+    scalars: torch.Tensor  # f32[1, 4] (estep_scalars)
+    route: torch.Tensor  # i32[1]: 1 K4 (overflow; unchecked, or no truncation), 0 K5
+    table_m: torch.Tensor  # i32[N / cta_rows, width_m] (cta_tables; 0 rows where route 1)
+    counts_n: torch.Tensor  # i32[N / cta_rows]
+    table_n: torch.Tensor  # i32[M / cta_rows, width_n]
+    counts_m: torch.Tensor  # i32[M / cta_rows]
+    rows_n: torch.Tensor  # i64[cap_n * TILE]: fat target blocks' rows (_block_rows' order)
+    live_n: torch.Tensor  # i32[1]: the rows of rows_n K4's subset pass serves (0 on route 1)
+    valid_n: torch.Tensor  # bool[cap_n * TILE]: row < live_n
+    rows_m: torch.Tensor  # i64[cap_m * TILE]
+    live_m: torch.Tensor  # i32[1]
+    valid_m: torch.Tensor  # bool[cap_m * TILE]
+    read: torch.Tensor  # i64[3]: route, fat target blocks, fat moving blocks
 
 
-def _finish(p: _Padded, denom, pt1, acc, sigma2, m0: int, n0: int) -> Sufficient:
+def cand_plan_ref(transformed: torch.Tensor, moving_mask: torch.Tensor,
+                  target: torch.Tensor, target_mask: torch.Tensor, sigma2: torch.Tensor,
+                  constant: torch.Tensor, trunc_active: torch.Tensor,
+                  truncate: float = 1e-3, checked: bool = False) -> Plan:
+    """The plain version of the plan on any device: the torch composition
+    of padding, ``estep_scalars``, ``block_admission``, both
+    ``cta_tables`` and both fat subsets.  ``sigma2``, ``constant`` f32[]
+    and ``trunc_active`` bool[] are tensors on the clouds' device.  The
+    route is the overflow where ``checked``, else the overflow or a false
+    truncation flag; CTAs of fat blocks, and all CTAs on route 1, get
+    count 0."""
+    m, n = round_up(transformed.shape[0], TILE), round_up(target.shape[0], TILE)
+    mov = pad_rows(transformed[None], m)[0]
+    mov_mask = pad_rows(moving_mask[None], m)[0]
+    tgt = pad_rows(target[None], n)[0].contiguous()
+    tgt_mask = pad_rows(target_mask[None], n)[0]
+    a = block_admission(mov, mov_mask, tgt, tgt_mask, sigma2, trunc_active, truncate)
+    dense = a.overflow if checked else a.overflow | ~trunc_active
+    table_m, counts_n = cta_tables(a.sub_adm, a.f_sub, cpd_geometry(n).cta_rows,
+                                   ~a.fat_n & ~dense, a.width_m)
+    table_n, counts_m = cta_tables(a.sub_adm.T, a.f_sub, cpd_geometry(m).cta_rows,
+                                   ~a.fat_m & ~dense, a.width_n)
+    return Plan(
+        torch.where(mov_mask[:, None] > 0, mov, torch.full_like(mov, SENTINEL)).contiguous(),
+        tgt, mov_mask, tgt_mask,
+        estep_scalars(sigma2.reshape(1), constant.reshape(1), trunc_active.reshape(1),
+                      truncate),
+        dense.to(torch.int32).reshape(1), table_m, counts_n, table_n, counts_m,
+        *_fat_subset(a.fat_n, n // TILE, dense), *_fat_subset(a.fat_m, m // TILE, dense),
+        torch.stack([dense.to(torch.int64), a.fat_n.sum(), a.fat_m.sum()]))
+
+
+def _plan_check(transformed, moving_mask, target, target_mask, sigma2, constant,
+                trunc_active) -> None:
+    for name, t, shape in (("transformed", transformed, (3,)), ("target", target, (3,)),
+                           ("moving_mask", moving_mask, ()), ("target_mask", target_mask, ())):
+        if t.dim() != 1 + len(shape) or tuple(t.shape[1:]) != shape:
+            raise ValueError(f"{name} must be [rows{', 3' if shape else ''}], "
+                             f"got {tuple(t.shape)}")
+        if t.dtype != torch.float32:
+            raise TypeError(f"{name} must be float32, got {t.dtype}")
+    if moving_mask.shape[0] != transformed.shape[0] or target_mask.shape[0] != target.shape[0]:
+        raise ValueError("a mask must have its cloud's rows")
+    for name, t, dtype in (("sigma2", sigma2, torch.float32), ("constant", constant, torch.float32),
+                           ("trunc_active", trunc_active, torch.bool)):
+        if t.numel() != 1 or t.dtype != dtype:
+            raise ValueError(f"{name} must be one {dtype}, got {t.dtype}{list(t.shape)}")
+    tensors = (transformed, moving_mask, target, target_mask, sigma2, constant, trunc_active)
+    if len({t.device for t in tensors}) != 1:
+        raise ValueError("the plan's operands must share one device")
+
+
+def cand_plan(transformed: torch.Tensor, moving_mask: torch.Tensor, target: torch.Tensor,
+              target_mask: torch.Tensor, sigma2: torch.Tensor, constant: torch.Tensor,
+              trunc_active: torch.Tensor, truncate: float = 1e-3,
+              checked: bool = False) -> Plan:
+    """K5's plan of one E-step (``Plan``) for clouds of at least two blocks
+    a side.  The CPU takes the plain version; CUDA launches
+    ``csrc/cpd_plan.cu`` on the current stream (three launches, nothing
+    read back), bit-equal to it, or raises."""
+    global PLAN_LAUNCHES
+    _plan_check(transformed, moving_mask, target, target_mask, sigma2, constant,
+                trunc_active)
+    m0, n0 = transformed.shape[0], target.shape[0]
+    m, n = round_up(m0, TILE), round_up(n0, TILE)
+    tn, tm = n // TILE, m // TILE
+    if tn < 2 or tm < 2:
+        raise ValueError(f"a plan needs two blocks a side, got {tn} and {tm}")
+    if transformed.device.type == "cpu":
+        return cand_plan_ref(transformed, moving_mask, target, target_mask, sigma2,
+                             constant, trunc_active, truncate, checked)
+    dev = transformed.device
+    if dev.type != "cuda":
+        raise RuntimeError(f"K5's plan runs on CPU or CUDA tensors, not {dev}")
+    if 3 * max(m, n) >= 2**31:
+        raise ValueError("K5's plan: sizes exceed the kernel's int indexing")
+    # row-major operands; the scalars may be views (a pair of a batch)
+    ops = [t.contiguous() for t in (transformed, moving_mask, target, target_mask)]
+    from tpuslam_torch.kernels import counted, tally_ptr
+    from tpuslam_torch.kernels.build import launch, load_library
+
+    f_sub = sub_factor(tn, tm)
+    cta_n, cta_m = cpd_geometry(n).cta_rows, cpd_geometry(m).cta_rows
+    if (TILE // f_sub) % cta_n or (TILE // f_sub) % cta_m:
+        raise ValueError(f"a CTA of {cta_n} or {cta_m} rows straddles sub-tiles of "
+                         f"{TILE // f_sub}")
+    cap_n, cap_m = min(fat_budget(tn), tn), min(fat_budget(tm), tm)
+    width_m, width_n = table_width(tm), table_width(tn)
+    work = torch.empty(load_library().tpuslam_cpd_plan_workspace(n, m, f_sub, cap_n, cap_m),
+                       dtype=torch.uint8, device=dev)
+
+    def empty(shape, dtype=torch.float32):
+        return torch.empty(shape, dtype=dtype, device=dev)
+
+    i32, i64 = torch.int32, torch.int64
+    plan = Plan(empty((m, 3)), empty((n, 3)), empty(m), empty(n), empty((1, 4)), empty(1, i32),
+                empty((n // cta_n, width_m), i32), empty(n // cta_n, i32),
+                empty((m // cta_m, width_n), i32), empty(m // cta_m, i32),
+                empty(cap_n * TILE, i64), empty(1, i32), empty(cap_n * TILE, torch.bool),
+                empty(cap_m * TILE, i64), empty(1, i32), empty(cap_m * TILE, torch.bool),
+                empty(3, i64))
+    launch("tpuslam_cpd_plan", dev, *(t.data_ptr() for t in ops[:4]), m0, n0, m, n,
+           sigma2.data_ptr(), constant.data_ptr(), trunc_active.data_ptr(),
+           float(cut_factor(truncate)), float(np.float32(math.log(truncate))), int(checked),
+           f_sub, cta_n, cta_m, width_m, width_n, fat_budget(tn), fat_budget(tm), cap_n, cap_m,
+           work.data_ptr(), *(t.data_ptr() for t in plan), tally_ptr("K5_plan", dev))
+    if counted("cpd_cand", 1):
+        PLAN_LAUNCHES += 3
+    return plan
+
+
+def _finish(p: Plan, denom, pt1, acc, sigma2, m0: int, n0: int) -> Sufficient:
     out = sufficient_from(acc[None], denom[None], pt1, p.mov_mask[None], p.tgt_mask[None],
                           sigma2.reshape(1), m0, n0)
     return Sufficient(p1=out.p1[0], pt1=out.pt1[0], px=out.px[0], error=out.error[0])
 
 
-def _estep_predicated(p: _Padded, constant, sigma2, trunc_active, m0: int,
-                      n0: int) -> Tuple[Sufficient, torch.Tensor]:
+def _estep_predicated(p: Plan, constant, sigma2, m0: int, n0: int) -> Sufficient:
     """The E-step with its route chosen on the device (module docstring):
-    every pass launched, each predicated on the route code, which is
-    returned beside the statistics (i32[1]: 0 K5, 1 K4)."""
-    a = p.adm
+    every pass launched, each predicated on the plan's route code."""
     n, m = p.tgt.shape[0], p.ty.shape[0]
-    tn, tm = n // TILE, m // TILE
-    dense = torch.logical_or(a.overflow, torch.logical_not(trunc_active))
-    route = dense.to(torch.int32).reshape(1)
-    s0 = p.scalars[0]
-    dev = p.ty.device
-
-    def fat_subset(fat, blocks):
-        cap = min(fat_budget(blocks), blocks)
-        rows = _block_rows(fat, cap)
-        n_fat = torch.clamp_max(torch.sum(fat, dtype=torch.int32), cap)
-        live = (torch.where(dense, 0, n_fat) * TILE).to(torch.int32).reshape(1)
-        valid = torch.arange(cap * TILE, device=dev) < live
-        return rows, live, valid
-
-    table_m, counts_n = cta_tables(a.sub_adm, a.f_sub, cpd_geometry(n).cta_rows,
-                                   ~a.fat_n & ~dense, a.width_m)
+    route, s0, dev = p.route, p.scalars[0], p.ty.device
     denom = torch.empty(n, dtype=torch.float32, device=dev)
-    denom_cand(s0, p.ty, p.tgt, table_m, counts_n, pred=route, pred_value=0, out=denom)
+    denom_cand(s0, p.ty, p.tgt, p.table_m, p.counts_n, pred=route, pred_value=0, out=denom)
     denom_pass_batch(p.scalars, p.ty[None], p.tgt[None], pred=route, pred_value=1,
                      out=denom.view(1, 1, n))
     # fat target blocks: K4's phase 1 on their rows, in the same moving-block
     # order, so bit-identical to the full K4 pass
-    rows, live, valid = fat_subset(a.fat_n, tn)
-    fat = torch.empty((1, 1, rows.shape[0]), dtype=torch.float32, device=dev)
-    denom_pass_batch(p.scalars, p.ty[None], p.tgt.index_select(0, rows)[None].contiguous(),
-                     pred=route, pred_value=0, live=live, out=fat)
-    denom = denom.index_copy(0, rows, torch.where(valid, fat.reshape(-1),
-                                                  denom.index_select(0, rows)))
+    fat = torch.empty((1, 1, p.rows_n.shape[0]), dtype=torch.float32, device=dev)
+    denom_pass_batch(p.scalars, p.ty[None], p.tgt.index_select(0, p.rows_n)[None].contiguous(),
+                     pred=route, pred_value=0, live=p.live_n, out=fat)
+    denom = denom.index_copy(0, p.rows_n, torch.where(p.valid_n, fat.reshape(-1),
+                                                      denom.index_select(0, p.rows_n)))
 
     pt1, weights4 = moment_weights(denom[None], p.tgt[None], p.tgt_mask[None],
                                    constant.reshape(1))
-    table_n, counts_m = cta_tables(a.sub_adm.T, a.f_sub, cpd_geometry(m).cta_rows,
-                                   ~a.fat_m & ~dense, a.width_n)
     acc = torch.empty((4, m), dtype=torch.float32, device=dev)
-    moments_cand(s0, p.ty, p.tgt, weights4[0], table_n, counts_m, pred=route, pred_value=0,
-                 out=acc)
+    moments_cand(s0, p.ty, p.tgt, weights4[0], p.table_n, p.counts_m, pred=route,
+                 pred_value=0, out=acc)
     moments_pass_batch(p.scalars, p.ty[None], p.tgt[None], weights4, pred=route,
                        pred_value=1, out=acc.view(1, 4, m))
     # fat moving blocks: K4's phase 2 on their rows
-    rows, live, valid = fat_subset(a.fat_m, tm)
-    fat = torch.empty((1, 4, rows.shape[0]), dtype=torch.float32, device=dev)
-    moments_pass_batch(p.scalars, p.ty.index_select(0, rows)[None].contiguous(), p.tgt[None],
-                       weights4, pred=route, pred_value=0, live=live, out=fat)
-    acc = acc.index_copy(1, rows, torch.where(valid[None], fat[0], acc.index_select(1, rows)))
-    return _finish(p, denom, pt1, acc, sigma2, m0, n0), route
+    fat = torch.empty((1, 4, p.rows_m.shape[0]), dtype=torch.float32, device=dev)
+    moments_pass_batch(p.scalars, p.ty.index_select(0, p.rows_m)[None].contiguous(),
+                       p.tgt[None], weights4, pred=route, pred_value=0, live=p.live_m, out=fat)
+    acc = acc.index_copy(1, p.rows_m, torch.where(p.valid_m[None], fat[0],
+                                                  acc.index_select(1, p.rows_m)))
+    return _finish(p, denom, pt1, acc, sigma2, m0, n0)
 
 
 def cpd_estep_cand(
@@ -568,28 +687,16 @@ def cpd_estep_cand(
         out = dense()
         return (out, torch.zeros((), dtype=torch.bool, device=dev)) if checked else out
 
-    mov = pad_rows(transformed[None], m)[0]
-    mov_mask = pad_rows(moving_mask[None], m)[0]
-    tgt = pad_rows(target[None], n)[0].contiguous()
-    tgt_mask = pad_rows(target_mask[None], n)[0]
-    a = block_admission(mov, mov_mask, tgt, tgt_mask, sigma2, trunc_active,
-                        truncate)
-    p = _Padded(
-        ty=torch.where(mov_mask[:, None] > 0, mov, torch.full_like(mov, SENTINEL)).contiguous(),
-        tgt=tgt, mov_mask=mov_mask, tgt_mask=tgt_mask,
-        scalars=estep_scalars(sigma2.reshape(1), constant.reshape(1),
-                              trunc_active.reshape(1), truncate),
-        adm=a)
+    p = cand_plan(transformed, moving_mask, target, target_mask, sigma2, constant,
+                  trunc_active, truncate, checked)
     if predicated:
-        out, route = _estep_predicated(p, constant, sigma2, trunc_active, m0, n0)
-        _book_route(route, dev)
+        out = _estep_predicated(p, constant, sigma2, m0, n0)
+        _book_route(p.route, dev)
         return out
 
     # the one read back of the call: route, and size the fat subsets (a
     # false truncation flag admits everything: K4's route)
-    go_dense = a.overflow if checked else a.overflow | ~trunc_active
-    overflow, n_fat_n, n_fat_m = torch.stack(
-        [go_dense.to(torch.int64), a.fat_n.sum(), a.fat_m.sum()]).tolist()
+    overflow, n_fat_n, n_fat_m = p.read.tolist()
     if overflow and not checked:
         _book_route(1, dev)
         return dense()
@@ -597,26 +704,22 @@ def cpd_estep_cand(
 
     # on overflow (checked only) every count is zeroed: the kernels become
     # count-gated no-ops and the caller discards the result
-    ty, scalars = p.ty, p.scalars
-    table_m, counts_n = cta_tables(a.sub_adm, a.f_sub, cpd_geometry(n).cta_rows,
-                                   ~a.fat_n & (not overflow), a.width_m)
-    denom = denom_cand(scalars[0], ty, tgt, table_m, counts_n)
+    ty, tgt, scalars = p.ty, p.tgt, p.scalars
+    denom = denom_cand(scalars[0], ty, tgt, p.table_m, p.counts_n)
     if n_fat_n and not overflow:
         # fat target blocks: K4's phase 1 on their rows, in the same
         # moving-block order, so bit-identical to the full K4 pass
-        rows = _block_rows(a.fat_n, n_fat_n)
+        rows = p.rows_n[:n_fat_n * TILE]
         sub = tgt.index_select(0, rows)[None].contiguous()
         denom = denom.index_copy(
             0, rows, denom_pass_batch(scalars, ty[None], sub).reshape(-1))
 
-    pt1, weights4 = moment_weights(denom[None], tgt[None], tgt_mask[None],
+    pt1, weights4 = moment_weights(denom[None], tgt[None], p.tgt_mask[None],
                                    constant.reshape(1))
-    table_n, counts_m = cta_tables(a.sub_adm.T, a.f_sub, cpd_geometry(m).cta_rows,
-                                   ~a.fat_m & (not overflow), a.width_n)
-    acc = moments_cand(scalars[0], ty, tgt, weights4[0], table_n, counts_m)
+    acc = moments_cand(scalars[0], ty, tgt, weights4[0], p.table_n, p.counts_m)
     if n_fat_m and not overflow:
         # fat moving blocks: K4's phase 2 on their rows
-        rows = _block_rows(a.fat_m, n_fat_m)
+        rows = p.rows_m[:n_fat_m * TILE]
         sub = ty.index_select(0, rows)[None].contiguous()
         acc = acc.index_copy(
             1, rows, moments_pass_batch(scalars, sub, tgt[None], weights4)[0])
