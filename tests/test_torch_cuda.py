@@ -1406,6 +1406,77 @@ def test_spans_mark_one_capture_and_add_no_sync(rng, cuda):
     assert on == off, sites
 
 
+def test_fgt_spans_mark_the_setup_and_each_phase_chunk(rng, cuda):
+    """Hybrid CPD forced onto the FGT, twice through ``tpuslam_torch.register``
+    inside one ``graph_scope``, under the profiler: each registration's
+    ``tpuslam.entry.fgt`` lies inside its ``tpuslam.entry.prepare``; its
+    chunks are ``tpuslam.loop.fgt`` spans, then ``tpuslam.loop.trunc``
+    ones, inside its ``tpuslam.loop``, the first registration's captures
+    (one a phase that runs past one chunk) inside them; the result is the
+    same bit for bit without the profiler, with as many synchronising
+    calls."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from tpuslam_torch.algorithms import cpd, icp
+    from tpuslam_torch.harness.benchkit import count_syncs
+
+    n = 8192
+    before = (rng.random((n, 3)) * 10).astype(np.float32)
+    r_true = get_random_rotation_matrix(rng, 0.1)
+    after = (before @ r_true.T + get_random_translation_vector(rng, 0.5)).astype(np.float32)
+    after = after[rng.permutation(n)]
+    kw = dict(computation_method=tpuslam_torch.ComputationMethod.Cpd,
+              approximation_type=ApproximationType.Hybrid, cpd_weight=0.1,
+              cpd_const_scale=True, cpd_tolerance=1e-6, max_iterations=60,
+              cpd_use_fgt=True)
+
+    def one():
+        return tpuslam_torch.register(before, after, device=cuda, **kw)
+
+    acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+    with icp.graph_scope({}) as graphs:
+        cpd.PHASE_TRACE.clear()
+        want = one()
+        ran = list(cpd.PHASE_TRACE)
+    assert "fgt" in ran and "trunc" in ran
+    with icp.graph_scope({}) as graphs:
+        with profile(activities=acts) as prof:
+            first, second = one(), one()
+            torch.cuda.synchronize()
+        _, off, _ = count_syncs(one)
+        with profile(activities=acts):
+            _, on, sites = count_syncs(one)
+    assert len(graphs) in (1, 2) and on == off, sites
+    for got in (first, second):
+        assert got[2] == want[2] and got[3] == want[3]
+        np.testing.assert_array_equal(got[0], want[0])
+        np.testing.assert_array_equal(got[1], want[1])
+    ours = sorted((e for e in prof.events()
+                   if e.name.startswith("tpuslam.") and e.device_type == DeviceType.CPU),
+                  key=lambda e: e.time_range.start)
+
+    def inside(inner, outer):
+        return outer.start <= inner.start <= inner.end <= outer.end
+
+    regs = [e.time_range for e in ours if e.name == "tpuslam.register"]
+    assert len(regs) == 2
+    k = cpd.LOOP_CHUNK
+    want_names = (["tpuslam.loop.fgt"] * -(-ran.count("fgt") // k)
+                  + ["tpuslam.loop.trunc"] * -(-ran.count("trunc") // k))
+    for i, reg in enumerate(regs):
+        mine = [e for e in ours if inside(e.time_range, reg)]
+        prepare = [e.time_range for e in mine if e.name == "tpuslam.entry.prepare"]
+        setup = [e.time_range for e in mine if e.name == "tpuslam.entry.fgt"]
+        assert len(prepare) == len(setup) == 1 and inside(setup[0], prepare[0])
+        chunks = [e for e in mine if e.name in ("tpuslam.loop.fgt", "tpuslam.loop.trunc")]
+        assert [e.name for e in chunks] == want_names
+        captures = [e.time_range for e in mine if e.name == "tpuslam.loop.capture"]
+        assert len(captures) == (len(graphs) if i == 0 else 0)
+        for c in captures:
+            assert any(inside(c, e.time_range) for e in chunks)
+
+
 def _cpd_pair(rng, n, cuda):
     before = (rng.random((n, 3)) * 10).astype(np.float32)
     r = get_random_rotation_matrix(rng, 0.1)

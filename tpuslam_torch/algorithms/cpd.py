@@ -562,11 +562,12 @@ class _EM:
         fgt_kk = min(fgt_k, before.padded_size, after.padded_size)
         fgt = None
         if use_fgt and approximation_type != ApproximationType.NONE:
-            cy, iy, oy = k_center_ordered(moving, mask_b, fgt_kk)
-            cx, ix, ox = k_center_ordered(target, mask_a, fgt_kk)
-            fgt = FGTSetup(cy, iy, oy.order, oy.lengths, cx, ix, ox.order, ox.lengths)
-            # the static tables on the device before any capture
-            fgt_tables(order_of_truncation, device)
+            with span("tpuslam.entry.fgt"):
+                cy, iy, oy = k_center_ordered(moving, mask_b, fgt_kk)
+                cx, ix, ox = k_center_ordered(target, mask_a, fgt_kk)
+                fgt = FGTSetup(cy, iy, oy.order, oy.lengths, cx, ix, ox.order, ox.lengths)
+                # the static tables on the device before any capture
+                fgt_tables(order_of_truncation, device)
         zero = torch.zeros((), dtype=torch.int32, device=device)
         self.inputs = EMInputs(
             moving=moving, target=target, mask_b=mask_b, mask_a=mask_a, m=m, n=n,
@@ -800,6 +801,17 @@ def _read_em_status(vals: list, nb: int, k: int) -> tuple:
     return counts, states
 
 
+def _phase_span(cfg: EMConfig):
+    """A chunk's phase span from its key (``core/spans.py``), where the
+    loop runs the FGT: ``tpuslam.loop.fgt`` for the FGT's E-steps (Full,
+    Hybrid's fast phase), ``tpuslam.loop.trunc`` for Hybrid's slow phase.
+    Every other loop's chunks get none: their E-step is one, or its phase
+    a device flag."""
+    if not cfg.use_fgt or cfg.approximation_type == ApproximationType.NONE:
+        return lambda key: None
+    return lambda key: "tpuslam.loop." + PHASES[2 if key[-2] == "slow" else 0]
+
+
 def _em_loop(cfg: EMConfig, t: EMInputs, c: _EMCarry, max_iterations: int, verbose: bool,
              iter_offset: int) -> tuple:
     """The whole EM loop after its set-up (module docstring): the final
@@ -856,7 +868,7 @@ def _em_loop(cfg: EMConfig, t: EMInputs, c: _EMCarry, max_iterations: int, verbo
         return not any(states)
 
     if any(states):
-        c = run_chunks(key_of, chunk_of, t, c, read, use_graph)
+        c = run_chunks(key_of, chunk_of, t, c, read, use_graph, _phase_span(cfg))
     return c, counts
 
 

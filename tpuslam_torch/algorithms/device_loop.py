@@ -144,7 +144,8 @@ def graph_scope(graphs: Optional[dict] = None):
 
 
 def run_chunks(key_of: Callable[[], Hashable], chunk_of: Callable[[Hashable], Callable],
-               inputs, carry, read: Callable[[list, object], bool], use_graph: bool):
+               inputs, carry, read: Callable[[list, object], bool], use_graph: bool,
+               span_of: Callable[[Hashable], Optional[str]] = lambda key: None):
     """Run a loop's chunks until it has stopped; returns the final carry.
 
     Before each chunk ``key_of()`` names it; ``chunk_of(key)`` is the
@@ -155,27 +156,30 @@ def run_chunks(key_of: Callable[[], Hashable], chunk_of: Callable[[Hashable], Ca
     first, eager, chunk and replayed from then on, kept in the open
     ``graph_scope``; a failed capture raises.  The call is the
     ``tpuslam.loop`` span, each capture a ``tpuslam.loop.capture`` span
-    inside it (``core/spans.py``)."""
+    inside it, and each chunk whose key ``span_of`` names (None: none)
+    that span, around its run, capture or replay and status read
+    (``core/spans.py``)."""
     with span("tpuslam.loop"):
         graphs = ({} if _SCOPE is None else _SCOPE) if use_graph else None
         runner = None  # the graph whose buffers hold the live carry
         stopped = False
         while not stopped:
             key = key_of()
-            kept = None if graphs is None else graphs.get(key)
-            if runner is not None and runner is not kept:
-                carry, runner = runner.result(), None
-            if kept is not None:
-                if runner is None:
-                    kept.load(inputs, carry)
-                    runner = kept
-                stopped = read(runner.replay(), None)
-                continue
-            fn = chunk_of(key)
-            carry, status, extra = fn(inputs, carry)
-            stopped = read(status.tolist(), extra)
-            if graphs is not None and not stopped:
-                # the eager chunk was the warm-up: capture the key's chunk
-                with span("tpuslam.loop.capture"):
-                    runner = graphs[key] = ChunkGraph(fn, inputs, carry)
+            with span(span_of(key)):
+                kept = None if graphs is None else graphs.get(key)
+                if runner is not None and runner is not kept:
+                    carry, runner = runner.result(), None
+                if kept is not None:
+                    if runner is None:
+                        kept.load(inputs, carry)
+                        runner = kept
+                    stopped = read(runner.replay(), None)
+                    continue
+                fn = chunk_of(key)
+                carry, status, extra = fn(inputs, carry)
+                stopped = read(status.tolist(), extra)
+                if graphs is not None and not stopped:
+                    # the eager chunk was the warm-up: capture the key's chunk
+                    with span("tpuslam.loop.capture"):
+                        runner = graphs[key] = ChunkGraph(fn, inputs, carry)
         return carry if runner is None else runner.result()

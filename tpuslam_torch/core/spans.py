@@ -17,15 +17,27 @@ The port's spans, each nested in the one above it:
 * ``tpuslam.entry.prepare``: the set-up on the device before the loop
   (ICP's spatial preparation, arm and initial state; CPD's ``_EM`` and
   initial state);
+* ``tpuslam.entry.fgt``: inside ``tpuslam.entry.prepare``, the Fast
+  Gauss Transform's set-up in CPD's ``_EM``: both clouds' clusterings
+  and the static tables;
 * ``tpuslam.loop``: ``device_loop.run_chunks``, every chunk, capture,
   replay and status read;
-* ``tpuslam.loop.capture``: a chunk captured as a CUDA graph;
+* ``tpuslam.loop.fgt`` and ``tpuslam.loop.trunc``: one chunk of a CPD
+  loop that runs the FGT (Full or Hybrid at or above the crossover, or
+  with ``use_fgt``), its eager run, capture or replay and its status
+  read, named by the chunk's phase (``cpd.PHASES``): the FGT's E-steps
+  (Full, Hybrid's fast phase) or the truncated exact ones (Hybrid's
+  slow phase).  A chunk whose phase is a device flag, and ICP's, has
+  none;
+* ``tpuslam.loop.capture``: a chunk captured as a CUDA graph (inside a
+  phase span where the chunk has one);
 * ``tpuslam.entry.read_out``: the result's device-to-host read.
 """
 
 from __future__ import annotations
 
 from contextlib import nullcontext
+from typing import Optional
 
 import torch
 from torch.profiler import record_function
@@ -33,9 +45,9 @@ from torch.profiler import record_function
 _OFF = nullcontext()
 
 
-def span(name: str):
+def span(name: Optional[str]):
     """A context over the stage ``name``: a ``record_function`` range while
-    a profiler records, else a shared no-op."""
-    if not torch._C._autograd._profiler_enabled():
+    a profiler records, else (or where ``name`` is None) a shared no-op."""
+    if name is None or not torch._C._autograd._profiler_enabled():
         return _OFF
     return record_function(name)
