@@ -11,7 +11,8 @@ exits non-zero without printing a result:
 1. device — the card's name and power limit (nvidia-smi) and torch's view;
 2. build — kernels K1 (``csrc/nn_dense.cu``), K2 (``csrc/bound.cu``),
    K3 (``csrc/nn_cand.cu``), K4 (``csrc/cpd_dense.cu``), K5
-   (``csrc/cpd_cand.cu``) and P (``csrc/procrustes.cu``) from source, one
+   (``csrc/cpd_cand.cu``, its plan ``csrc/cpd_plan.cu``), P
+   (``csrc/procrustes.cu``) and the FGT's K6 and K7 (``csrc/fgt.cu``) from source, one
    nvcc per source, started together; ptxas's registers and spills per
    kernel;
 3. K1 against its plain PyTorch version on the card, bit for bit (idx and
@@ -103,9 +104,14 @@ exits non-zero without printing a result:
    and in Hybrid without the FGT, 100 iterations at most: equal
    iterations, R and t within 1e-4, rotation within 1 degree;
 11. E-step rows at 376,401^2: two FGT E-steps on the same inputs, which
-   must be bit-equal (the segment sums add in a fixed order); exact K4
-   against the FGT E-step (with and without the loop's cached clusterings
-   and their order), and the FGT prediction at three chunk sizes.
+   must be bit-equal (the sums add in a fixed order); exact K4 against the
+   FGT E-step (with and without the loop's cached clusterings and their
+   order); then the FGT's K6 (prediction) and K7 (expansion) against
+   their plain versions at 100,000 and 376,401 rows, at a fast phase's
+   first and last bandwidth (``ab_kernels.fgt_rows``): each kernel within
+   1e-4 of its plain version relative to its largest value, the E-step on
+   the kernels within 1e-3 of the plain E-step and equal to itself in two
+   runs, with each kernel's and plain version's device time and bound.
 12. NICP — K1 at NICP's rescore shape (8 candidates x 1,024 subcloud rows
    against 1,048,576 targets) against its plain version, bit for bit;
    ``tpuslam_torch.register`` with NICP (seed 1) on a 1,048,576-point
@@ -362,7 +368,8 @@ FULL = dict(headline=102_400, small=8192, large=1_048_576, large_iters=20,
             front_icp=102_400, front_nicp=200_000, front_perf=("icp", "nicp"),
             shard_ranks=4, shard_estep=376_401, shard_cpd=102_400, shard_cpd_iters=60,
             shard_pairs=16, shard_pair_points=16_384, bench_reps=2, loop_scans=5,
-            cpd_loop_iters=60, plan_rows=(4096, 20_480, 102_400, 376_401))
+            cpd_loop_iters=60, plan_rows=(4096, 20_480, 102_400, 376_401),
+            fgt_rows=(100_000, 376_401))
 
 # the H100 SXM's published peaks (NVIDIA's data sheet, at 700 W): float32
 # outside the tensor cores and HBM3; and the special-function units' exp2,
@@ -502,8 +509,8 @@ def k4_batch_against_plain(scal, ty, target, weights4=None, moving_mask=None,
 
 def cpd_phases(dev, smi, kind, sizes, time_ms) -> tuple:
     """Phases 8-11 (module docstring); returns the kernels' JSON entries of
-    K4's and K5's passes, that of K5's plan, and phase 10's Hybrid run (its
-    clouds and result, for phase 17)."""
+    K4's and K5's passes, that of K5's plan, those of the FGT's K6 and K7,
+    and phase 10's Hybrid run (its clouds and result, for phase 17)."""
     import torch
 
     import tpuslam_torch
@@ -514,7 +521,9 @@ def cpd_phases(dev, smi, kind, sizes, time_ms) -> tuple:
         get_random_rotation_matrix,
         get_random_translation_vector,
     )
+    from tpuslam_torch.harness.ab_kernels import fgt_rows
     from tpuslam_torch.kernels import cpd_cand, cpd_dense
+    from tpuslam_torch.kernels import fgt as kfgt
     from tpuslam_torch.ops import fgt
     from tpuslam_torch.ops.spatial import morton_permutation
 
@@ -886,10 +895,19 @@ def cpd_phases(dev, smi, kind, sizes, time_ms) -> tuple:
     # every E-step to K4
     cpd_dense.DENOM_LAUNCHES = cpd_dense.MOMENTS_LAUNCHES = 0
     cpd_cand.DENOM_LAUNCHES = cpd_cand.MOMENTS_LAUNCHES = cpd_cand.PLAN_LAUNCHES = 0
+    kfgt.PREDICT_LAUNCHES = kfgt.EXPAND_LAUNCHES = 0
+    plain_fgt = kfgt.PLAIN_CALLS["cuda"]
     hybrid, _, phases, _ = register_cpd(ApproximationType.Hybrid, sizes["cpd_iters"])
     phase10 = {"before": before, "after": after, "result": hybrid,
                "max_iterations": sizes["cpd_iters"]}
     check("fgt" in phases and "trunc" in phases, "the run must take both Hybrid phases")
+    fgt_launches = {"K6": kfgt.PREDICT_LAUNCHES, "K7": kfgt.EXPAND_LAUNCHES}
+    log(f"[cpd] the Hybrid run's FGT launches {fgt_launches} for {phases.count('fgt')} "
+        f"fast-phase E-steps; torch compositions run on the card "
+        f"{kfgt.PLAIN_CALLS['cuda'] - plain_fgt}")
+    check(fgt_launches["K6"] == fgt_launches["K7"] >= 2 * phases.count("fgt") > 0,
+          "the Hybrid fast phase did not launch K6 and K7 twice an E-step")
+    check(kfgt.PLAIN_CALLS["cuda"] == plain_fgt, "an FGT E-step on the card ran the torch composition")
     check(cpd_cand.DENOM_LAUNCHES > 0 and cpd_cand.MOMENTS_LAUNCHES > 0,
           "the Hybrid slow phase did not launch K5")
     check(cpd_cand.PLAN_LAUNCHES == 3 * cpd_cand.DENOM_LAUNCHES,
@@ -956,14 +974,38 @@ def cpd_phases(dev, smi, kind, sizes, time_ms) -> tuple:
     fgt_cached_ms = time_ms(fgt_cached, 5)
     fgt_ms = time_ms(lambda: cpd.cpd_estep_fgt(
         mov, m1, tgt, m1, s2, w, cnt, cnt, 128, 8, 10.0, sigma2_init=s2), 3)
-    hs = torch.sqrt(2.0 * s2)
-    model = fgt.compute_fgt_model_multi(tgt, torch.ones(n, 4, device=dev), m1, hs, 128, 8,
-                                        clustering=clusters[2:])
-    chunks = {c: time_ms(lambda c=c: fgt.fgt_predict_multi(mov, model, hs, 10.0, 8, chunk=c), 3)
-              for c in (2048, fgt.predict_chunk(dev, 128, 8), 16384)}
     log(f"[estep] {n}^2 on {smi}: exact K4 E-step {exact_ms:.3f} ms; FGT E-step "
         f"{fgt_cached_ms:.3f} ms with the loop's cached clusterings, {fgt_ms:.3f} ms with "
-        f"its own; FGT predict (W=4) by chunk {chunks} ms")
+        f"its own")
+    # K6 and K7 against their plain versions (the torch composition), and the
+    # FGT E-step on each, at cpd-conv.100k's rows and at cpd_large's
+    frows = fgt_rows(torch, dev, rows=sizes["fgt_rows"])
+    for r in frows:
+        for name in ("K6_w1", "K6_w4", "K7_w1", "K7_w4"):
+            r[name]["share"] = bound_of(r[name].get("flops_in_cut", r[name]["flops"]),
+                                        r[name]["bytes"])["bound_ms"] / min(r[name]["ms"])
+    log(f"[fgt] K6 and K7 against the torch composition on {smi} (device ms in CUDA graphs; "
+        f"the E-step eager): {json.dumps(frows)}")
+    for r in frows:
+        where = f"at {r['rows']} rows, sigma^2 {r['when']}"
+        check(r["estep_bit_equal"], f"two FGT E-steps on the kernels differ {where}")
+        # the sums run in another fixed order than the plain version's
+        check(max(r[k]["max_rel_err"] for k in ("K6_w1", "K6_w4", "K7_w1", "K7_w4")) <= 1e-4,
+              f"K6 or K7 off its plain version {where}")
+        check(r["estep_max_rel_err"] <= 1e-3, f"the FGT E-step off the plain one {where}")
+    fgt_entries = []
+    for kernel, name, key in (("K6", "fgt_predict (K6)", "K6_w4"),
+                              ("K7", "fgt_expand (K7)", "K7_w4")):
+        head = frows[0][key]
+        fgt_entries.append({
+            "name": name, "route": "cuda", "source": "tpuslam_torch/csrc/fgt.cu",
+            "replaces": None, "launches": fgt_launches[kernel],
+            "max_rel_err": max(r[k]["max_rel_err"] for r in frows for k in (key, kernel + "_w1")),
+            "ms": min(head["ms"]), "plain_ms": min(head["plain_ms"]),
+            **bound_of(head.get("flops_in_cut", head["flops"]), head["bytes"]),
+            "library_ms": None,
+            "rows": [{k: r[k] for k in ("rows", "when", "sigma2", kernel + "_w1", key)}
+                     for r in frows]})
 
     # bounds of the timed work: K4's passes at cpd_small^2, K5's on the
     # pairs its tables visit in the cluster case
@@ -1005,7 +1047,7 @@ def cpd_phases(dev, smi, kind, sizes, time_ms) -> tuple:
         "max_abs_err": max(r["max_abs_err"] for r in plan),
         "ms": min(plan[-1]["ms"]), "plain_ms": min(plan[-1]["torch_ms"]),
         "bound_ms": plan[-1]["bound_ms"], "bound_by": plan[-1]["bound_by"],
-        "library_ms": None, "rows": plan}, phase10
+        "library_ms": None, "rows": plan}, fgt_entries, phase10
 
 
 def cylinder(rng, n):
@@ -3658,7 +3700,7 @@ def main(dev=None, sizes=FULL) -> int:
     per_iter = {k: v / iters for k, v in per_call.items()}
     k1_bound = bound_of(FLOPS_NN * float(n_head) * n_head, n_head * (12 + 12 + 8))
 
-    cpd_kernels, plan_entry, phase10 = cpd_phases(dev, smi, kind, sizes, time_ms)
+    cpd_kernels, plan_entry, fgt_entries, phase10 = cpd_phases(dev, smi, kind, sizes, time_ms)
     slice7 = nicp_batch_phases(dev, smi, kind, sizes, time_ms)
     log(f"[nicp] summary: {json.dumps(slice7)}")
     slice8 = drivers_phases(dev, smi, kind, sizes, time_ms, phase6, phase10)
@@ -3747,6 +3789,7 @@ def main(dev=None, sizes=FULL) -> int:
         *({**e, "launches": launches["P error"]} if e["name"] == "procrustes error (P)" else e
           for e in phase23["entries"]),
         plan_entry,
+        *fgt_entries,
     ]
     for entry, key in zip(kernels, SHARD_KERNELS):
         entry["front_end_launches"] = front["launches"][entry["name"]]

@@ -201,6 +201,171 @@ def test_fgt_expansions_bit_equal_across_calls(rng, cuda):
         assert torch.equal(getattr(e1, f), getattr(e2, f)), f
 
 
+def _fgt_operands(rng, cuda, n, k, w, h):
+    """A box of ``n`` rows whose last 37 are padding (zero rows, mask 0),
+    clustered into ``k`` centres of which the last 3 get no row, with
+    ``w`` weight columns and bandwidth ``h``."""
+    from tpuslam_torch.ops import fgt
+
+    pts = (rng.random((n, 3)) * 10).astype(np.float32)
+    pts[-37:] = 0.0
+    mask = np.ones(n, dtype=np.float32)
+    mask[-37:] = 0.0
+    pts, mask = torch.from_numpy(pts).to(cuda), torch.from_numpy(mask).to(cuda)
+    k_rt = torch.tensor(k - 3, dtype=torch.int32, device=cuda)
+    centers, indx, order = fgt.k_center_ordered(pts, mask, k, k_rt)
+    weights = torch.from_numpy(rng.random((n, w)).astype(np.float32)).to(cuda) * mask[:, None]
+    return pts, weights.contiguous(), mask, centers, indx, order, torch.tensor(h, device=cuda)
+
+
+def _fgt_monomials64(dy, p):
+    from tpuslam_torch.ops import fgt
+
+    alpha = fgt.fgt_tables(p, dy.device).alpha
+    return torch.prod(dy[..., None, :] ** alpha.to(torch.float64), dim=-1)
+
+
+def _expand64(pts, weights, mask, h, centers, indx, p):
+    """The expansions in float64 from the float32 operands (the float32
+    coefficients, as the kernel and the plain version use them)."""
+    from tpuslam_torch.ops import fgt
+
+    dy = (pts.double() - centers.double()[indx.long()]) / h.double()
+    g = torch.exp(-torch.sum(dy * dy, dim=-1)) * mask.double()
+    contrib = _fgt_monomials64(dy, p)[:, :, None] * (g[:, None, None] * weights.double()[:, None])
+    ak = torch.zeros((centers.shape[0], *contrib.shape[1:]), dtype=torch.float64,
+                     device=pts.device).index_add_(0, indx.long(), contrib)
+    return ak * fgt.fgt_tables(p, pts.device).coeff.double()[None, :, None]
+
+
+def _predict64(targets, centers, ak, h, e_param, p):
+    """The prediction in float64 from the float32 operands, the far-field
+    cut taken where the float32 |dy|^2 puts it (as both versions take it)."""
+    dy32 = (targets[:, None, :] - centers[None, :, :]) / h
+    cut = torch.sum(dy32 * dy32, dim=-1) > e_param
+    dy = (targets.double()[:, None, :] - centers.double()[None, :, :]) / h.double()
+    g = torch.where(cut, 0.0, torch.exp(-torch.sum(dy * dy, dim=-1)))
+    return torch.einsum("mk,mka,kaw->mw", g, _fgt_monomials64(dy, p), ak.double())
+
+
+@pytest.mark.parametrize("far", ["idle", "engaged"])
+@pytest.mark.parametrize("w", [1, 4])
+@pytest.mark.parametrize("p", [6, 8, 5])
+def test_fgt_kernels_against_plain_and_float64(rng, cuda, p, w, far):
+    """K7 (expansion) and K6 (prediction) at the compiled orders 6 and 8
+    and the run-time order 5, W = 1 and 4, on ragged rows (no multiple of
+    a block), padded rows of mask 0 and empty clusters, with the far-field
+    cut idle (a wide bandwidth: every |dy|^2 <= 10) or engaged (a narrow
+    one): each result's largest gap from a float64 evaluation of the same
+    truncated expansion is at most twice the plain version's own; one
+    launch each, no plain call on the card but the test's own."""
+    from tpuslam_torch.kernels import fgt as kfgt
+
+    h = 6.0 if far == "idle" else 0.7
+    pts, weights, mask, centers, indx, order, hs = _fgt_operands(rng, cuda, 3001, 40, w, h)
+    launches = (kfgt.EXPAND_LAUNCHES, kfgt.PREDICT_LAUNCHES)
+    ak = kfgt.expand(pts, weights, mask, hs, centers, indx, order, p)
+    plain_ak = kfgt.expand_plain(pts, weights, mask, hs, centers, indx, order, p)
+    want_ak = _expand64(pts, weights, mask, hs, centers, indx, p)
+    assert float((ak.double() - want_ak).abs().max()) <= 2 * float(
+        (plain_ak.double() - want_ak).abs().max())
+    assert torch.all(ak[-3:] == 0)  # the empty clusters
+    targets = torch.from_numpy((rng.random((1077, 3)) * 12 - 1).astype(np.float32)).to(cuda)
+    got = kfgt.predict(targets, centers, plain_ak, hs, 10.0, p)
+    plain = kfgt.predict_plain(targets, centers, plain_ak, hs, 10.0, p)
+    want = _predict64(targets, centers, plain_ak, hs, 10.0, p)
+    torch.cuda.synchronize()
+    assert got.shape == (1077, w)
+    assert float((got.double() - want).abs().max()) <= 2 * float(
+        (plain.double() - want).abs().max())
+    cut = torch.sum(((targets[:, None] - centers[None]) / hs) ** 2, dim=-1) > 10.0
+    assert bool(cut.any()) == (far == "engaged")
+    assert (kfgt.EXPAND_LAUNCHES, kfgt.PREDICT_LAUNCHES) == (launches[0] + 1, launches[1] + 1)
+
+
+def test_fgt_kernels_bit_equal_across_calls_and_in_a_graph(rng, cuda):
+    """Two calls of K7 and K6 give the same bits, and a CUDA graph of both
+    (W = 1 and W = 4) replays them bit for bit."""
+    from tpuslam_torch.kernels import fgt as kfgt
+
+    pts, weights, mask, centers, indx, order, hs = _fgt_operands(rng, cuda, 20_001, 128, 4, 2.0)
+    targets = torch.from_numpy((rng.random((30_001, 3)) * 10).astype(np.float32)).to(cuda)
+
+    def both():
+        a4 = kfgt.expand(pts, weights, mask, hs, centers, indx, order, 8)
+        a1 = kfgt.expand(pts, weights[:, :1].contiguous(), mask, hs, centers, indx, order, 8)
+        return (a4, a1, kfgt.predict(targets, centers, a4, hs, 10.0, 8),
+                kfgt.predict(targets, centers, a1, hs, 10.0, 8))
+
+    eager, again = both(), both()
+    for x, y in zip(eager, again):
+        assert torch.equal(x, y)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        both()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        captured = both()
+    graph.replay()
+    torch.cuda.synchronize()
+    for x, y in zip(eager, captured):
+        assert torch.equal(x, y)
+
+
+def test_fgt_wrappers_refuse_what_the_kernels_do_not_take(rng, cuda):
+    """On the card a weight width other than 1 or 4, or a strided operand,
+    raises before any launch."""
+    from tpuslam_torch.kernels import fgt as kfgt
+
+    pts, weights, mask, centers, indx, order, hs = _fgt_operands(rng, cuda, 500, 8, 4, 2.0)
+    launches = (kfgt.EXPAND_LAUNCHES, kfgt.PREDICT_LAUNCHES)
+    with pytest.raises(ValueError, match="weight columns"):
+        kfgt.expand(pts, weights[:, :2].contiguous(), mask, hs, centers, indx, order, 8)
+    ak = kfgt.expand(pts, weights, mask, hs, centers, indx, order, 8)
+    with pytest.raises(ValueError, match="contiguous"):
+        kfgt.predict(pts[::2], centers, ak, hs, 10.0, 8)
+    assert (kfgt.EXPAND_LAUNCHES, kfgt.PREDICT_LAUNCHES) == (launches[0] + 1, launches[1])
+
+
+def test_fgt_estep_on_card_takes_k6_and_k7(rng, cuda, monkeypatch):
+    """A Hybrid registration above the FGT crossover: on the eager loop
+    each fast-phase E-step launches K7 and K6 twice each (the two clouds'
+    expansions; Kt1 and the four moments), and in the captured loop the
+    replays book theirs from the device; the torch composition never runs
+    on the card."""
+    from tpuslam_torch.algorithms import cpd, icp
+    from tpuslam_torch.kernels import fgt as kfgt
+
+    n = cpd.CPD_FGT_CROSSOVER + 1000
+    b, a = _cpd_pair(rng, n, cuda)
+    kw = dict(approximation_type=ApproximationType.Hybrid, weight=0.1, tolerance=1e-4,
+              const_scale=True, max_iterations=30)
+    plain = kfgt.PLAIN_CALLS["cuda"]
+    kernels.reset_launch_counts()
+    monkeypatch.setattr(icp, "CUDA_GRAPHS", False)
+    cpd.PHASE_TRACE.clear()
+    before = kernels.launch_counts()
+    cpd_register(b, a, **kw)
+    delta = kernels.launch_delta(before)
+    fast = list(cpd.PHASE_TRACE).count("fgt")
+    assert fast > 0
+    assert delta["K6"] == delta["K7"] == 2 * fast
+    monkeypatch.setattr(icp, "CUDA_GRAPHS", True)
+    with icp.graph_scope({}):
+        for _ in range(2):
+            cpd.PHASE_TRACE.clear()
+            before = kernels.launch_counts()
+            cpd_register(b, a, **kw)
+            delta = kernels.launch_delta(before)
+            fast = list(cpd.PHASE_TRACE).count("fgt")
+            assert delta["K6"] == delta["K7"] >= 2 * fast > 0
+    assert kernels.launch_counts()["K6"] == kernels.tally(cuda)[
+        list(kernels.TALLIED).index("K6"), 0]
+    assert kfgt.PLAIN_CALLS["cuda"] == plain
+
+
 def test_register_on_card_launches_k1_and_matches_cpu(rng, cuda):
     n = 8000  # padded to 8,064 target rows: below the hierarchical gate
     before = (rng.random((n, 3)) * 10).astype(np.float32)

@@ -238,7 +238,7 @@ def test_build_digest_follows_the_sources(tmp_path):
     header.write_text("// b\n")
     assert build._digest(tmp_path) != third
     assert [p.name for p in build._sources()] == [
-        "bound.cu", "cpd_cand.cu", "cpd_dense.cu", "cpd_plan.cu", "nn_cand.cu", "nn_dense.cu",
-        "procrustes.cu"]
+        "bound.cu", "cpd_cand.cu", "cpd_dense.cu", "cpd_plan.cu", "fgt.cu", "nn_cand.cu",
+        "nn_dense.cu", "procrustes.cu"]
     assert (build.CSRC / "nn_fold.cuh").is_file()
     assert (build.CSRC / "cpd_gauss.cuh").is_file()

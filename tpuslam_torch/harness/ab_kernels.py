@@ -2,10 +2,11 @@
 hierarchical query and the 100k headline of two checkouts of the port,
 in turns, on one CUDA card; with ``--cpd``, kernels K4 and K5 and the
 376k CPD Hybrid registration instead; with ``--nn``, kernel K1, the
-headline's dense arm and the FGT E-step.
+headline's dense arm and the FGT E-step; with ``--fgt``, the FGT's E-step
+and its kernels K6 and K7.
 
     python3 tpuslam_torch/harness/ab_kernels.py OLD NEW [--out DIR]
-        [--skip-1m] [--sweep] [--cpd | --nn | --procrustes]
+        [--skip-1m] [--sweep] [--cpd | --nn | --procrustes | --fgt]
 
 OLD and NEW are directories that each hold a ``tpuslam_torch`` package:
 for example the parent commit's, unpacked with ``git archive HEAD
@@ -71,6 +72,15 @@ without, whether two E-steps on the same inputs give equal bits, and
 last the device time by kernel of one of each (``torch.profiler``);
 with ``--sweep``, K1 at each shape over its sources a thread, number of
 splits and ring stage.
+
+With ``--fgt`` a run measures instead (``fgt_worker``) the FGT at 100,000
+and 376,401 rows (uniform boxes of side 10, 128 centres, order 8, far
+field 10), at a fast phase's first and last bandwidth: the target
+cloud's W = 4 expansion, the W = 1 and W = 4 predictions (by CUDA graphs
+of a few calls; whatever the checkout's ``ops/fgt.py`` runs) and the
+whole E-step with the loop's cached clusterings (eager, CUDA events),
+whether two E-steps give equal bits; and, where the checkout has the
+FGT's kernels, ``fgt_rows``: K6 and K7 against their plain versions.
 
 Needs a CUDA card; exits non-zero without one.
 """
@@ -210,6 +220,117 @@ def plan_rows(torch, dev, rows=PLAN_ROWS, seed=19) -> list:
         out.append({"rows": n, "differing_fields": differ, "max_abs_err": err,
                     "read": got.read.tolist(), "ms": kernel_ms, "torch_ms": torch_ms,
                     "bytes": 2 * n * 16 + written})
+    return out
+
+
+FGT_ROWS = (100_000, 376_401)  # cloud rows of fgt_rows' sizes
+FGT_K, FGT_P, FGT_FAR = 128, 8, 10.0  # the CPD loop's centres, order and far field
+
+
+def fgt_pairs_in_cut(torch, targets, centers, h, e_param=FGT_FAR) -> int:
+    """(target, centre) pairs inside the far-field radius, as the plain
+    prediction decides them (float32 |dy|^2 <= e_param)."""
+    count = 0
+    for lo in range(0, targets.shape[0], 65_536):
+        dy = (targets[lo:lo + 65_536, None, :] - centers[None, :, :]) / h
+        count += int((torch.sum(dy * dy, dim=-1) <= e_param).sum())
+    return count
+
+
+def fgt_rows(torch, dev, rows=FGT_ROWS, seed=21) -> list:
+    """K6 and K7 (``kernels/fgt.py``, ``csrc/fgt.cu``) against their plain
+    versions (the torch composition), and the whole FGT E-step with the
+    loop's cached clusterings on the kernels and on the plain versions, at
+    each size of ``rows``: two uniform boxes of side 10, 128 centres,
+    order 8, far field 10, at the bandwidth of a fast phase's first EM
+    iteration (sigma^2_0: every pair inside the cut) and of its last
+    (``HYBRID_SWITCH`` x sigma^2_0).  Per prediction (W = 1: Kt1 on the
+    target rows; W = 4: P1 and PX on the moving rows) and expansion: the
+    device ms of the kernel and of the plain version, each by a CUDA graph
+    of many calls (``graph_ms``), the largest difference relative to the
+    plain version's largest value, the float32 operations (a Taylor term's
+    monomial product and W FMAs, an FMA counted as two) on all pairs and,
+    for K6, on the pairs inside the cut, and the bytes (each operand read
+    once, the result written once).  Per E-step: ms on the kernels and on
+    the plain versions (CUDA events, eager), whether two E-steps on the
+    kernels give equal bits, and the statistics' largest relative
+    difference from the plain E-step's."""
+    import numpy as np
+
+    from tpuslam_torch.algorithms import cpd
+    from tpuslam_torch.kernels import fgt as kfgt
+    from tpuslam_torch.ops import fgt
+
+    rng = np.random.Generator(np.random.PCG64(seed))
+    pd = fgt.pd_size(FGT_P)
+    stats = ("p1", "pt1", "px", "error")
+    out = []
+    for n in rows:
+        mov, tgt = (torch.from_numpy((rng.random((n, 3)) * 10).astype(np.float32)).to(dev)
+                    for _ in range(2))
+        m1 = torch.ones(n, device=dev)
+        cy, iy, oy = fgt.k_center_ordered(mov, m1, FGT_K)
+        cx, ix, ox = fgt.k_center_ordered(tgt, m1, FGT_K)
+        s2_0 = cpd.sigma_squared_init(mov, m1, tgt, m1).reshape(())
+        cnt, weight = torch.sum(m1), torch.tensor(0.1, device=dev)
+        w4 = torch.from_numpy(rng.random((n, 4)).astype(np.float32)).to(dev)
+        for when, scale in (("first", 1.0), ("last", cpd.HYBRID_SWITCH)):
+            s2 = s2_0 * scale
+            hs = torch.sqrt(2.0 * s2)
+            row = {"rows": n, "k": FGT_K, "p": FGT_P, "pd": pd, "sigma2": float(s2),
+                   "when": when}
+            # K7: the moving cloud's W = 1 expansion, the target's W = 4 one
+            for name, pts, w, cl in (("K7_w1", mov, m1[:, None], (cy, iy, oy)),
+                                     ("K7_w4", tgt, w4, (cx, ix, ox))):
+                args = (pts, w.contiguous(), m1, hs, *cl, FGT_P)
+                got, want = kfgt.expand(*args), kfgt.expand_plain(*args)
+                width = w.shape[1]
+                row[name] = {
+                    "ms": [graph_ms(torch, lambda: kfgt.expand(*args), 20) for _ in range(2)],
+                    "plain_ms": [graph_ms(torch, lambda: kfgt.expand_plain(*args), 4)],
+                    "max_rel_err": float((got - want).abs().max() / want.abs().max()),
+                    "flops": float(n) * pd * (1 + 2 * width),
+                    "bytes": float(n) * (12 + 4 * width + 4 + 8) + FGT_K * (pd * width * 4 + 8),
+                }
+            model_y = kfgt.expand_plain(mov, m1[:, None], m1, hs, cy, iy, oy, FGT_P)
+            model_x = kfgt.expand_plain(tgt, w4, m1, hs, cx, ix, ox, FGT_P)
+            # K6: Kt1 (W = 1) on the target rows, P1 and PX (W = 4) on the moving rows
+            for name, pts, centers, ak in (("K6_w1", tgt, cy, model_y),
+                                           ("K6_w4", mov, cx, model_x)):
+                args = (pts, centers, ak, hs, FGT_FAR, FGT_P)
+                got, want = kfgt.predict(*args), kfgt.predict_plain(*args)
+                width, inside = ak.shape[2], fgt_pairs_in_cut(torch, pts, centers, hs)
+                row[name] = {
+                    "ms": [graph_ms(torch, lambda: kfgt.predict(*args), 20) for _ in range(2)],
+                    "plain_ms": [graph_ms(torch, lambda: kfgt.predict_plain(*args), 2)],
+                    "max_rel_err": float((got - want).abs().max() / want.abs().max()),
+                    "pairs": float(n) * FGT_K, "pairs_in_cut": inside,
+                    "flops": float(n) * FGT_K * pd * (1 + 2 * width),
+                    "flops_in_cut": float(inside) * pd * (1 + 2 * width),
+                    "bytes": float(n) * (12 + 4 * width) + FGT_K * (pd * width * 4 + 12),
+                }
+
+            def estep():
+                return cpd.cpd_estep_fgt(mov, m1, tgt, m1, s2, weight, cnt, cnt, FGT_K, FGT_P,
+                                         FGT_FAR, sigma2_init=s2_0, clusters=(cy, iy, cx, ix),
+                                         orders=(oy, ox))
+
+            a, b = estep(), estep()
+            row["estep_ms"] = [_time_ms(torch, estep, 10) for _ in range(2)]
+            keep = (kfgt.predict, kfgt.expand)
+            kfgt.predict, kfgt.expand = kfgt.predict_plain, kfgt.expand_plain
+            try:
+                plain = estep()
+                row["estep_plain_ms"] = [_time_ms(torch, estep, 2)]
+            finally:
+                kfgt.predict, kfgt.expand = keep
+            torch.cuda.synchronize()
+            row["estep_bit_equal"] = all(torch.equal(getattr(a, f), getattr(b, f))
+                                         for f in stats)
+            row["estep_max_rel_err"] = max(
+                float((getattr(a, f) - getattr(plain, f)).abs().max()
+                      / getattr(plain, f).abs().max()) for f in stats)
+            out.append(row)
     return out
 
 
@@ -735,6 +856,78 @@ def nn_worker(tree: str, label: str, out_dir: str, skip_1m: bool, sweep: bool) -
     return res
 
 
+def fgt_worker(tree: str, label: str, out_dir: str) -> dict:
+    """``--fgt``: the FGT E-step of the checkout under ``tree`` (module
+    docstring)."""
+    sys.path.insert(0, os.path.abspath(tree))
+    import numpy as np
+    import torch
+
+    import tpuslam_torch
+    from tpuslam_torch.algorithms import cpd
+    from tpuslam_torch.kernels import build
+    from tpuslam_torch.ops import fgt
+
+    if not torch.cuda.is_available():
+        raise SystemExit("ab_kernels: no CUDA device")
+    package = os.path.dirname(os.path.abspath(tpuslam_torch.__file__))
+    if os.path.dirname(package) != os.path.abspath(tree):
+        raise SystemExit(f"ab_kernels: imported {package}, not the one under {tree}")
+    res = {"label": label, "tree": os.path.abspath(tree), "mode": "fgt"}
+    res["nvidia_smi"] = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60).stdout.strip()
+    _build_and_dump(build, res, out_dir, label)
+    dev = torch.device("cuda", 0)
+    rng = np.random.Generator(np.random.PCG64(21))
+    rows = []
+    for n in FGT_ROWS:
+        mov, tgt = (torch.from_numpy((rng.random((n, 3)) * 10).astype(np.float32)).to(dev)
+                    for _ in range(2))
+        m1 = torch.ones(n, device=dev)
+        cy, iy, oy = fgt.k_center_ordered(mov, m1, FGT_K)
+        cx, ix, ox = fgt.k_center_ordered(tgt, m1, FGT_K)
+        s2_0 = cpd.sigma_squared_init(mov, m1, tgt, m1).reshape(())
+        cnt, weight = torch.sum(m1), torch.tensor(0.1, device=dev)
+        w4 = torch.from_numpy(rng.random((n, 4)).astype(np.float32)).to(dev)
+        for when, scale in (("first", 1.0), ("last", cpd.HYBRID_SWITCH)):
+            s2 = s2_0 * scale
+            hs = torch.sqrt(2.0 * s2)
+            model_y = fgt.compute_fgt_model_multi(mov, m1[:, None], m1, hs, FGT_K, FGT_P,
+                                                  clustering=(cy, iy), order=oy)
+            model_x = fgt.compute_fgt_model_multi(tgt, w4, m1, hs, FGT_K, FGT_P,
+                                                  clustering=(cx, ix), order=ox)
+
+            def estep():
+                return cpd.cpd_estep_fgt(mov, m1, tgt, m1, s2, weight, cnt, cnt, FGT_K, FGT_P,
+                                         FGT_FAR, sigma2_init=s2_0, clusters=(cy, iy, cx, ix),
+                                         orders=(oy, ox))
+
+            a, b = estep(), estep()
+            torch.cuda.synchronize()
+            rows.append({
+                "rows": n, "when": when, "sigma2": float(s2),
+                "expand_w4_ms": [graph_ms(torch, lambda: fgt.compute_fgt_model_multi(
+                    tgt, w4, m1, hs, FGT_K, FGT_P, clustering=(cx, ix), order=ox), 4)
+                    for _ in range(2)],
+                "predict_w1_ms": [graph_ms(torch, lambda: fgt.fgt_predict(
+                    tgt, fgt.FGTModel(model_y.centers, model_y.ak[..., 0]), hs, FGT_FAR,
+                    FGT_P), 2) for _ in range(2)],
+                "predict_w4_ms": [graph_ms(torch, lambda: fgt.fgt_predict_multi(
+                    mov, model_x, hs, FGT_FAR, FGT_P), 2) for _ in range(2)],
+                "estep_ms": [_time_ms(torch, estep, 5) for _ in range(2)],
+                "estep_bit_equal": all(torch.equal(getattr(a, f), getattr(b, f))
+                                       for f in ("p1", "pt1", "px", "error")),
+                "p1_sum": float(a.p1.double().sum()), "error": float(a.error),
+            })
+    res["fgt_estep"] = rows
+    if os.path.exists(os.path.join(package, "kernels", "fgt.py")):
+        res["fgt_rows"] = fgt_rows(torch, dev)
+    with open(os.path.join(out_dir, f"ab_{label}.json"), "w") as f:
+        json.dump(res, f, indent=1)
+    return res
+
+
 def p_worker(tree: str, label: str, out_dir: str) -> dict:
     """``--procrustes``: kernel P's entries in the checkout under ``tree``
     (module docstring)."""
@@ -820,6 +1013,7 @@ def main(argv) -> int:
     parser.add_argument("--cpd", action="store_true", help="K4, K5 and CPD instead")
     parser.add_argument("--nn", action="store_true", help="K1, the dense arm and the FGT instead")
     parser.add_argument("--procrustes", action="store_true", help="kernel P's entries instead")
+    parser.add_argument("--fgt", action="store_true", help="the FGT's E-step, K6 and K7 instead")
     a = parser.parse_args(argv)
     out_dir = os.path.abspath(a.out)
     if a.worker:
@@ -829,13 +1023,16 @@ def main(argv) -> int:
             res = nn_worker(a.trees[0], a.worker, out_dir, a.skip_1m, a.sweep)
         elif a.procrustes:
             res = p_worker(a.trees[0], a.worker, out_dir)
+        elif a.fgt:
+            res = fgt_worker(a.trees[0], a.worker, out_dir)
         else:
             res = worker(a.trees[0], a.worker, out_dir, a.skip_1m, a.sweep)
         print(json.dumps({k: v for k, v in res.items() if k != "ptxas"}))
         return 0
     old, new = a.trees
     extra = (["--out", out_dir] + ["--skip-1m"] * a.skip_1m + ["--sweep"] * a.sweep
-             + ["--cpd"] * a.cpd + ["--nn"] * a.nn + ["--procrustes"] * a.procrustes)
+             + ["--cpd"] * a.cpd + ["--nn"] * a.nn + ["--procrustes"] * a.procrustes
+             + ["--fgt"] * a.fgt)
     rc = 0
     for tree, label in ((old, "old_1"), (new, "new_1"), (new, "new_2"), (old, "old_2")):
         cmd = [sys.executable, os.path.abspath(__file__), tree, "--worker", label, *extra]

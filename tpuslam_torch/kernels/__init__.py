@@ -1,4 +1,5 @@
-"""The hand-written CUDA kernels K1-K5, K5's plan and P, each behind a
+"""The hand-written CUDA kernels K1-K5, K5's plan, P and the FGT's K6 and
+K7, each behind a
 wrapper that keeps its plain PyTorch version beside it.
 
 Every wrapper adds one to its module's counter where it launches its
@@ -7,7 +8,8 @@ a launch); ``launch_counts`` reads all of them under one set of names,
 ``launch_delta`` subtracts an earlier reading.
 
 The kernels that the device-resident ICP and CPD loops run (K1, K2, K3,
-K4's and K5's passes, K5's plan, P's entries) also count themselves on the device,
+K4's and K5's passes, K5's plan, P's entries, K6 and K7) also count
+themselves on the device,
 in ``tally(device)``: each launch adds one to its kernel's row, and a
 predicated launch that did no work (an unselected arm of the
 hierarchical search, an unselected route of the CPD E-step, a fat-block
@@ -26,7 +28,7 @@ from typing import Optional
 import torch
 
 KERNELS = ("K1", "K2", "K3", "K4_denom", "K4_moments", "K5_denom", "K5_moments", "P",
-           "K5_plan")
+           "K5_plan", "K6", "K7")
 # P's entries, counted apart as well as in "P"
 P_ENTRIES = ("P procrustes", "P svd", "P error", "P moments")
 # the kernels that count themselves on the device (rows of the tally), each
@@ -41,6 +43,8 @@ TALLIED = {
     "K5_moments": ("cpd_cand", "MOMENTS_LAUNCHES"),
     **{name: ("procrustes", "LAUNCHES") for name in P_ENTRIES},
     "K5_plan": ("cpd_cand", "PLAN_LAUNCHES"),
+    "K6": ("fgt", "PREDICT_LAUNCHES"),
+    "K7": ("fgt", "EXPAND_LAUNCHES"),
 }
 # the predicated kernels: their launches that returned at once
 SKIPPED = ("K1 skipped", "K3 skipped", "K4_denom skipped", "K4_moments skipped",
@@ -57,10 +61,11 @@ _CAPTURED: Optional[Counter] = None
 
 
 def _modules() -> dict:
-    from tpuslam_torch.kernels import bound, cpd_cand, cpd_dense, nn_cand, nn_dense, procrustes
+    from tpuslam_torch.kernels import (bound, cpd_cand, cpd_dense, fgt, nn_cand, nn_dense,
+                                       procrustes)
 
     return {"nn_dense": nn_dense, "bound": bound, "nn_cand": nn_cand, "cpd_dense": cpd_dense,
-            "cpd_cand": cpd_cand, "procrustes": procrustes}
+            "cpd_cand": cpd_cand, "procrustes": procrustes, "fgt": fgt}
 
 
 def _persistent(store: dict, device, rows, what: str) -> Optional[torch.Tensor]:
@@ -151,12 +156,14 @@ def launch_counts() -> dict:
     """Each kernel's launches so far in this process, by its name in
     ``KERNELS`` and ``P_ENTRIES``, and the predicated launches that did no
     work (``SKIPPED``, read from the devices' tallies)."""
-    from tpuslam_torch.kernels import bound, cpd_cand, cpd_dense, nn_cand, nn_dense, procrustes
+    from tpuslam_torch.kernels import (bound, cpd_cand, cpd_dense, fgt, nn_cand, nn_dense,
+                                       procrustes)
 
     counts = dict(zip(KERNELS, (
         nn_dense.LAUNCHES, bound.LAUNCHES, nn_cand.LAUNCHES, cpd_dense.DENOM_LAUNCHES,
         cpd_dense.MOMENTS_LAUNCHES, cpd_cand.DENOM_LAUNCHES, cpd_cand.MOMENTS_LAUNCHES,
-        procrustes.LAUNCHES, cpd_cand.PLAN_LAUNCHES)))
+        procrustes.LAUNCHES, cpd_cand.PLAN_LAUNCHES, fgt.PREDICT_LAUNCHES,
+        fgt.EXPAND_LAUNCHES)))
     counts.update((name, procrustes.ENTRY_LAUNCHES[name]) for name in P_ENTRIES)
     skipped = dict.fromkeys(SKIPPED, 0)
     for t in _TALLIES.values():
@@ -174,9 +181,11 @@ def launch_delta(before: dict) -> dict:
 
 
 def reset_launch_counts() -> None:
-    from tpuslam_torch.kernels import bound, cpd_cand, cpd_dense, nn_cand, nn_dense, procrustes
+    from tpuslam_torch.kernels import (bound, cpd_cand, cpd_dense, fgt, nn_cand, nn_dense,
+                                       procrustes)
 
     nn_dense.LAUNCHES = bound.LAUNCHES = nn_cand.LAUNCHES = procrustes.LAUNCHES = 0
+    fgt.PREDICT_LAUNCHES = fgt.EXPAND_LAUNCHES = 0
     procrustes.ENTRY_LAUNCHES.clear()
     cpd_dense.DENOM_LAUNCHES = cpd_dense.MOMENTS_LAUNCHES = 0
     cpd_cand.DENOM_LAUNCHES = cpd_cand.MOMENTS_LAUNCHES = cpd_cand.PLAN_LAUNCHES = 0

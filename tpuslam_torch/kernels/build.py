@@ -166,6 +166,12 @@ def load_library() -> ctypes.CDLL:
             # (p1, y, px, m, pt1, x, n, batch, chunk_rows, chunks_m, chunks_n,
             #  part, arrivals, sums, tally, stream)
             ("tpuslam_mstep_moments", [p, p, p, i, p, p, *[i] * 5, p, p, p, p, p]),
+            # (targets, centers, ak, sigma, alpha, m, k, p, w, e_param, tally,
+            #  out, stream)
+            ("tpuslam_fgt_predict", [p, p, p, p, p, *[i] * 4, f, p, p, p]),
+            # (points, weights, mask, centers, order, lengths, sigma, alpha,
+            #  coeff, n, k, p, w, chunk_rows, smem_bytes, tally, ak, stream)
+            ("tpuslam_fgt_expand", [*[p] * 9, *[i] * 6, p, p, p]),
         ):
             fn = getattr(lib, name)
             fn.argtypes = argtypes

@@ -16,17 +16,20 @@ O(N + M) instead of O(N M), as the reference's CPU FGT (``fgt.cpp``):
   segment sum over the cluster assignments, scaled by
   ``C_alpha = 2^|alpha| / alpha!``;
 * prediction (``ComputeFGTPredict``, ``fgt.cpp:84-145``): dense
-  (target chunk x K centres) evaluation, the far-field cutoff as a mask.
+  (target x K centres) evaluation, the far-field cutoff as a mask.
 
-JAX's ``segment_sum`` becomes a sum in an order the data fixes, on the
-CPU and the card alike: the rows are sorted by cluster once per
-clustering (a stable sort, ``segment_order``), the summands are formed in
-that order, and ``torch.segment_reduce`` adds each cluster's rows one
-after the other (``segment_sum``).  No atomics, so the same inputs give
-the same bits in every run; the tests hold the sums to float64 and to
-the JAX package at a tolerance.  The squared distances of the clustering
-are rounded as XLA rounds them on the CPU, so ``k_center``'s picks and
-assignments equal the JAX package's.
+The expansion and the prediction are ``kernels/fgt.py``'s: on CUDA the
+hand-written kernels K7 and K6, which form the monomials in registers
+and shared memory, on the CPU their plain versions, the torch
+composition.  JAX's ``segment_sum`` becomes a sum in an order the data
+fixes, on the CPU and the card alike: the rows are sorted by cluster once
+per clustering (a stable sort, ``segment_order``) and each cluster's rows
+are added in that order (``segment_sum``, ``torch.segment_reduce``, in
+the plain version; K7's fixed order on the card).  No atomics, so the
+same inputs give the same bits in every run; the tests hold the sums to
+float64 and to the JAX package at a tolerance.  The squared distances of
+the clustering are rounded as XLA rounds them on the CPU, so
+``k_center``'s picks and assignments equal the JAX package's.
 """
 
 from __future__ import annotations
@@ -40,10 +43,11 @@ import torch
 from tpuslam_torch.ops.spatial import sq_norm_xla
 
 DIM = 3
-# bytes of one [chunk, K, pd] float32 intermediate of the prediction on
-# CUDA; a few such tensors are live at once.  At K = 128, p = 8 (pd = 120,
-# 61,440 bytes a row) this gives 4,352 targets per step, inside the
-# fastest band of chunks timed on an H100 at 376k (3,072 to 6,144; PERF.md)
+# bytes of one [chunk, K, pd] float32 intermediate of the plain prediction
+# on CUDA (kernels/fgt.py::predict_plain, which the card's tests and timings
+# compare K6 with); a few such tensors are live at once.  At K = 128, p = 8
+# (pd = 120, 61,440 bytes a row) this gives 4,352 targets per step, inside
+# the fastest band of chunks timed on an H100 at 376k (3,072 to 6,144)
 PREDICT_BYTES_CUDA = 256 << 20
 # the JAX package's chunk, kept for the CPU
 PREDICT_CHUNK_CPU = 256
@@ -254,24 +258,19 @@ def compute_fgt_model_multi(
     ``(centers f32[k, 3], indx i32[N])`` skips the selection: the CPD loop
     clusters each cloud once and moves the moving cloud's centres with
     it (see ``algorithms/cpd.py``); ``order``, its ``SegmentOrder``, skips
-    the sort too.  The [N, pd, W] summands are formed in that order, so
-    the segment sums need no second copy of them."""
+    the sort too.  The expansions are ``kernels/fgt.py::expand``: K7 on
+    CUDA, the torch composition (the [N, pd, W] summands formed in that
+    order and summed per cluster) on the CPU."""
     if clustering is None:
         centers, indx, order = k_center_ordered(points, mask, k, k_rt)
     else:
         centers, indx = clustering
         if order is None:
             order = segment_order(indx, k)
-    rows = order.order
-    dy = (points.index_select(0, rows)
-          - centers.index_select(0, indx.index_select(0, rows))) / sigma
-    g = torch.exp(-torch.sum(dy * dy, dim=-1)) * mask.index_select(0, rows)
-    prods = _monomials(dy, p)  # [N, pd]
-    contrib = prods[:, :, None] * (g[:, None, None]
-                                   * weights.index_select(0, rows)[:, None, :])
-    ak = segment_sum(contrib, order.lengths)
-    c = fgt_tables(p, points.device).coeff
-    return FGTModel(centers=centers, ak=ak * c[None, :, None])
+    from tpuslam_torch.kernels import fgt as fgt_kernels
+
+    return FGTModel(centers=centers,
+                    ak=fgt_kernels.expand(points, weights, mask, sigma, centers, indx, order, p))
 
 
 def predict_chunk(device: torch.device, k: int, p: int) -> int:
@@ -307,22 +306,10 @@ def fgt_predict_multi(
     p: int,
     chunk: Optional[int] = None,
 ) -> torch.Tensor:
-    """Batched-weights prediction: ``ak`` f32[K, pd, W] -> f32[M, W], in
-    chunks of ``chunk`` targets (``predict_chunk`` when None).  The
-    contraction over (K, pd) is one float32 matrix product per chunk
-    (TF32 stays off, ``ops/procrustes.py``)."""
-    m = targets.shape[0]
-    k, pd, w = model.ak.shape
-    if chunk is None:
-        chunk = predict_chunk(targets.device, k, p)
-    ak = model.ak.reshape(k * pd, w)
-    out = torch.empty((m, w), dtype=torch.float32, device=targets.device)
-    for lo in range(0, m, chunk):
-        tgt = targets[lo:lo + chunk]
-        dy = (tgt[:, None, :] - model.centers[None, :, :]) / sigma
-        s = torch.sum(dy * dy, dim=-1)  # [c, K]
-        g = torch.where(s > e_param, torch.zeros_like(s), torch.exp(-s))
-        prods = _monomials(dy, p)  # [c, K, pd]
-        out[lo:lo + chunk] = torch.matmul(
-            (g[:, :, None] * prods).reshape(tgt.shape[0], k * pd), ak)
-    return out
+    """Batched-weights prediction: ``ak`` f32[K, pd, W] -> f32[M, W]
+    (``kernels/fgt.py::predict``): K6 in one launch on CUDA; on the CPU
+    the torch composition in chunks of ``chunk`` targets
+    (``predict_chunk`` when None), one float32 matrix product each."""
+    from tpuslam_torch.kernels import fgt as fgt_kernels
+
+    return fgt_kernels.predict(targets, model.centers, model.ak, sigma, e_param, p, chunk)
