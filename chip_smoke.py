@@ -308,7 +308,7 @@ exits non-zero without printing a result:
    their plain versions' and ``torch.linalg.svd``'s; (b) solo CPD exact
    at 20,480 rows to its stop and Hybrid at 102,400 (phase 10's
    protocol, 60 iterations: the FGT fast phase, then the slow phase on
-   K4's route and on K5's) by the graph loop (``cpd.LOOP_CHUNK``
+   K4's route and on K5's) by the graph loop (``device_loop.LOOP_CHUNK``
    iterations a read, the second call of one ``graph_scope`` replaying
    the graphs the first captured) equal bit for bit to the eager loop
    of one iteration a read (R, t, scale, sigma^2, iterations, E-steps,
@@ -2256,7 +2256,7 @@ def sharded_phases(dev, smi, kind, sizes, phase6) -> dict:
     launches on the ranks and the figures printed."""
     import torch
 
-    from tpuslam_torch.algorithms import cpd, icp
+    from tpuslam_torch.algorithms import device_loop
     from tpuslam_torch.algorithms.cpd import cpd_estep_auto, cpd_register
     from tpuslam_torch.algorithms.icp import icp_register
     from tpuslam_torch.config.configuration import ApproximationType
@@ -2433,7 +2433,7 @@ def sharded_phases(dev, smi, kind, sizes, phase6) -> dict:
             check(same, f"(a) {k} {run}: differs from the eager one-iteration loop")
         rec, res = one[f"{k} replay"][0], one[f"{k} replay"][0]["result"]
         its = int(res["iterations"])
-        chunk = cpd.LOOP_CHUNK if k == "cpd hybrid" else icp.LOOP_CHUNK
+        chunk = device_loop.LOOP_CHUNK
         if k == "cpd hybrid":
             # the set-up: the FGT's clusters (an all_gather), sigma^2_0 (3 psums)
             with_fgt = rec["collectives"][0].op == "all_gather"
@@ -2754,13 +2754,13 @@ def device_time_ms(time_ms, on_card: bool):
 def one_iteration_loop(fn):
     """``fn()`` with the ICP loop at one iteration a host read and no CUDA
     graph: the eager loop the device loop is held to."""
-    from tpuslam_torch.algorithms import icp
+    from tpuslam_torch.algorithms import device_loop
 
-    icp.CUDA_GRAPHS = False
+    device_loop.CUDA_GRAPHS = False
     try:
         return fn()
     finally:
-        icp.CUDA_GRAPHS = True
+        device_loop.CUDA_GRAPHS = True
 
 
 def device_loop_phases(dev, smi, kind, sizes, time_ms) -> dict:
@@ -2771,7 +2771,7 @@ def device_loop_phases(dev, smi, kind, sizes, time_ms) -> dict:
     import torch
 
     import tpuslam_torch
-    from tpuslam_torch.algorithms import icp
+    from tpuslam_torch.algorithms import device_loop, icp
     from tpuslam_torch.algorithms.batch import icp_register_batch, stack_clouds
     from tpuslam_torch.data.synthesis import get_random_rotation_matrix
     from tpuslam_torch.harness.benchkit import count_syncs
@@ -2871,7 +2871,7 @@ def device_loop_phases(dev, smi, kind, sizes, time_ms) -> dict:
         loop[arm] = {"iterations": got.iterations, "eager_ms": eager_s * 1e3,
                      "loop_ms": loop_s * 1e3, "equal": equal}
         log(f"[loop] {arm} arm at {n}: {got.iterations} iterations, the device loop (chunk "
-            f"{icp.LOOP_CHUNK}{', a replayed graph' if on_card else ''}) "
+            f"{device_loop.LOOP_CHUNK}{', a replayed graph' if on_card else ''}) "
             f"{loop_s * 1e3:.3f} ms against the eager one-iteration loop "
             f"{eager_s * 1e3:.3f} ms; equal bit for bit (R, t, error, "
             f"iterations, arms {''.join(a[0] for a in arms)}): {equal}")
@@ -2913,9 +2913,9 @@ def device_loop_phases(dev, smi, kind, sizes, time_ms) -> dict:
             _, setup, setup_sites = count_syncs(lambda: icp.prepare_spatial(cb, ca))
             res, syncs, sites = count_syncs(lambda: icp.icp_register(cb, ca, **head))
     if on_card:
-        chunks = -(-int(res.iterations) // icp.LOOP_CHUNK)
+        chunks = -(-int(res.iterations) // device_loop.LOOP_CHUNK)
         log(f"[loop] synchronising calls of a warm headline registration ({res.iterations} "
-            f"iterations, chunk {icp.LOOP_CHUNK}): {syncs} ({sites}); the loop's reads "
+            f"iterations, chunk {device_loop.LOOP_CHUNK}): {syncs} ({sites}); the loop's reads "
             f"{chunks}, the set-up's {setup} ({setup_sites})")
         check(not any("procrustes.py" in k or "nn_hier.py" in k for k in sites),
               "a warm registration syncs in procrustes.py or nn_hier.py")
@@ -2953,7 +2953,7 @@ def cpd_loop_phases(dev, smi, kind, sizes, time_ms) -> dict:
     line (but the Procrustes entry, phase 22's) and the phase's record."""
     import torch
 
-    from tpuslam_torch.algorithms import cpd, icp
+    from tpuslam_torch.algorithms import cpd, device_loop, icp
     from tpuslam_torch.algorithms.batch import cpd_register_batch, stack_clouds
     from tpuslam_torch.config.configuration import ApproximationType
     from tpuslam_torch.core.types import pad_cloud
@@ -3117,7 +3117,7 @@ def cpd_loop_phases(dev, smi, kind, sizes, time_ms) -> dict:
                               if v > setup_sites.get(k, 0)}
         equal = same(got, want) and ph == want_ph and rt == want_rt
         iters = int(got.iterations)
-        chunks = -(-iters // cpd.LOOP_CHUNK) + sum(a != b for a, b in zip(ph, ph[1:]))
+        chunks = -(-iters // device_loop.LOOP_CHUNK) + sum(a != b for a, b in zip(ph, ph[1:]))
         runs[name] = {"rows": m, "iterations": iters, "eager_ms_per_iter": eager_s * 1e3 / iters,
                       "loop_ms_per_iter": loop_s * 1e3 / iters, "equal": equal,
                       "phases": {k: ph.count(k) for k in cpd.PHASES},
@@ -3126,7 +3126,7 @@ def cpd_loop_phases(dev, smi, kind, sizes, time_ms) -> dict:
                       "loop_sync_sites": loop_sites, "chunk_reads_at_most": chunks + 1}
         log(f"[cpd-loop] {name} at {m} rows: {iters} iterations, E-steps "
             f"{''.join(p[0] for p in ph)}, K5 routes {''.join(r[1] for r in rt)}; the graph "
-            f"loop (chunk {cpd.LOOP_CHUNK}) {loop_s * 1e3 / iters:.4f} ms/iter against the "
+            f"loop (chunk {device_loop.LOOP_CHUNK}) {loop_s * 1e3 / iters:.4f} ms/iter against the "
             f"eager one-iteration loop {eager_s * 1e3 / iters:.4f} ms/iter on {smi}; equal bit "
             f"for bit (R, t, scale, sigma^2, iterations, E-steps, routes): {equal}; "
             f"synchronising calls of a warm registration {syncs} ({sites}), of its set-up "

@@ -227,6 +227,7 @@ def test_cpd_pair_axis_equals_solo_bit_for_bit(rng, monkeypatch, mode, use_fgt, 
     loop iteration, chunk after chunk; FGT-phase pairs run the FGT
     alone."""
     from tpuslam_torch.algorithms import cpd as cpd_mod
+    from tpuslam_torch.algorithms import device_loop
 
     calls = []
     real = cpd_mod.cpd_estep_dense_batch
@@ -255,7 +256,7 @@ def test_cpd_pair_axis_equals_solo_bit_for_bit(rng, monkeypatch, mode, use_fgt, 
         # the FGT phase first, then the truncated one on K4's batch form
         assert 0 < len(calls) < kw["max_iterations"]
     else:
-        k = cpd_mod.LOOP_CHUNK
+        k = device_loop.LOOP_CHUNK
         chunks = -(-int(batch.iterations.max()) // k)
         assert calls == [3] * (k * chunks)
 
@@ -266,6 +267,7 @@ def test_cpd_pair_axis_mixed_stops(rng, monkeypatch):
     form still computes every pair, one call a loop iteration until the
     last pair stops."""
     from tpuslam_torch.algorithms import cpd as cpd_mod
+    from tpuslam_torch.algorithms import device_loop
 
     calls = []
     real = cpd_mod.cpd_estep_dense_batch
@@ -285,7 +287,7 @@ def test_cpd_pair_axis_mixed_stops(rng, monkeypatch):
     assert len(set(iters)) > 1, iters
     for i in range(3):
         _equal(batch, i, cpd_register(_pair(bb, i), _pair(ba, i), **kw))
-    k = cpd_mod.LOOP_CHUNK
+    k = device_loop.LOOP_CHUNK
     assert calls == [3] * (k * -(-max(iters) // k))
 
 
@@ -297,6 +299,7 @@ def test_cpd_pair_axis_large_truncated_pairs_take_k5(rng, monkeypatch):
     clouds (two 1,024-row blocks, the least K5 can skip in) reach the
     slow phase within a few iterations of the plain versions."""
     from tpuslam_torch.algorithms import batch as batch_mod
+    from tpuslam_torch.algorithms import device_loop
     from tpuslam_torch.algorithms import cpd as cpd_mod
     from tpuslam_torch.kernels import cpd_cand
 
@@ -334,7 +337,7 @@ def test_cpd_pair_axis_large_truncated_pairs_take_k5(rng, monkeypatch):
     # iterations all of its phase
     assert len(routes) == phases.count("trunc") and "k5" in routes, routes
     assert set(calls) == {2}, calls
-    k = cpd_mod.LOOP_CHUNK
+    k = device_loop.LOOP_CHUNK
     fast = [c for c in chunks if c[0] == "fast"]
     assert len(calls) == k * len(fast), (calls, chunks)
     ends = [c[1] for c in chunks[1:]] + [len(phases)]

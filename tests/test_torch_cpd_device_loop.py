@@ -31,9 +31,10 @@ from tests.conftest import random_rigid
 from tpuslam.algorithms import cpd as jcpd
 from tpuslam.config.configuration import ApproximationType as JaxApprox
 from tpuslam.core.types import pad_cloud as jax_pad_cloud
-from tpuslam_torch.algorithms import cpd
+from tpuslam_torch.algorithms import cpd, device_loop
 from tpuslam_torch.algorithms.batch import cpd_register_batch, stack_clouds
 from tpuslam_torch.config.configuration import ApproximationType
+from tpuslam_torch.core import choices
 from tpuslam_torch.core.types import Cloud, pad_cloud
 from tpuslam_torch.kernels import cpd_cand
 
@@ -55,12 +56,12 @@ def _one_thread():
 
 @contextmanager
 def _loop_chunk(k):
-    saved = cpd.LOOP_CHUNK
-    cpd.LOOP_CHUNK = k
+    saved = device_loop.LOOP_CHUNK
+    device_loop.LOOP_CHUNK = k
     try:
         yield
     finally:
-        cpd.LOOP_CHUNK = saved
+        device_loop.LOOP_CHUNK = saved
 
 
 def _box(n, angle=0.25, trans=0.5, seed=0, spread=6.0):
@@ -364,10 +365,11 @@ def test_predicated_estep_equals_the_host_route(_routes, sigma2_scale, route):
     args = _estep_operands(sigma2_scale)
     cpd_cand.ROUTE_TRACE.clear()
     host = cpd_cand.cpd_estep_cand(*args)
-    with cpd_cand.recording_routes() as codes:
+    with choices.recording() as rec:
         dev = cpd_cand.cpd_estep_cand(*args, predicated=True)
     assert list(cpd_cand.ROUTE_TRACE) == [route]
-    assert [int(c) for c in codes] == [cpd_cand.ROUTES.index(route)]
+    assert [int(c) for _, _, c in rec.booked] == [cpd_cand.ROUTES.index(route)]
+    assert all(trace is cpd_cand.ROUTE_TRACE for trace, _, _ in rec.booked)
     for f in ("p1", "pt1", "px", "error"):
         assert torch.equal(getattr(dev, f), getattr(host, f)), f
 

@@ -335,7 +335,7 @@ def test_fgt_estep_on_card_takes_k6_and_k7(rng, cuda, monkeypatch):
     expansions; Kt1 and the four moments), and in the captured loop the
     replays book theirs from the device; the torch composition never runs
     on the card."""
-    from tpuslam_torch.algorithms import cpd, icp
+    from tpuslam_torch.algorithms import cpd, device_loop, icp
     from tpuslam_torch.kernels import fgt as kfgt
 
     n = cpd.CPD_FGT_CROSSOVER + 1000
@@ -344,7 +344,7 @@ def test_fgt_estep_on_card_takes_k6_and_k7(rng, cuda, monkeypatch):
               const_scale=True, max_iterations=30)
     plain = kfgt.PLAIN_CALLS["cuda"]
     kernels.reset_launch_counts()
-    monkeypatch.setattr(icp, "CUDA_GRAPHS", False)
+    monkeypatch.setattr(device_loop, "CUDA_GRAPHS", False)
     cpd.PHASE_TRACE.clear()
     before = kernels.launch_counts()
     cpd_register(b, a, **kw)
@@ -352,7 +352,7 @@ def test_fgt_estep_on_card_takes_k6_and_k7(rng, cuda, monkeypatch):
     fast = list(cpd.PHASE_TRACE).count("fgt")
     assert fast > 0
     assert delta["K6"] == delta["K7"] == 2 * fast
-    monkeypatch.setattr(icp, "CUDA_GRAPHS", True)
+    monkeypatch.setattr(device_loop, "CUDA_GRAPHS", True)
     with icp.graph_scope({}):
         for _ in range(2):
             cpd.PHASE_TRACE.clear()
@@ -1460,7 +1460,7 @@ def test_device_loop_graph_equals_eager_one_iteration_loop(rng, cuda, use_spatia
     captured; a warm registration makes no synchronising call in
     ``procrustes.py`` or ``nn_hier.py`` and at most one a chunk plus the
     set-up's."""
-    from tpuslam_torch.algorithms import icp
+    from tpuslam_torch.algorithms import device_loop, icp
     from tpuslam_torch.harness.benchkit import count_syncs
 
     n = 16_384
@@ -1470,16 +1470,16 @@ def test_device_loop_graph_equals_eager_one_iteration_loop(rng, cuda, use_spatia
     b, a = pad_cloud(before, device=cuda), pad_cloud(after, device=cuda)
     kw = dict(eps=1e-7, max_distance_squared=1e4, max_iterations=30, use_spatial=use_spatial)
     nn_hier.ARM_TRACE.clear()
-    icp.CUDA_GRAPHS = False  # the eager reference: one iteration a read, no graph
+    device_loop.CUDA_GRAPHS = False  # the eager reference: one iteration a read, no graph
     try:
         want = icp_register(b, a, **kw)
     finally:
-        icp.CUDA_GRAPHS = True
+        device_loop.CUDA_GRAPHS = True
     want_arms = list(nn_hier.ARM_TRACE)
-    saved = icp.LOOP_CHUNK
+    saved = device_loop.LOOP_CHUNK
     try:
         for k in (1, 4, 8):
-            icp.LOOP_CHUNK = k
+            device_loop.LOOP_CHUNK = k
             with icp.graph_scope({}) as graphs:
                 for _ in range(2):  # capture, then replay the scope's graph
                     nn_hier.ARM_TRACE.clear()
@@ -1490,12 +1490,12 @@ def test_device_loop_graph_equals_eager_one_iteration_loop(rng, cuda, use_spatia
                     assert torch.equal(got.error, want.error)
                     assert list(nn_hier.ARM_TRACE) == want_arms
                     assert len(graphs) == 1
-        icp.LOOP_CHUNK = 4
+        device_loop.LOOP_CHUNK = 4
         with icp.graph_scope({}):
             icp_register(b, a, **kw)
             got, syncs, sites = count_syncs(lambda: icp_register(b, a, **kw))
     finally:
-        icp.LOOP_CHUNK = saved
+        device_loop.LOOP_CHUNK = saved
     assert not any("procrustes.py" in s or "nn_hier.py" in s for s in sites), sites
     # one read a chunk (the stopping step is a step too), the set-up none
     assert syncs <= -(-(got.iterations + 1) // 4), sites
@@ -1540,7 +1540,7 @@ def test_spans_mark_one_capture_and_add_no_sync(rng, cuda):
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    from tpuslam_torch.algorithms import icp
+    from tpuslam_torch.algorithms import device_loop, icp
     from tpuslam_torch.harness.benchkit import count_syncs
 
     n = 16_384
@@ -1560,7 +1560,7 @@ def test_spans_mark_one_capture_and_add_no_sync(rng, cuda):
         _, off, _ = count_syncs(one)
         with profile(activities=acts):
             _, on, sites = count_syncs(one)
-    assert len(graphs) == 1 and first[2] == second[2] > icp.LOOP_CHUNK
+    assert len(graphs) == 1 and first[2] == second[2] > device_loop.LOOP_CHUNK
     ours = sorted((e for e in prof.events()
                    if e.name.startswith("tpuslam.") and e.device_type == DeviceType.CPU),
                   key=lambda e: e.time_range.start)
@@ -1583,7 +1583,7 @@ def test_fgt_spans_mark_the_setup_and_each_phase_chunk(rng, cuda):
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    from tpuslam_torch.algorithms import cpd, icp
+    from tpuslam_torch.algorithms import cpd, device_loop, icp
     from tpuslam_torch.harness.benchkit import count_syncs
 
     n = 8192
@@ -1626,7 +1626,7 @@ def test_fgt_spans_mark_the_setup_and_each_phase_chunk(rng, cuda):
 
     regs = [e.time_range for e in ours if e.name == "tpuslam.register"]
     assert len(regs) == 2
-    k = cpd.LOOP_CHUNK
+    k = device_loop.LOOP_CHUNK
     want_names = (["tpuslam.loop.fgt"] * -(-ran.count("fgt") // k)
                   + ["tpuslam.loop.trunc"] * -(-ran.count("trunc") // k))
     for i, reg in enumerate(regs):
@@ -1665,7 +1665,7 @@ def test_cpd_device_loop_graph_equals_eager_one_iteration_loop(rng, cuda, mode):
     with the FGT) against the eager loop of one iteration a read, bit for
     bit (R, t, scale, sigma^2, iterations, E-steps, K5 routes) at k = 1,
     2, 3 and 5; a warm registration reads the host only at its chunks."""
-    from tpuslam_torch.algorithms import cpd, icp
+    from tpuslam_torch.algorithms import cpd, device_loop, icp
     from tpuslam_torch.harness.benchkit import count_syncs
 
     b, a = _cpd_pair(rng, 8192, cuda)
@@ -1677,17 +1677,17 @@ def test_cpd_device_loop_graph_equals_eager_one_iteration_loop(rng, cuda, mode):
         res = cpd_register(b, a, **kw)
         return res, list(cpd.PHASE_TRACE), list(cpd_cand.ROUTE_TRACE)
 
-    icp.CUDA_GRAPHS = False
+    device_loop.CUDA_GRAPHS = False
     try:
         want, want_phases, want_routes = run()
     finally:
-        icp.CUDA_GRAPHS = True
+        device_loop.CUDA_GRAPHS = True
     if mode != "exact":
         assert "trunc" in want_phases
-    saved = cpd.LOOP_CHUNK
+    saved = device_loop.LOOP_CHUNK
     try:
         for k in (1, 2, 3, 5):
-            cpd.LOOP_CHUNK = k
+            device_loop.LOOP_CHUNK = k
             with icp.graph_scope({}):
                 for _ in range(2):  # capture, then replay the scope's graphs
                     got, phases, routes = run()
@@ -1697,7 +1697,7 @@ def test_cpd_device_loop_graph_equals_eager_one_iteration_loop(rng, cuda, mode):
                                            getattr(want.transform, f))
                     assert torch.equal(got.error, want.error)
                     assert phases == want_phases and routes == want_routes
-        cpd.LOOP_CHUNK = 2
+        device_loop.LOOP_CHUNK = 2
         with icp.graph_scope({}):
             run()
             _, _, sites = count_syncs(lambda: cpd_register(b, a, **kw))
@@ -1705,7 +1705,7 @@ def test_cpd_device_loop_graph_equals_eager_one_iteration_loop(rng, cuda, mode):
                 b, a, 1e-3, kw["weight"], kw["tolerance"], kw["approximation_type"], 10.0, 8,
                 kw.get("use_fgt"), 128, None, False, False).initial(None))
     finally:
-        cpd.LOOP_CHUNK = saved
+        device_loop.LOOP_CHUNK = saved
     loop = [s for s, v in sites.items() if v > setup.get(s, 0)]
     assert all(s.startswith(("device_loop.py", "cpd.py")) for s in loop), (sites, setup)
 
@@ -1714,7 +1714,7 @@ def test_cpd_pair_axis_graph_gives_each_pair_its_solo_bits(rng, cuda):
     """The pair-axis loop on the card: graph against eager, and each pair
     against its solo run, bit for bit, with pairs that switch phase and
     stop at different iterations."""
-    from tpuslam_torch.algorithms import cpd, icp
+    from tpuslam_torch.algorithms import cpd, device_loop, icp
     from tpuslam_torch.algorithms.batch import cpd_register_batch, stack_clouds
     from tpuslam_torch.core.types import Cloud
 
@@ -1727,11 +1727,11 @@ def test_cpd_pair_axis_graph_gives_each_pair_its_solo_bits(rng, cuda):
     bb, ba = stack_clouds(befores, device=cuda), stack_clouds(afters, device=cuda)
     kw = dict(approximation_type=ApproximationType.Hybrid, weight=0.1, tolerance=1e-5,
               max_iterations=60)
-    icp.CUDA_GRAPHS = False
+    device_loop.CUDA_GRAPHS = False
     try:
         want = cpd_register_batch(bb, ba, **kw)
     finally:
-        icp.CUDA_GRAPHS = True
+        device_loop.CUDA_GRAPHS = True
     with icp.graph_scope({}):
         cpd_register_batch(bb, ba, **kw)
         got = cpd_register_batch(bb, ba, **kw)
@@ -1759,6 +1759,7 @@ def test_cpd_pair_axis_graph_runs_pair_by_pair_only_its_phase(rng, cuda, monkeyp
     and stop at different iterations (clouds of 2,048, 1,200 and 400
     points, padded alike)."""
     from tpuslam_torch.algorithms import batch as batch_mod
+    from tpuslam_torch.algorithms import device_loop
     from tpuslam_torch.algorithms import cpd, icp
     from tpuslam_torch.algorithms.batch import cpd_register_batch, stack_clouds
     from tpuslam_torch.core.types import Cloud
@@ -1774,11 +1775,11 @@ def test_cpd_pair_axis_graph_runs_pair_by_pair_only_its_phase(rng, cuda, monkeyp
     bb, ba = stack_clouds(befores, device=cuda), stack_clouds(afters, device=cuda)
     kw = dict(approximation_type=ApproximationType.Hybrid, weight=0.1, tolerance=1e-5,
               max_iterations=60, use_fgt=route == "fgt", fgt_k=16)
-    icp.CUDA_GRAPHS = False
+    device_loop.CUDA_GRAPHS = False
     try:
         want = cpd_register_batch(bb, ba, **kw)
     finally:
-        icp.CUDA_GRAPHS = True
+        device_loop.CUDA_GRAPHS = True
     sets, real_chunk = [], cpd._em_chunk
 
     def chunk(cfg, k, phase, eligible, *args):
@@ -2127,14 +2128,14 @@ def test_sharded_warm_registration_reads_the_host_once_a_chunk(nccl_world, name)
     no stop-test, arm, K5-route or phase read, nothing in the search, the
     collectives or the M-step (a read inside a chunk would also fail its
     capture)."""
-    from tpuslam_torch.algorithms import cpd, icp
+    from tpuslam_torch.algorithms import device_loop
 
     _, warm, _ = nccl_world[name]
     sites = warm["syncs"]["sites"]
     inner = ("nn_hier.py", "nn.py", "cpd_cand.py", "cpd_dense.py", "procrustes.py",
              "collectives.py")
     assert not any(s.startswith(inner) for s in sites), sites
-    k = icp.LOOP_CHUNK if _SHARDED[name][0] == "icp" else cpd.LOOP_CHUNK
+    k = device_loop.LOOP_CHUNK
     its = int(warm["result"]["iterations"])
     reads = sum(v for s, v in sites.items() if s.startswith("device_loop.py"))
     assert 1 <= reads <= -(-(its + 1) // k), sites

@@ -26,9 +26,11 @@ from tests.conftest import make_cloud, random_rigid
 from tpuslam.algorithms import batch as jbatch
 from tpuslam.algorithms.icp import icp_register as jax_icp_register
 from tpuslam.core.types import pad_cloud as jax_pad_cloud
-from tpuslam_torch.algorithms import device_loop, icp
+from tpuslam_torch.algorithms import cpd, device_loop, icp
 from tpuslam_torch.algorithms.batch import _icp_batched_loop, stack_clouds
 from tpuslam_torch.algorithms.icp import ICPResume, icp_register, icp_register_chunked
+from tpuslam_torch.config.configuration import ApproximationType
+from tpuslam_torch.core import choices
 from tpuslam_torch.core.types import pad_cloud
 from tpuslam_torch.ops import nn_hier
 
@@ -59,13 +61,13 @@ def _pair(rng, angle, trans, n=512, permute=True):
 
 @contextmanager
 def _loop_chunk(k):
-    """The loop at ``k`` iterations a host read (``icp.LOOP_CHUNK``)."""
-    saved = icp.LOOP_CHUNK
-    icp.LOOP_CHUNK = k
+    """The loop at ``k`` iterations a host read (``device_loop.LOOP_CHUNK``)."""
+    saved = device_loop.LOOP_CHUNK
+    device_loop.LOOP_CHUNK = k
     try:
         yield
     finally:
-        icp.LOOP_CHUNK = saved
+        device_loop.LOOP_CHUNK = saved
 
 
 def _run(before, after, k, **kw):
@@ -190,7 +192,7 @@ def test_chunked_driver_equals_whole_run(rng, monkeypatch, k, tmp_path):
     kw = dict(eps=1e-7, max_distance_squared=1e4, max_iterations=23)
     with _loop_chunk(1):
         whole = icp_register(b, a, **kw)
-    monkeypatch.setattr(icp, "LOOP_CHUNK", k)
+    monkeypatch.setattr(device_loop, "LOOP_CHUNK", k)
     chunked = icp_register_chunked(b, a, chunk=5, checkpoint_path=str(tmp_path / "c.npz"),
                                    **kw)
     assert chunked.iterations == whole.iterations
@@ -276,7 +278,7 @@ def test_chunked_registration_matches_jax(rng, monkeypatch, k):
     ``k`` iterations a host read, against ``tpuslam.register``."""
     before, after = _pair(rng, 0.2, 1.0, n=2048)
     kw = dict(max_iterations=50, max_distance_squared=1e4, convergence_epsilon=1e-5)
-    monkeypatch.setattr(icp, "LOOP_CHUNK", k)
+    monkeypatch.setattr(device_loop, "LOOP_CHUNK", k)
     rot, trans, iters, err = tpuslam_torch.register(before, after, device=CPU, **kw)
     ref = tpuslam.register(before, after, **kw)
     assert iters == int(ref[2])
@@ -300,14 +302,69 @@ def test_arm_code_every_case_of_the_host_branch(overflow, overflow2, arm):
 
 
 def test_read_status_books_trace_of_running_queries():
-    """A chunk's status: the device's launch counts, stopped, the
-    iteration counts, then each query's arm code (plus 3 for a query of a
-    frozen iteration, which ``ARM_TRACE`` does not get)."""
+    """A chunk's report, built by ``device_loop._reporting`` and read once
+    (``device_loop.read_report``): the device's launch counts, the loop's
+    own status (stopped, the iteration counts) handed back, then each
+    query's arm code, ``choices.FROZEN`` for a query of a frozen
+    iteration, which ``ARM_TRACE`` does not get."""
+    def chunk(inputs, carry):
+        for arm, ran in ((1, True), (2, False), (0, True)):
+            choices.book(nn_hier.ARM_TRACE, nn_hier.ARMS,
+                         torch.tensor([arm], dtype=torch.int32))
+            choices.ran(torch.tensor(ran))
+        return carry, [torch.tensor([1, 5, 7], dtype=torch.int32)], None
+
     nn_hier.ARM_TRACE.clear()
-    tally = [0] * icp._TALLY_ROWS
-    stopped, counts = icp._read_status(tally + [1, 5, 7, 1, 5, 0], 2)
-    assert stopped and counts == [5, 7]
+    _, report, _, layout = device_loop._reporting(chunk, False)((torch.zeros(1),), None)
+    assert report.tolist()[-3:] == [1, choices.FROZEN, 0]
+    assert device_loop.read_report(report.tolist(), layout) == [1, 5, 7]
     assert list(nn_hier.ARM_TRACE) == ["coarse", "fine"]
+
+
+@pytest.mark.parametrize("loop,kw,bound", [
+    ("icp", dict(use_spatial=False), 546),
+    ("icp", dict(use_spatial=True), 982),
+    ("cpd", dict(), 607),
+    ("cpd", dict(approximation_type=ApproximationType.Hybrid, use_kernels=True), 877),
+])
+def test_one_chunk_dispatches_no_more_torch_ops(monkeypatch, loop, kw, bound):
+    """The torch ops that one chunk of two iterations dispatches on the
+    CPU (``TorchDispatchMode``), its report and its choices' bookkeeping
+    included, on 256 points: at most the pinned bound, the count of the
+    loop whose chunk built and parsed its own status.  A chunk replayed
+    as a CUDA graph holds these ops' kernels, so an op added to the
+    loop's bookkeeping, the report or the choices fails here."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    class Count(TorchDispatchMode):
+        ops = 0
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            Count.ops += 1
+            return func(*args, **(kwargs or {}))
+
+    mod = icp if loop == "icp" else cpd
+    real, counts = mod.run_chunks, []
+
+    def counted(*args, **kwargs):
+        Count.ops = 0
+        with Count():
+            out = real(*args, **kwargs)
+        counts.append(Count.ops)
+        return out
+
+    monkeypatch.setattr(mod, "run_chunks", counted)
+    monkeypatch.setattr(device_loop, "LOOP_CHUNK", 2)
+    rng = np.random.default_rng(0)
+    before = (rng.random((256, 3)) * 4).astype(np.float32)
+    r, t = random_rigid(rng, 0.2, 0.3)
+    after = (before @ r.T + t).astype(np.float32)
+    b, a = pad_cloud(before, device=CPU), pad_cloud(after, device=CPU)
+    if loop == "icp":
+        icp_register(b, a, max_iterations=2, eps=0.0, **kw)
+    else:
+        cpd.cpd_register(b, a, max_iterations=2, tolerance=0.0, **kw)
+    assert len(counts) == 1 and counts[0] <= bound, counts
 
 
 def test_chunk_must_be_positive(rng):
@@ -367,10 +424,10 @@ def test_loop_chunk_program_on_the_cpu(tmp_path):
     from tpuslam_torch.harness import loop_chunk
 
     out = tmp_path / "lc.json"
-    before = icp.LOOP_CHUNK
+    before = device_loop.LOOP_CHUNK
     assert loop_chunk.main(["--device", "cpu", "--sizes", "512", "--chunks", "1:3",
                             "--reps", "1", "--out", str(out)]) == 0
-    assert icp.LOOP_CHUNK == before and icp.CUDA_GRAPHS
+    assert device_loop.LOOP_CHUNK == before and device_loop.CUDA_GRAPHS
     got = json.load(open(out))
     # per arm: fixed and converge rows for each setting, a miss row for k1, k3
     assert got["device"] == "cpu" and len(got["rows"]) == 2 * (2 * 3 + 2)

@@ -444,14 +444,14 @@ def test_comm_model_matches_logged_collectives(world):
     ``tests/test_parallel.py:446-511``).  On the CPU the loops run whole
     chunks of ``LOOP_CHUNK`` iterations, and an iteration frozen past the
     cap runs its collectives too: 5 iterations run 6 at a chunk of 2."""
-    from tpuslam_torch.algorithms import cpd, icp
+    from tpuslam_torch.algorithms.device_loop import LOOP_CHUNK
 
     icp_log = world["comm_icp"][0]["collectives"]
     steps = int(_res(world, "comm_icp")["iterations"])
     assert steps == 5
     per_icp = comm_model.icp_comm_bytes(COMM_N)
     ran = comm_model.logged_iterations(icp_log, per_icp["n_collectives"])
-    assert ran == [per_icp["total"]] * (-(-steps // icp.LOOP_CHUNK) * icp.LOOP_CHUNK)
+    assert ran == [per_icp["total"]] * (-(-steps // LOOP_CHUNK) * LOOP_CHUNK)
     assert [c.op for c in icp_log[:3]] == ["pmin", "pmin", "psum"]
 
     cpd_log = world["comm_cpd"][0]["collectives"]
@@ -461,7 +461,7 @@ def test_comm_model_matches_logged_collectives(world):
     per = comm_model.cpd_comm_bytes(COMM_N)
     assert comm_model.total_collective_bytes(cpd_log[:init["n_collectives"]]) == init["total"]
     ran = comm_model.logged_iterations(cpd_log, per["n_collectives"], init["n_collectives"])
-    assert ran == [per["total"]] * (-(-iters // cpd.LOOP_CHUNK) * cpd.LOOP_CHUNK)
+    assert ran == [per["total"]] * (-(-iters // LOOP_CHUNK) * LOOP_CHUNK)
 
     nicp_log = world["comm_nicp"][0]["collectives"]
     want = comm_model.nicp_comm_bytes(COMM_K)

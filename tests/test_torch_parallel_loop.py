@@ -18,7 +18,7 @@ Inputs are made from a seed with numpy.
 import numpy as np
 import pytest
 
-from tpuslam_torch.algorithms import cpd, icp
+from tpuslam_torch.algorithms import device_loop
 from tpuslam_torch.algorithms.icp import icp_register
 from tpuslam_torch.config.configuration import ApproximationType
 from tpuslam_torch.core.types import pad_cloud
@@ -133,7 +133,7 @@ def test_sharded_icp_chunks_equal_one_iteration_loop(worlds, data, size, arm, st
     kw = ICP_STOPS[stop][1]
     if stop == "eps":
         # converged at an odd iteration: the chunk's first, its second frozen
-        assert err < kw["eps"] and its % icp.LOOP_CHUNK == 0 and its < MAX_ICP
+        assert err < kw["eps"] and its % device_loop.LOOP_CHUNK == 0 and its < MAX_ICP
     elif stop == "odd_cap":
         assert its == 5
     elif stop == "guard":
@@ -171,12 +171,12 @@ def test_sharded_cpd_chunks_equal_one_iteration_loop(worlds, size, stop):
     if stop == "negative":
         assert its == 0 and phases == []
         return
-    assert its % cpd.LOOP_CHUNK == 1 and its < kw["max_iterations"]
+    assert its % device_loop.LOOP_CHUNK == 1 and its < kw["max_iterations"]
     if stop == "tolerance":
         assert float(got["em"]["ntol"]) <= kw["tolerance"]
     elif stop == "sigma2_eps":
         assert float(got["error"]) <= kw["eps"]
     else:
         fast = phases.count("fgt" if stop == "hybrid_fgt" else "exact")
-        assert fast % cpd.LOOP_CHUNK == 1 and phases.count("trunc") > 0
+        assert fast % device_loop.LOOP_CHUNK == 1 and phases.count("trunc") > 0
         assert phases == [phases[0]] * fast + ["trunc"] * (its - fast)

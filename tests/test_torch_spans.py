@@ -17,7 +17,7 @@ from torch.profiler import ProfilerActivity, profile
 
 import tpuslam_torch
 from tpuslam_torch import ApproximationType, ComputationMethod
-from tpuslam_torch.algorithms import cpd
+from tpuslam_torch.algorithms import cpd, device_loop
 from tpuslam_torch.core import spans
 from tpuslam_torch.data.synthesis import (
     get_random_rotation_matrix,
@@ -144,7 +144,7 @@ def test_the_fgt_emits_its_setup_span_and_a_phase_span_a_chunk():
     names = [e.name for e in chunks]
     fast, slow = ran.count("fgt"), ran.count("trunc")
     assert fast > 0 and slow > 0 and fast + slow == len(ran)
-    k = cpd.LOOP_CHUNK
+    k = device_loop.LOOP_CHUNK
     assert names == (["tpuslam.loop.fgt"] * math.ceil(fast / k)
                      + ["tpuslam.loop.trunc"] * math.ceil(slow / k))
 

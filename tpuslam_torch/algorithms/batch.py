@@ -64,7 +64,6 @@ from tpuslam_torch.algorithms.icp import (
     FLT_MAX,
     ICPResume,
     ICPState,
-    RegistrationResult,
     _icp_loop,
     dense_arm,
     full_f32,
@@ -78,7 +77,7 @@ from tpuslam_torch.algorithms.cpd import _EM, _em_loop, _EMCarry, _stack_trees
 from tpuslam_torch.algorithms.nicp import nicp_core
 from tpuslam_torch.config.configuration import ApproximationType
 from tpuslam_torch.core.device import resolve_device
-from tpuslam_torch.core.types import Cloud, RigidTransform, pad_cloud, round_up
+from tpuslam_torch.core.types import Cloud, RegistrationResult, RigidTransform, pad_cloud, round_up
 from tpuslam_torch.ops.nn_hier import HierState, HierTarget, hier_state_init
 
 # the lowering crossover of icp_register_batch on the CPU: unroll when

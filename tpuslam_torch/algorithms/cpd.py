@@ -35,21 +35,21 @@ The EM loop keeps all of its state on the device, as the JAX package's
 ``lax.while_loop``s do, and freezes a registration once it has stopped
 (an iteration after the stop test fails, after ``max_iterations`` or in
 the other Hybrid phase changes nothing: ``torch.where`` over the carry).
-It runs in chunks of ``LOOP_CHUNK`` iterations with one host read a
-chunk: whether the loop has stopped, the iteration count, the phase the
-next chunk needs, each iteration's E-step and K5 route, and the launches
-the device counted (``PHASE_TRACE`` and ``kernels/cpd_cand.py``'s
-``ROUTE_TRACE`` are booked from it).  Hybrid with the FGT runs one
-phase's E-step a chunk (the JAX package's ``cond_fast``/``cond_slow``
-loops): an iteration of the other phase is frozen and the next chunk
-takes that phase.  Every other mode has one E-step, its phase a device
-flag (the JAX ``else`` branch): Hybrid below the FGT crossover picks its
-constant and truncation flag on the device.  The slow phase calls K5,
-which chooses between its route and K4's on the device inside a CUDA
-graph (``recording_routes``); the JAX package's checked form, which
-leaves the loop on overflow so the cond-bodied loop redoes the
-iteration, gives the same statistics bit for bit
-(``tests/test_pallas_cpd.py::test_cand_checked_matches_plain``).
+It runs in chunks of ``device_loop.LOOP_CHUNK`` iterations with one host
+read a chunk, its report: the iteration count and the phase the next
+chunk needs here, each iteration's E-step (to ``PHASE_TRACE``) and K5
+route (to ``kernels/cpd_cand.py``'s ``ROUTE_TRACE``), booked through
+``core/choices.py``, and the launches the device counted there.  Hybrid
+with the FGT runs one phase's E-step a chunk (the JAX package's
+``cond_fast``/``cond_slow`` loops): an iteration of the other phase is
+frozen and the next chunk takes that phase.  Every other mode has one
+E-step, its phase a device flag (the JAX ``else`` branch): Hybrid below
+the FGT crossover picks its constant and truncation flag on the device.
+The slow phase calls K5, which chooses between its route and K4's on
+the device inside a CUDA graph (a predicated ``choices.recording``); the
+JAX package's checked form, which leaves the loop on overflow so the
+cond-bodied loop redoes the iteration, gives the same statistics bit for
+bit (``tests/test_pallas_cpd.py::test_cand_checked_matches_plain``).
 
 The chunks run on ``algorithms/device_loop.py``, as ICP's do:
 on CUDA a chunk is captured once as a CUDA graph (after one eager chunk
@@ -57,10 +57,11 @@ of its key, its warm-up) and replayed; the graph is kept, by shape,
 mode, phase and history, in the open ``graph_scope`` (else for the
 registration), and a later registration of the same key loads its
 inputs and replays it.  ``verbose=True`` (the reference's printf),
-``icp.CUDA_GRAPHS = False`` (the eager baseline of a measurement) and
-the CPU run eager chunks, of one iteration on CUDA, of ``LOOP_CHUNK`` on
-the CPU, K5 reading its route on the host.  Whatever the chunk, the
-result is the eager one-iteration loop's, bit for bit.  The pair-axis
+``device_loop.CUDA_GRAPHS = False`` (the eager baseline of a
+measurement) and the CPU run eager chunks, of one iteration on CUDA, of
+``LOOP_CHUNK`` on the CPU (``device_loop.chunk_policy``), K5 reading its
+route on the host.  Whatever the chunk, the result is the eager
+one-iteration loop's, bit for bit.  The pair-axis
 loop (``algorithms/batch.py``) runs the same chunks over a leading pair
 axis; where its E-step runs pair by pair, a chunk runs only the pairs
 that were running in its phase when it began (they are part of its
@@ -81,9 +82,8 @@ from typing import Any, NamedTuple, Optional
 
 import torch
 
-from tpuslam_torch import kernels
-from tpuslam_torch.algorithms import icp
 from tpuslam_torch.algorithms.device_loop import (
+    chunk_policy,
     graph_scope,
     keep,
     leaves,
@@ -91,11 +91,17 @@ from tpuslam_torch.algorithms.device_loop import (
     run_chunks,
     signature,
 )
-from tpuslam_torch.algorithms.icp import RegistrationResult
 from tpuslam_torch.config.configuration import ApproximationType
+from tpuslam_torch.core import choices
 from tpuslam_torch.core.spans import span
-from tpuslam_torch.core.types import Cloud, RigidTransform, Sufficient, pick_block
-from tpuslam_torch.kernels.cpd_cand import ROUTES, ROUTE_TRACE, cpd_estep_cand, recording_routes
+from tpuslam_torch.core.types import (
+    Cloud,
+    RegistrationResult,
+    RigidTransform,
+    Sufficient,
+    pick_block,
+)
+from tpuslam_torch.kernels.cpd_cand import cpd_estep_cand
 from tpuslam_torch.kernels.cpd_dense import cpd_estep_dense_batch, device_scalar
 from tpuslam_torch.kernels.procrustes import mstep_moments_batch
 from tpuslam_torch.ops.fgt import (
@@ -133,12 +139,6 @@ HYBRID_SWITCH = 0.015
 # (no truncation) or "trunc" (Hybrid's slow phase)
 PHASE_TRACE: deque = deque(maxlen=4096)
 PHASES = ("fgt", "exact", "trunc")  # by phase code
-# EM iterations a chunk of the device-resident loop (one host read a
-# chunk), chosen from card runs of 1, 2, 4 and 8 at 20,480 rows exact and
-# 102,400 rows Hybrid (harness/loop_chunk.py --cpd, PERF.md): 2 was the
-# best Hybrid row, where a frozen FGT iteration at the phase switch costs
-# a whole E-step, and within 8 % of the best exact row
-LOOP_CHUNK = 2
 
 
 def resolve_use_fgt(
@@ -659,13 +659,6 @@ def _fgt_estep(cfg: EMConfig, t: EMInputs, s: CPDState, transformed, sigma_e) ->
     )
 
 
-def _routed(routes: list, start: int, active: torch.Tensor) -> None:
-    """The route codes appended since ``start``, plus 2 where their
-    iteration was frozen (not booked)."""
-    for i in range(start, len(routes)):
-        routes[i] = torch.where(active, routes[i], routes[i] + 2)
-
-
 def _pair_by_pair(cfg: EMConfig, phase: Optional[str]) -> bool:
     """Whether the pair-axis E-step of a chunk of ``phase`` runs pair by
     pair: the FGT's, the oracle's, and the truncated one of clouds of
@@ -679,18 +672,19 @@ def _pair_by_pair(cfg: EMConfig, phase: Optional[str]) -> bool:
     return fgt or (cfg.pair_cand and phase == "slow")
 
 
-def _estep(cfg: EMConfig, t: EMInputs, s: CPDState, fast, phase, eligible, active,
-           routes: list) -> tuple:
+def _estep(cfg: EMConfig, t: EMInputs, s: CPDState, fast, phase, eligible,
+           active) -> tuple:
     """The iteration's E-step, solo or over the pair axis, and its phase
     code(s).  Pair by pair, only the ``eligible`` pairs run theirs (None:
     every pair); the others are frozen for the whole chunk and get zero
-    statistics, which the freeze discards."""
+    statistics, which the freeze discards.  A pair's K5 route is marked
+    with whether the pair ran (``active``; solo, ``_em_step`` marks it
+    with the phase code)."""
     fgt, sigma_e, constant, trunc, code = _plan(cfg, t, s, fast, phase)
     batched = t.moving.dim() == 3
     scale = s.scale[..., None, None]
     transformed = transform_points(t.moving, s.rotation, s.translation, scale)
     if not batched:
-        start = len(routes)
         if cfg.shard is not None:
             stats = cfg.shard.estep(cfg, t, s, transformed, fgt, sigma_e, constant, trunc)
         elif fgt:
@@ -698,7 +692,6 @@ def _estep(cfg: EMConfig, t: EMInputs, s: CPDState, fast, phase, eligible, activ
         else:
             stats = cpd_estep_auto(transformed, t.mask_b, t.target, t.mask_a, sigma_e,
                                    constant, trunc, use_kernels=cfg.use_kernels)
-        _routed(routes, start, active)
         return stats, code
     b = t.moving.shape[0]
     flags = (torch.zeros(b, dtype=torch.bool, device=t.moving.device) if trunc is False
@@ -717,7 +710,6 @@ def _estep(cfg: EMConfig, t: EMInputs, s: CPDState, fast, phase, eligible, activ
                 p1=torch.zeros_like(tp.mask_b), pt1=torch.zeros_like(tp.mask_a),
                 px=torch.zeros_like(tp.moving), error=torch.zeros_like(sp.sigma2)))
             continue
-        start = len(routes)
         if fgt:
             per.append(_fgt_estep(cfg, tp, sp, transformed[p], sigma_e[p]))
         else:
@@ -725,22 +717,23 @@ def _estep(cfg: EMConfig, t: EMInputs, s: CPDState, fast, phase, eligible, activ
                                       sigma_e[p], constant[p],
                                       trunc if trunc is False else flags[p],
                                       use_kernels=cfg.use_kernels))
-        _routed(routes, start, active[p])
+        choices.ran(active[p])
     return Sufficient(*(torch.stack(f) for f in zip(*per))), code
 
 
-def _em_step(cfg: EMConfig, t: EMInputs, c: _EMCarry, phase: Optional[str], eligible,
-             routes: list) -> tuple:
+def _em_step(cfg: EMConfig, t: EMInputs, c: _EMCarry, phase: Optional[str],
+             eligible) -> _EMCarry:
     """One EM iteration on the device, frozen where the loop has stopped or
     (Hybrid with the FGT) where the phase is not the chunk's: the new
-    carry and the iteration's phase code(s), plus 3 where frozen."""
+    carry; its phase code(s) go to the open recording of
+    ``core/choices.py``, marked with whether the iteration ran."""
     s = c.s
     go = _going(t, s)
     fast = s.sigma2 > t.switch
     active = go
     if cfg.split:
         active = go & (fast if phase == "fast" else torch.logical_not(fast))
-    stats, code = _estep(cfg, t, s, fast, phase, eligible, active, routes)
+    stats, code = _estep(cfg, t, s, fast, phase, eligible, active)
     ntol = torch.abs((stats.error - s.log_likelihood) / stats.error)
     if cfg.shard is not None:
         mres = cfg.shard.mstep(t, stats, cfg.const_scale, s.scale)
@@ -755,7 +748,9 @@ def _em_step(cfg: EMConfig, t: EMInputs, c: _EMCarry, phase: Optional[str], elig
         row = torch.stack([new.sigma2, new.ntol, new.log_likelihood, new.scale])[None]
         history = history.index_copy(0, slot, row)
     code = torch.full_like(s.iterations, code) if isinstance(code, int) else code
-    return keep(active, _EMCarry(new, history), c), torch.where(active, code, code + 3)
+    choices.book(PHASE_TRACE, PHASES, code)
+    choices.ran(active)
+    return keep(active, _EMCarry(new, history), c)
 
 
 def _pair_states(t: EMInputs, s: CPDState) -> torch.Tensor:
@@ -765,40 +760,16 @@ def _pair_states(t: EMInputs, s: CPDState) -> torch.Tensor:
         torch.int32).reshape(-1)
 
 
-def _em_chunk(cfg: EMConfig, k: int, phase: Optional[str], eligible, predicated: bool,
-              t: EMInputs, c: _EMCarry) -> tuple:
-    """``k`` EM iterations on the device with no host read (``predicated``:
-    none in K5's routing either).  Returns the carry, the status i32
-    vector (the launches the device counted, ``len(kernels.TALLIED)`` of
-    them; the iteration count or counts; each problem's state
-    (``_pair_states``); each iteration's phase codes; each K5 call's route
-    code, plus 2 where its iteration was frozen) and sigma^2."""
-    device = t.moving.device
-    tally = kernels.tally(device)
-    ran = None if tally is None else tally[:, 0].clone()
-    codes = []
-    with recording_routes(predicated) as routes:
-        for _ in range(k):
-            c, code = _em_step(cfg, t, c, phase, eligible, routes)
-            codes.append(code.to(torch.int32).reshape(-1))
-    launched = (torch.zeros(len(kernels.TALLIED), dtype=torch.int32, device=device)
-                if tally is None else tally[:, 0] - ran)
-    status = torch.cat([launched, c.s.iterations.to(torch.int32).reshape(-1),
-                        _pair_states(t, c.s), *codes,
-                        *(r.to(torch.int32).reshape(-1) for r in routes)])
-    return c, status, c.s.sigma2
-
-
-def _read_em_status(vals: list, nb: int, k: int) -> tuple:
-    """The iteration counts and each problem's state (``_pair_states``)
-    from a chunk's status; each iteration that ran is appended to
-    ``PHASE_TRACE``, each of its K5 routes to ``ROUTE_TRACE``."""
-    at = len(kernels.TALLIED)
-    counts, states = vals[at:at + nb], vals[at + nb:at + 2 * nb]
-    phases = vals[at + 2 * nb:at + 2 * nb + k * nb]
-    PHASE_TRACE.extend(PHASES[code] for code in phases if code < 3)
-    ROUTE_TRACE.extend(ROUTES[code] for code in vals[at + 2 * nb + k * nb:] if code < 2)
-    return counts, states
+def _em_chunk(cfg: EMConfig, k: int, phase: Optional[str], eligible, t: EMInputs,
+              c: _EMCarry) -> tuple:
+    """``k`` EM iterations on the device with no host read.  Returns the
+    carry, the loop's own status (the iteration count or counts; each
+    problem's state, ``_pair_states``) and sigma^2; each iteration's
+    phase codes and each K5 call's route go to the open recording of
+    ``core/choices.py``."""
+    for _ in range(k):
+        c = _em_step(cfg, t, c, phase, eligible)
+    return c, [c.s.iterations.to(torch.int32).reshape(-1), _pair_states(t, c.s)], c.s.sigma2
 
 
 def _phase_span(cfg: EMConfig):
@@ -821,18 +792,14 @@ def _em_loop(cfg: EMConfig, t: EMInputs, c: _EMCarry, max_iterations: int, verbo
     that were running in the chunk's phase when it began (any other pair
     stays frozen through the chunk).  The sharded loop (``cfg.shard``) is
     captured only where its collectives may be (NCCL); under gloo a chunk
-    on CUDA is one eager iteration.  A frozen iteration still runs its
-    E-step and its collectives: every rank freezes on the same replicated
-    values, so the ranks' collectives stay matched."""
+    on CUDA is one eager iteration (``device_loop.chunk_policy``).  A
+    frozen iteration still runs its E-step and its collectives: every
+    rank freezes on the same replicated values, so the ranks'
+    collectives stay matched."""
     device = t.moving.device
     batched = t.moving.dim() == 3
     nb = t.moving.shape[0] if batched else 1
-    use_graph = (device.type == "cuda" and icp.CUDA_GRAPHS and not verbose
-                 and (cfg.shard is None or cfg.shard.capturable))
-    single = verbose or (device.type == "cuda" and not use_graph)
-    k = 1 if single else int(LOOP_CHUNK)
-    if k < 1:
-        raise ValueError(f"a chunk must be >= 1 iteration (LOOP_CHUNK), got {k}")
+    use_graph, k = chunk_policy(device, verbose, cfg.shard is None or cfg.shard.capturable)
     # filled on the device: no blocking host-to-device copy
     t = t._replace(
         cap=torch.full(t.cap.shape, max(int(max_iterations), -1), dtype=torch.int32,
@@ -856,11 +823,11 @@ def _em_loop(cfg: EMConfig, t: EMInputs, c: _EMCarry, max_iterations: int, verbo
         return base + (phase, eligible)
 
     def chunk_of(key):
-        return lambda inp, carry: _em_chunk(cfg, k, key[-2], key[-1], use_graph, inp, carry)
+        return lambda inp, carry: _em_chunk(cfg, k, key[-2], key[-1], inp, carry)
 
-    def read(vals, sigma2):
+    def read(own, sigma2):
         before = counts[0]
-        counts[:], states[:] = _read_em_status(vals, nb, k)
+        counts[:], states[:] = own[:nb], own[nb:]
         if verbose and counts[0] > before:
             # the reference's per-iteration printf
             # (coherentpointdrift.cpp:121: "loop_nr %d, error: %f")
@@ -910,8 +877,8 @@ def cpd_register(
     iterations' (sigma^2, ntol, log-likelihood, scale), iteration i in
     slot i % history_length.  ``resume`` continues from a ``CPDResume``.
     The result's ``error`` is sigma^2, its ``em`` the final loop state.
-    The loop runs ``LOOP_CHUNK`` iterations between host reads, which
-    changes no bit of the result (module docstring; ``graph_scope``
+    The loop runs ``device_loop.LOOP_CHUNK`` iterations between host
+    reads, which changes no bit of the result (module docstring; ``graph_scope``
     keeps its CUDA graphs for later registrations of the same key).  The
     set-up before the loop is the ``tpuslam.entry.prepare`` span
     (``core/spans.py``)."""

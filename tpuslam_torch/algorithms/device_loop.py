@@ -3,17 +3,23 @@
 
 A loop keeps all of its state on the device, as the JAX package's
 ``lax.while_loop``s do, and runs in chunks of iterations with one host
-read a chunk: the chunk's status, an i32 vector whose first entries are
-the launches the device counted (``kernels.TALLIED``).  ``run_chunks``
-drives the chunks.  On CUDA the first chunk of a key runs eagerly (its
-warm-up), the next is captured as a CUDA graph over static buffers
-(``ChunkGraph``) and replayed; the graph is kept by its key in the open
-``graph_scope``, so a later registration of the same key loads its
-inputs and replays it.  A loop supplies its chunk, its status reader and
-its keys (a loop with phases, as CPD's Hybrid, has one key a phase).
+read a chunk.  ``run_chunks`` drives the chunks.  On CUDA the first
+chunk of a key runs eagerly (its warm-up), the next is captured as a
+CUDA graph over static buffers (``ChunkGraph``) and replayed; the graph
+is kept by its key in the open ``graph_scope``, so a later registration
+of the same key loads its inputs and replays it.  A loop supplies its
+chunk, its status reader and its keys (a loop with phases, as CPD's
+Hybrid, has one key a phase); ``chunk_policy`` sets the chunk's length
+and whether it is captured, for every loop alike.
 The sharded loops' chunks hold NCCL collectives (``parallel/``): a
 replay books them to the open ``collectives.collective_log`` as it books
 its launches, and their key names the process group.
+
+A chunk's report is one i32 vector, read once, laid out here alone: the
+launches the device counted (a row of ``kernels.TALLIED`` each), the
+loop's own status (its stop flag, counts and states), then the codes of
+the choices the device made (``core/choices.py``), each booked to its
+trace as the report is read.
 
 The tree helpers (``leaves``, ``rebuild``, ``signature``, ``keep``) act
 on trees of named tuples and tensors: a loop's inputs and carry.
@@ -22,13 +28,42 @@ on trees of named tuples and tensors: a loop's inputs and carry.
 from __future__ import annotations
 
 from contextlib import contextmanager
-from typing import Callable, Hashable, Optional
+from typing import Callable, Hashable, List, NamedTuple, Optional, Tuple
 
 import torch
 
 from tpuslam_torch import kernels
+from tpuslam_torch.core import choices
 from tpuslam_torch.core.spans import span
 from tpuslam_torch.parallel import collectives
+
+# iterations a chunk of a device-resident loop (one host read a chunk),
+# chosen from card runs of 1, 2, 4 and 8 (harness/loop_chunk.py, PERF.md):
+# ICP at 102,400 and 8,192 rows on both arms, where 2 was within 6 % of the
+# best in every row; CPD at 20,480 rows exact and 102,400 rows Hybrid, where
+# 2 was the best Hybrid row (a frozen FGT iteration at the phase switch
+# costs a whole E-step) and within 8 % of the best exact row.  With the
+# chunk replayed as a graph the read costs little, and a chunk past the
+# stop wastes up to k - 1 iterations of device time
+LOOP_CHUNK = 2
+# capture a chunk as a CUDA graph on CUDA (False: eager chunks of one
+# iteration, the loop every chunked run is held to, a measurement's baseline)
+CUDA_GRAPHS = True
+
+
+def chunk_policy(device: torch.device, verbose: bool, capturable: bool) -> Tuple[bool, int]:
+    """``(use_graph, k)`` of a loop on ``device``: on CUDA, chunks of
+    ``LOOP_CHUNK`` iterations captured as CUDA graphs; eager chunks of one
+    iteration with ``verbose`` (the reference's per-iteration printf),
+    without ``CUDA_GRAPHS`` or where the loop cannot be captured (the
+    sharded loops under gloo, which stage each collective through the
+    host), as such a chunk reads the host at each choice anyway; eager
+    chunks of ``LOOP_CHUNK`` iterations on the CPU."""
+    use_graph = device.type == "cuda" and CUDA_GRAPHS and not verbose and capturable
+    k = 1 if verbose or (device.type == "cuda" and not use_graph) else int(LOOP_CHUNK)
+    if k < 1:
+        raise ValueError(f"a chunk must be >= 1 iteration (LOOP_CHUNK), got {k}")
+    return use_graph, k
 
 
 def leaves(tree) -> list:
@@ -73,15 +108,62 @@ def keep(cond: torch.Tensor, new, old):
     return type(new)(*subs) if hasattr(new, "_fields") else type(new)(subs)
 
 
+class Layout(NamedTuple):
+    """What a chunk's report holds past its launch tally: the length of
+    the loop's own status, then ``(trace, names, length)`` of each booked
+    choice's codes, in order."""
+
+    own: int
+    codes: List[tuple]
+
+
+def _reporting(fn: Callable, predicated: bool) -> Callable:
+    """The chunk ``fn(inputs, carry) -> (carry, own, extra)`` (``own``: the
+    loop's status, i32 tensors) run with the launch tally read before and
+    after it and the device's choices recorded (``predicated``: made on
+    the device), as ``(carry, report, extra, layout)``: the report is
+    ``[launches | own | codes]`` in one i32 vector."""
+    def chunk(inputs, carry):
+        device = leaves(inputs)[0].device
+        tally = kernels.tally(device)
+        before = None if tally is None else tally[:, 0].clone()
+        with choices.recording(predicated) as rec:
+            carry, own, extra = fn(inputs, carry)
+        launched = (torch.zeros(len(kernels.TALLIED), dtype=torch.int32, device=device)
+                    if tally is None else tally[:, 0] - before)
+        codes = [code.to(torch.int32).flatten() for _, _, code in rec.booked]
+        layout = Layout(sum(t.numel() for t in own),
+                        [(trace, names, c.numel()) for (trace, names, _), c in
+                         zip(rec.booked, codes)])
+        return carry, torch.cat([launched, *own, *codes]), extra, layout
+    return chunk
+
+
+def read_report(vals: list, layout: Layout, captured=None) -> list:
+    """A chunk's report, read: each choice that ran booked to its trace
+    (a ``choices.FROZEN`` code is not), a replay's launches booked with
+    the batch sizes its capture recorded (``captured``; None for an eager
+    chunk, whose wrappers counted them); returns the loop's own status."""
+    at = len(kernels.TALLIED)
+    if captured is not None:
+        kernels.book_replay(vals[:at], captured)
+    own = vals[at:at + layout.own]
+    at += layout.own
+    for trace, names, n in layout.codes:
+        trace.extend(names[code] for code in vals[at:at + n] if code != choices.FROZEN)
+        at += n
+    return own
+
+
 class ChunkGraph:
     """One chunk of a device-resident loop captured as a CUDA graph over
     static buffers: ``load`` copies a registration's inputs and carry in
     (trees of tensors), ``replay`` runs the chunk and reads its status
-    (the buffers then hold the new carry).  A replay runs no wrapper, so
-    it books the launches the device counted in it (the status's first
-    entries) to the wrappers' counters, with the batch sizes the capture
-    recorded, and the collectives the capture recorded to the open
-    ``collective_log``.  The capture is "thread_local"
+    (the buffers then hold the new carry).  ``fn`` is a chunk as
+    ``_reporting`` makes it.  A replay runs no wrapper, so it books the
+    launches the device counted in it to the wrappers' counters, with the
+    batch sizes the capture recorded, and the collectives the capture
+    recorded to the open ``collective_log``.  The capture is "thread_local"
     (``torch.cuda.graph``'s ``capture_error_mode``): in a rank's process
     the NCCL process group's watchdog thread queries its events
     meanwhile, which a "global" capture would count against it."""
@@ -98,7 +180,8 @@ class ChunkGraph:
         with kernels.recording_capture() as self.captured, \
                 collectives.recording_capture() as self.collectives, \
                 torch.cuda.graph(self.graph, capture_error_mode="thread_local"):
-            out, self.status, _ = fn(rebuild(inputs, iter(self.inputs)), self.template)
+            out, self.status, _, self.layout = fn(rebuild(inputs, iter(self.inputs)),
+                                                  self.template)
             for buf, new in zip(self.carry, leaves(out)):
                 buf.copy_(new)
 
@@ -109,12 +192,11 @@ class ChunkGraph:
             buf.copy_(t)
 
     def replay(self) -> list:
-        """Run the chunk; its status, read once, with its launches booked."""
+        """Run the chunk; the loop's own status from its report, read once,
+        with its launches and choices booked."""
         self.graph.replay()
-        vals = self.status.tolist()
-        kernels.book_replay(vals[:len(kernels.TALLIED)], self.captured)
         collectives.book_replay(self.collectives)
-        return vals
+        return read_report(self.status.tolist(), self.layout, self.captured)
 
     def result(self):
         """The carry after the last replay, copied out of the buffers."""
@@ -149,12 +231,14 @@ def run_chunks(key_of: Callable[[], Hashable], chunk_of: Callable[[Hashable], Ca
     """Run a loop's chunks until it has stopped; returns the final carry.
 
     Before each chunk ``key_of()`` names it; ``chunk_of(key)`` is the
-    chunk, ``fn(inputs, carry) -> (carry, status, extra)``, with no host
-    read inside.  After it, ``read(status values, extra)`` books the
-    status and says whether the loop has stopped (``extra`` is None after
-    a replay).  With ``use_graph`` a key's chunk is captured after its
-    first, eager, chunk and replayed from then on, kept in the open
-    ``graph_scope``; a failed capture raises.  The call is the
+    chunk, ``fn(inputs, carry) -> (carry, own, extra)``, with no host read
+    inside (``own``: the loop's status, a list of i32 tensors).  The chunk
+    runs inside a ``choices.recording`` (``predicated`` with
+    ``use_graph``) and its report is read once (``read_report``); then
+    ``read(own status values, extra)`` says whether the loop has stopped
+    (``extra`` is None after a replay).  With ``use_graph`` a key's chunk
+    is captured after its first, eager, chunk and replayed from then on,
+    kept in the open ``graph_scope``; a failed capture raises.  The call is the
     ``tpuslam.loop`` span, each capture a ``tpuslam.loop.capture`` span
     inside it, and each chunk whose key ``span_of`` names (None: none)
     that span, around its run, capture or replay and status read
@@ -175,9 +259,9 @@ def run_chunks(key_of: Callable[[], Hashable], chunk_of: Callable[[Hashable], Ca
                         runner = kept
                     stopped = read(runner.replay(), None)
                     continue
-                fn = chunk_of(key)
-                carry, status, extra = fn(inputs, carry)
-                stopped = read(status.tolist(), extra)
+                fn = _reporting(chunk_of(key), use_graph)
+                carry, report, extra, layout = fn(inputs, carry)
+                stopped = read(read_report(report.tolist(), layout), extra)
                 if graphs is not None and not stopped:
                     # the eager chunk was the warm-up: capture the key's chunk
                     with span("tpuslam.loop.capture"):

@@ -29,25 +29,27 @@ The math and every stop condition follow the JAX package's
 Like the JAX ``lax.while_loop``, the loop keeps all of its state on the
 device and freezes a problem once it has stopped (an iteration after
 ``done``, after ``max_iterations`` or after ``patience`` non-improving
-iterations changes nothing).  It runs in chunks of ``LOOP_CHUNK``
-iterations with one host read a chunk: whether the loop has stopped, the
-iteration count, the hierarchical arm of each query and the launches the
-device counted.  ``algorithms/device_loop.py`` drives the chunks: on
-CUDA a chunk is captured once as a CUDA graph over static input buffers
-and replayed, the hierarchical search then choosing its arm on the
-device.  The graph is kept for the registration, or, inside
-``graph_scope``, for the scope's owner (a sequence, a stream, a chunked
-run, a server, a measurement), one per shape it meets: a later
-registration of the same shapes copies its inputs in and replays it.
+iterations changes nothing).  ``algorithms/device_loop.py`` drives the
+loop in chunks of ``device_loop.LOOP_CHUNK`` iterations with one host
+read a chunk, its report: whether the loop has stopped and the iteration
+count here, the hierarchical arm of each query and the launches the
+device counted there.  On CUDA a chunk is captured once as a CUDA graph
+over static input buffers and replayed, the hierarchical search then
+choosing its arm on the device.  The graph is kept for the
+registration, or, inside ``graph_scope``, for the scope's owner (a
+sequence, a stream, a chunked run, a server, a measurement), one per
+shape it meets: a later registration of the same shapes copies its
+inputs in and replays it.
 The sharded arm (``parallel/icp.py``) runs the same chunks with its
 collectives inside: captured under NCCL, whose collectives a CUDA graph
 records.  ``verbose=True`` (the reference prints each iteration's
-error), ``CUDA_GRAPHS = False`` (the eager baseline of a measurement)
-and an arm that cannot be captured (``Arm.capturable`` False: the
-sharded arm under gloo, which stages each collective through the host)
-run eager chunks of one iteration, the search reading its arm on the
-host; so does the CPU, at ``LOOP_CHUNK``.  Whatever the chunk, the
-result is the one-iteration loop's, bit for bit.
+error), ``device_loop.CUDA_GRAPHS = False`` (the eager baseline of a
+measurement) and an arm that cannot be captured (``Arm.capturable``
+False: the sharded arm under gloo, which stages each collective through
+the host) run eager chunks of one iteration, the search reading its arm
+on the host; so does the CPU, at ``LOOP_CHUNK``
+(``device_loop.chunk_policy``).  Whatever the chunk, the result is the
+one-iteration loop's, bit for bit.
 
 ``icp_register_chunked`` runs the loop a chunk of iterations at a time
 along the same trajectory, and checkpoints each boundary to disk when
@@ -61,15 +63,19 @@ from typing import Any, Callable, NamedTuple, Optional, Tuple
 
 import torch
 
-from tpuslam_torch import kernels
-from tpuslam_torch.algorithms.device_loop import graph_scope, keep, run_chunks, signature
+from tpuslam_torch.algorithms.device_loop import (
+    chunk_policy,
+    graph_scope,
+    keep,
+    run_chunks,
+    signature,
+)
+from tpuslam_torch.core import choices
 from tpuslam_torch.core.spans import span
-from tpuslam_torch.core.types import Cloud, RigidTransform, round_up
+from tpuslam_torch.core.types import Cloud, RegistrationResult, RigidTransform, round_up
 from tpuslam_torch.ops.geometry import matmul3, matvec3, transform_points
 from tpuslam_torch.ops.nn import nearest_neighbors, nearest_neighbors_batch
 from tpuslam_torch.ops.nn_hier import (
-    ARM_TRACE,
-    ARMS,
     MAX_ROWS,
     HierState,
     HierTarget,
@@ -79,7 +85,6 @@ from tpuslam_torch.ops.nn_hier import (
     nearest_neighbors_hier,
     nearest_neighbors_hier_batch,
     prepare_hier_target,
-    recording_arms,
 )
 from tpuslam_torch.ops.procrustes import mean_sq_error, weighted_procrustes
 from tpuslam_torch.ops.spatial import morton_permutation
@@ -88,19 +93,7 @@ FLT_MAX = 3.4028235e38
 # target rows from which use_spatial=None takes the hierarchical arm on
 # CUDA: the JAX package's crossover, measured on a TPU v5e
 SPATIAL_MIN_ROWS = 8192
-# iterations a chunk of the device-resident loop (one host read a chunk),
-# chosen from card runs of 1, 2, 4 and 8 at 102,400 and 8,192 rows on both
-# arms (harness/loop_chunk.py, PERF.md): with the chunk replayed as a graph
-# the read costs little, and a chunk past the stop wastes up to k - 1
-# iterations of device time; 2 was within 6 % of the best in every row
-LOOP_CHUNK = 2
-# capture a chunk as a CUDA graph on CUDA (False: eager chunks of one
-# iteration, the loop every chunked run is held to, a measurement's baseline)
-CUDA_GRAPHS = True
 INT32_MAX = 2**31 - 1
-# the status vector of a chunk starts with the launches of each kernel of
-# kernels.TALLIED, as the device counted them (zeros on the CPU)
-_TALLY_ROWS = len(kernels.TALLIED)
 
 
 def full_f32(x: float, device, shape: Tuple[int, ...] = ()) -> torch.Tensor:
@@ -125,19 +118,6 @@ class ICPState(NamedTuple):
     done: torch.Tensor  # bool[]
     # hierarchical-NN carry (spatial arm only; None on the dense arm)
     nn: Optional[HierState] = None
-
-
-class RegistrationResult(NamedTuple):
-    transform: RigidTransform
-    iterations: int
-    error: torch.Tensor  # f32[]
-    # final hierarchical-NN warm state (spatial arm only)
-    nn: Optional[HierState] = None
-    # CPD only: the per-iteration ring f32[H, 4] of (sigma^2, ntol,
-    # log-likelihood, scale) when asked for, and the final EM loop state
-    # (algorithms.cpd.CPDState; typed loosely to avoid an import cycle)
-    history: Optional[torch.Tensor] = None
-    em: Optional[tuple] = None
 
 
 class ICPResume(NamedTuple):
@@ -348,22 +328,17 @@ def _running(c: _Carry, cap: torch.Tensor, patience: torch.Tensor, has_patience:
     return go
 
 
-def _chunk(step: Callable, k: int, has_patience: bool, predicated: bool, inputs: tuple,
-           c: _Carry):
+def _chunk(step: Callable, k: int, has_patience: bool, inputs: tuple, c: _Carry):
     """``k`` iterations of the loop on the device, each frozen where the
-    loop has stopped, with no host read (``predicated``: none in the
-    hierarchical search either).  Returns the carry, the status i32
-    vector (the launches the device counted, ``_TALLY_ROWS`` of them;
-    stopped; the iteration count or counts; then each query's arm code,
-    plus 3 where its iteration was frozen) and each iteration's error."""
+    loop has stopped, with no host read.  Returns the carry, the loop's
+    own status (stopped; the iteration count or counts) and each
+    iteration's error; each query's arm goes to the open recording of
+    ``core/choices.py``, marked with whether its iteration ran."""
     cap, patience = inputs[4], inputs[5]
-    tally = kernels.tally(inputs[0].device)
-    ran = None if tally is None else tally[:, 0].clone()
-    codes, errs = [], []
+    errs = []
     for _ in range(k):
         go = _running(c, cap, patience, has_patience)
-        with recording_arms(predicated) as arms:
-            new, err = step(inputs, c.s)
+        new, err = step(inputs, c.s)
         # the reference increments only when the loop continues
         new = new._replace(iterations=torch.where(new.done, c.s.iterations,
                                                   c.s.iterations + 1))
@@ -376,25 +351,11 @@ def _chunk(step: Callable, k: int, has_patience: bool, predicated: bool, inputs:
                     keep(better, new.error, c.best_e),
                     torch.where(go, torch.where(improved, 0, c.streak + 1), c.streak))
         c = _Carry(keep(go, new, c.s), *best)
-        active = go if go.dim() == 0 else go.any()
-        codes += [torch.where(active, code, code + 3) for code in arms]
+        choices.ran(go if go.dim() == 0 else go.any())
         errs.append(err)
     stopped = torch.logical_not(_running(c, cap, patience, has_patience).any())
-    launched = (torch.zeros(_TALLY_ROWS, dtype=torch.int32, device=inputs[0].device)
-                if tally is None else tally[:, 0] - ran)
-    status = torch.cat([launched, stopped.to(torch.int32).reshape(1),
-                        c.s.iterations.to(torch.int32).reshape(-1), *codes])
-    return c, status, errs
-
-
-def _read_status(vals: list, nb: int) -> Tuple[bool, list]:
-    """Stopped and the iteration counts from a chunk's status, and the
-    arm of each query of an iteration that ran appended to ``ARM_TRACE``."""
-    at = _TALLY_ROWS
-    for code in vals[at + 1 + nb:]:
-        if code < 3:
-            ARM_TRACE.append(ARMS[code])
-    return bool(vals[at]), vals[at + 1:at + 1 + nb]
+    own = [stopped.to(torch.int32).reshape(1), c.s.iterations.to(torch.int32).reshape(-1)]
+    return c, own, errs
 
 
 def _icp_loop(
@@ -418,24 +379,14 @@ def _icp_loop(
     On CUDA a chunk of ``LOOP_CHUNK`` iterations is captured as a CUDA
     graph (after one eager chunk, its warm-up) and replayed, from the open
     ``graph_scope`` where it holds the shape; a failed capture raises.
-    Eager chunks of one iteration with ``verbose``, without
-    ``CUDA_GRAPHS`` or for an arm that cannot be captured; eager chunks of
-    ``LOOP_CHUNK`` iterations on the CPU.  An iteration frozen past the
-    stop still runs its query, collectives included: every rank of a
+    Eager chunks otherwise (``device_loop.chunk_policy``; an arm that
+    cannot be captured runs them on CUDA too).  An iteration frozen past
+    the stop still runs its query, collectives included: every rank of a
     sharded loop freezes on the same replicated values, so the ranks'
     collectives stay matched."""
     device = src_points.device
     batch = tuple(init.done.shape)
-    nb = 1 if not batch else batch[0]
-    use_graph = (device.type == "cuda" and CUDA_GRAPHS and not verbose
-                 and arm.capturable)
-    # one iteration a chunk: the printf's; an eager chunk on CUDA's, which
-    # reads the host at each hierarchical query anyway (and, under gloo,
-    # at each collective)
-    single = verbose or (device.type == "cuda" and not use_graph)
-    k = 1 if single else int(LOOP_CHUNK)
-    if k < 1:
-        raise ValueError(f"a chunk must be >= 1 iteration (LOOP_CHUNK), got {k}")
+    use_graph, k = chunk_policy(device, verbose, arm.capturable)
     has_patience = patience > 0
 
     def full(value, dtype, shape=()):
@@ -464,7 +415,7 @@ def _icp_loop(
         )
 
     def fn(inp, carry):
-        return _chunk(step, k, has_patience, use_graph, inp, carry)
+        return _chunk(step, k, has_patience, inp, carry)
 
     counts = [0]
     if max_iterations != 0:
@@ -472,13 +423,13 @@ def _icp_loop(
                tuple(signature(t) for t in inputs), signature(c))
         it_before = [0]
 
-        def read(vals, errs):
-            stopped, counts[:] = _read_status(vals, nb)
+        def read(own, errs):
+            counts[:] = own[1:]
             if verbose:
                 # the reference's per-iteration printf (basicicp.cpp:50)
                 print(f"loop_nr {it_before[0] + 1 + iter_offset}, error: {float(errs[0])}")
                 it_before[0] = counts[0]
-            return stopped
+            return bool(own[0])
 
         c = run_chunks(lambda: key, lambda _: fn, inputs, c, read, use_graph)
     s = c.s
@@ -526,7 +477,7 @@ def icp_register(
     stop-on-first-error-increase semantics (pair it with
     ``divergence_guard=False``) by a best-so-far loop that stops after
     ``patience`` consecutive non-improving iterations.  The loop runs
-    ``LOOP_CHUNK`` iterations between host reads, which changes no bit of
+    ``device_loop.LOOP_CHUNK`` iterations between host reads, which changes no bit of
     the result (module docstring; ``graph_scope`` keeps its CUDA graph
     for later registrations of the same shapes).  The set-up before the
     loop is the ``tpuslam.entry.prepare`` span (``core/spans.py``)."""

@@ -41,10 +41,9 @@ from typing import NamedTuple, Tuple
 import numpy as np
 import torch
 
-from tpuslam_torch.algorithms.icp import RegistrationResult
 from tpuslam_torch.algorithms.prng import top_k_order, uniform
 from tpuslam_torch.config.configuration import ApproximationType
-from tpuslam_torch.core.types import LANE, Cloud, RigidTransform, round_up
+from tpuslam_torch.core.types import LANE, Cloud, RegistrationResult, RigidTransform, round_up
 from tpuslam_torch.ops.geometry import transform_points
 from tpuslam_torch.ops.nn import nearest_neighbors_batch
 

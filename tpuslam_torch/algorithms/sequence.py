@@ -65,7 +65,6 @@ from tpuslam_torch.algorithms.icp import (
     FLT_MAX,
     ICPResume,
     ICPState,
-    RegistrationResult,
     _icp_loop,
     dense_arm,
     graph_scope,
@@ -74,7 +73,7 @@ from tpuslam_torch.algorithms.icp import (
     resolve_use_spatial,
 )
 from tpuslam_torch.core.device import resolve_device
-from tpuslam_torch.core.types import Cloud, RigidTransform, pad_cloud, round_up
+from tpuslam_torch.core.types import Cloud, RegistrationResult, RigidTransform, pad_cloud, round_up
 from tpuslam_torch.ops.nn_hier import (
     HierTarget,
     _coarse_tile_rows,

@@ -96,6 +96,23 @@ class Sufficient(NamedTuple):
     error: torch.Tensor  # f32[]  negative log-likelihood
 
 
+class RegistrationResult(NamedTuple):
+    """What every registration returns (ICP, CPD, NICP, solo, batched or
+    sharded)."""
+
+    transform: RigidTransform
+    iterations: int
+    error: torch.Tensor  # f32[]
+    # final hierarchical-NN warm state (ICP's spatial arm only;
+    # ops.nn_hier.HierState)
+    nn: Optional[tuple] = None
+    # CPD only: the per-iteration ring f32[H, 4] of (sigma^2, ntol,
+    # log-likelihood, scale) when asked for, and the final EM loop state
+    # (algorithms.cpd.CPDState)
+    history: Optional[torch.Tensor] = None
+    em: Optional[tuple] = None
+
+
 def round_up(n: int, multiple: int = LANE) -> int:
     return ((n + multiple - 1) // multiple) * multiple
 

@@ -1,5 +1,5 @@
 """The device-resident ICP loop's chunk on the card: how many iterations
-run between host reads (``algorithms/icp.py::LOOP_CHUNK``).
+run between host reads (``algorithms/device_loop.py::LOOP_CHUNK``).
 
     python -m tpuslam_torch.harness.loop_chunk [--device cpu] [--reps 5]
         [--sizes 102400:8192] [--chunks 1:2:4:8] [--out FILE]
@@ -27,8 +27,8 @@ A chunk past the stop runs its remaining iterations frozen, so a larger
 ``k`` reads the host less and wastes up to ``k - 1`` iterations of
 device time.  Writes ``bench_results/h100_loop_chunk.json``.
 
-With ``--cpd`` the program sweeps the CPD loop's chunk
-(``algorithms/cpd.py::LOOP_CHUNK``) instead, on uniform boxes of side 10
+With ``--cpd`` the program sweeps the same chunk on the CPD loop
+instead, on uniform boxes of side 10
 moved by (0.1 rad, 0.5) made from one seed (``--cpd-sizes``, default
 20,480:102,400): at the first size the exact mode run to its stop
 (weight 0.1, tolerance 1e-5, at most 100 iterations), at the second
@@ -57,19 +57,19 @@ CONVERGE = dict(eps=1e-4, max_distance_squared=1e4, max_iterations=100)
 
 
 def run(bench: benchkit.Bench, sizes, chunks, reps: int) -> dict:
-    from tpuslam_torch.algorithms import icp
+    from tpuslam_torch.algorithms import device_loop, icp
     from tpuslam_torch.harness.measure import build_headline_pair, measure_icp_100k
 
     dev = bench.dev
     summary = {}
-    saved = (icp.LOOP_CHUNK, icp.CUDA_GRAPHS)
+    saved = (device_loop.LOOP_CHUNK, device_loop.CUDA_GRAPHS)
     try:
         for n in sizes:
             pair = build_headline_pair(n, device=dev)
             for arm, use_spatial in (("hier", True), ("dense", False)):
                 for label, k, graphs in [("eager", 1, False),
                                          *((f"k{k}", k, True) for k in chunks)]:
-                    icp.LOOP_CHUNK, icp.CUDA_GRAPHS = k, graphs
+                    device_loop.LOOP_CHUNK, device_loop.CUDA_GRAPHS = k, graphs
                     m = measure_icp_100k(n_points=n, iters=FIXED_ITERS, reps=reps, pair=pair,
                                          use_spatial=use_spatial)
                     fixed = bench.row(
@@ -116,7 +116,7 @@ def run(bench: benchkit.Bench, sizes, chunks, reps: int) -> dict:
                     print(json.dumps({f"{n}_{arm}_{label}": summary[f"{n}_{arm}_{label}"]}),
                           flush=True)
     finally:
-        icp.LOOP_CHUNK, icp.CUDA_GRAPHS = saved
+        device_loop.LOOP_CHUNK, device_loop.CUDA_GRAPHS = saved
     return summary
 
 
@@ -127,7 +127,7 @@ def run_cpd(bench: benchkit.Bench, sizes, chunks, reps: int) -> dict:
     """The CPD loop's chunk sweep (module docstring)."""
     import numpy as np
 
-    from tpuslam_torch.algorithms import cpd, icp
+    from tpuslam_torch.algorithms import cpd, device_loop, icp
     from tpuslam_torch.config.configuration import ApproximationType
     from tpuslam_torch.core.types import pad_cloud
     from tpuslam_torch.data.synthesis import (
@@ -144,7 +144,7 @@ def run_cpd(bench: benchkit.Bench, sizes, chunks, reps: int) -> dict:
                         tolerance=0.0, const_scale=True, max_iterations=60)),
     )
     summary = {}
-    saved = (cpd.LOOP_CHUNK, icp.CUDA_GRAPHS)
+    saved = (device_loop.LOOP_CHUNK, device_loop.CUDA_GRAPHS)
     try:
         for n, (mode, kw) in zip(sizes, modes):
             before = (rng.random((n, 3)) * 10).astype(np.float32)
@@ -154,7 +154,7 @@ def run_cpd(bench: benchkit.Bench, sizes, chunks, reps: int) -> dict:
             pair = (pad_cloud(before, device=dev), pad_cloud(after, device=dev))
             for label, k, graphs in [("eager", 1, False),
                                      *((f"k{k}", k, True) for k in chunks)]:
-                cpd.LOOP_CHUNK, icp.CUDA_GRAPHS = k, graphs
+                device_loop.LOOP_CHUNK, device_loop.CUDA_GRAPHS = k, graphs
 
                 def call():
                     return cpd.cpd_register(*pair, **kw)
@@ -176,7 +176,7 @@ def run_cpd(bench: benchkit.Bench, sizes, chunks, reps: int) -> dict:
                 print(json.dumps({f"{mode}_{n}_{label}": summary[f"{mode}_{n}_{label}"]}),
                       flush=True)
     finally:
-        cpd.LOOP_CHUNK, icp.CUDA_GRAPHS = saved
+        device_loop.LOOP_CHUNK, device_loop.CUDA_GRAPHS = saved
     return summary
 
 

@@ -45,7 +45,7 @@ false takes K4's route too.  ``checked=True`` returns ``(Sufficient,
 overflow)`` instead of routing: on overflow its statistics are invalid
 (counts zeroed, fat passes skipped) and must be discarded.
 
-Inside a CUDA graph (``recording_routes(predicated=True)``, the CPD
+Inside a CUDA graph (a predicated ``core/choices.py`` recording, the CPD
 loop's chunks) nothing is read: the route is a device code (0 K5, 1 K4),
 and K5's two passes, K4's two passes over the whole clouds and K4's two
 passes over the fat blocks are all launched, each predicated on the code
@@ -53,8 +53,8 @@ passes over the fat blocks are all launched, each predicated on the code
 and the others return at once.  The fat subsets have a fixed capacity of
 ``fat_budget`` blocks, a device count of live rows, and go back by a
 masked scatter.  The statistics are the host route's, bit for bit.  Each
-call hands its route code to the recorder, which the loop reads once a
-chunk into ``ROUTE_TRACE``.
+call books its route to ``ROUTE_TRACE`` through ``core/choices.py``,
+which a loop's chunk reads with its one read.
 
 Dispatch of the kernels: tensors on the CPU take the plain versions;
 CUDA tensors launch the kernels, or raise.  There is no other path.
@@ -64,12 +64,12 @@ from __future__ import annotations
 
 import math
 from collections import deque
-from contextlib import contextmanager
-from typing import List, NamedTuple, Optional, Tuple, Union
+from typing import NamedTuple, Optional, Tuple, Union
 
 import numpy as np
 import torch
 
+from tpuslam_torch.core import choices
 from tpuslam_torch.core.types import Sufficient, round_up
 from tpuslam_torch.kernels.cpd_dense import (
     SENTINEL,
@@ -113,42 +113,6 @@ PLAN_LAUNCHES = 0  # csrc/cpd_plan.cu's: three a plan
 # "k4" where the whole E-step went to K4
 ROUTE_TRACE: deque = deque(maxlen=4096)
 ROUTES = ("k5", "k4")  # by route code
-
-
-class _Recorder(NamedTuple):
-    codes: List[torch.Tensor]  # each call's route code, i32[1] on its device
-    predicated: bool  # choose the route on the device (a CUDA graph)
-
-
-# the open recorder of route codes (``recording_routes``), or None
-_RECORDER: Optional[_Recorder] = None
-
-
-@contextmanager
-def recording_routes(predicated: bool = False):
-    """Within the block, each ``cpd_estep_cand`` call hands its route code
-    (an i32[1] tensor on its device: 0 K5, 1 K4) to the returned list
-    instead of appending its route to ``ROUTE_TRACE``: the CPD loop reads
-    the codes once a chunk.  With ``predicated`` a call chooses its route
-    on the device (module docstring), as a CUDA graph must."""
-    global _RECORDER
-    prev, _RECORDER = _RECORDER, _Recorder([], predicated)
-    try:
-        yield _RECORDER.codes
-    finally:
-        _RECORDER = prev
-
-
-def _book_route(route, device) -> None:
-    """A call's route code (an int chosen on the host, or an i32[1] chosen
-    on the device): to the open recorder, else to ``ROUTE_TRACE``."""
-    if _RECORDER is None:
-        ROUTE_TRACE.append(ROUTES[int(route)])
-    elif isinstance(route, torch.Tensor):
-        _RECORDER.codes.append(route)
-    else:
-        # filled on the device: no blocking host-to-device copy
-        _RECORDER.codes.append(torch.full((1,), route, dtype=torch.int32, device=device))
 
 
 def fat_budget(t_blocks: int) -> int:
@@ -663,11 +627,11 @@ def cpd_estep_cand(
     and is false runs K4 at once, with no admission and no read back).
     With ``checked=True`` returns ``(Sufficient, overflow bool[])`` and
     does not route to K4 on overflow (see the module docstring).
-    ``predicated`` (None: the open ``recording_routes``'s choice) chooses
-    the route on the device, with no read back."""
+    ``predicated`` (None: the open ``core/choices.py`` recording's
+    choice) chooses the route on the device, with no read back."""
     dev = transformed.device
     if predicated is None:
-        predicated = _RECORDER is not None and _RECORDER.predicated
+        predicated = choices.predicated()
     if predicated and checked:
         raise ValueError("checked=True reads the overflow back: it cannot be predicated")
     exact = not isinstance(trunc_active, torch.Tensor) and not trunc_active
@@ -683,7 +647,7 @@ def cpd_estep_cand(
                                sigma2, constant, trunc_active, truncate)
 
     if exact or tn < 2 or tm < 2:  # nothing to skip
-        _book_route(1, dev)
+        choices.book(ROUTE_TRACE, ROUTES, 1, dev)
         out = dense()
         return (out, torch.zeros((), dtype=torch.bool, device=dev)) if checked else out
 
@@ -691,16 +655,16 @@ def cpd_estep_cand(
                   trunc_active, truncate, checked)
     if predicated:
         out = _estep_predicated(p, constant, sigma2, m0, n0)
-        _book_route(p.route, dev)
+        choices.book(ROUTE_TRACE, ROUTES, p.route)
         return out
 
     # the one read back of the call: route, and size the fat subsets (a
     # false truncation flag admits everything: K4's route)
     overflow, n_fat_n, n_fat_m = p.read.tolist()
     if overflow and not checked:
-        _book_route(1, dev)
+        choices.book(ROUTE_TRACE, ROUTES, 1, dev)
         return dense()
-    _book_route(0, dev)
+    choices.book(ROUTE_TRACE, ROUTES, 0, dev)
 
     # on overflow (checked only) every count is zeroed: the kernels become
     # count-gated no-ops and the caller discards the result

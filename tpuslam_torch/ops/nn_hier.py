@@ -24,16 +24,16 @@ lexicographic on distance and original index).
 The JAX package picks the arm on the device with nested ``lax.cond``.
 The overflow flags become an arm code on the device (``arm_code``: 0
 fine, 1 coarse, 2 dense).  Inside an ICP loop captured as a CUDA graph
-(``recording_arms(predicated=True)``) the port chooses without a host
-read: both candidate tables are built, and K3 (fine), K3 (coarse) and
-K1 are all launched, each predicated on the code, so exactly one of them
-writes the result and the other two return at once.  Everywhere else
-(the CPU, a loop that is not captured, a query on its own) the host
+(a predicated ``core/choices.py`` recording) the port chooses without a
+host read: both candidate tables are built, and K3 (fine), K3 (coarse)
+and K1 are all launched, each predicated on the code, so exactly one of
+them writes the result and the other two return at once.  Everywhere
+else (the CPU, a loop that is not captured, a query on its own) the host
 branch stays, as such a loop reads the host every iteration anyway: the
 code is read and only the branch taken builds its table and runs.  Each
-query's code goes to the ICP loop's recorder (``recording_arms``), which
-reads it back once a chunk of iterations and appends the arm to
-``ARM_TRACE``; a query outside such a loop appends its arm at once.
+query books its code to ``ARM_TRACE`` through ``core/choices.py``: a
+loop's chunk carries it to the host with its one read, and a query
+outside such a loop appends its arm at once.
 
 ``nearest_neighbors_hier_batch`` is the batched form (the JAX package's
 ``nearest_neighbors_hier_batch``, which its custom-vmap rule lowers a
@@ -46,11 +46,11 @@ its batch of one.
 from __future__ import annotations
 
 from collections import deque
-from contextlib import contextmanager
-from typing import List, NamedTuple, Optional, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
+from tpuslam_torch.core import choices
 from tpuslam_torch.kernels.bound import INFLATE_ADD, INFLATE_MUL, bound_pass_batch
 from tpuslam_torch.kernels.nn_cand import nearest_neighbors_cand_batch
 from tpuslam_torch.kernels.nn_dense import nearest_neighbors_dense_batch
@@ -70,30 +70,6 @@ MAX_ROWS = 2**24
 ARM_TRACE: deque = deque(maxlen=4096)
 # the arm codes (ARMS[code]) of the device's arm choice
 ARMS = ("fine", "coarse", "dense")
-
-
-class _Recorder(NamedTuple):
-    codes: List[torch.Tensor]  # each query's arm code, i32[1] on its device
-    predicated: bool  # on CUDA, launch every arm predicated on the code
-
-
-# the open recorder of arm codes (``recording_arms``), or None
-_RECORDER: Optional[_Recorder] = None
-
-
-@contextmanager
-def recording_arms(predicated: bool = False):
-    """Within the block, each query hands its arm code (an i32[1] tensor
-    on the query's device) to the returned list instead of appending its
-    arm to ``ARM_TRACE``: the ICP loop reads the codes once a chunk.  With
-    ``predicated`` a query on CUDA chooses its arm on the device (module
-    docstring), as a CUDA graph must."""
-    global _RECORDER
-    prev, _RECORDER = _RECORDER, _Recorder([], predicated)
-    try:
-        yield _RECORDER.codes
-    finally:
-        _RECORDER = prev
 
 
 def arm_code(overflow: torch.Tensor, overflow2: Optional[torch.Tensor]) -> torch.Tensor:
@@ -337,7 +313,8 @@ def nearest_neighbors_hier(
     for valid sources.  ``state`` from ``hier_state_init`` on the first
     query, then threaded through (positions of the same sorted source
     cloud, moving rigidly between queries).  Appends the arm taken to
-    ``ARM_TRACE`` (inside ``recording_arms``, the recorder's reader does).
+    ``ARM_TRACE`` (inside a ``core/choices.py`` recording, the chunk's
+    report does).
     The batch of one of ``nearest_neighbors_hier_batch``."""
     idx, dist, new = nearest_neighbors_hier_batch(
         transformed[None], src_mask[None],
@@ -418,8 +395,7 @@ def nearest_neighbors_hier_batch(
     runs = (fine, coarse_arm if coarse else None, dense)  # by arm code
     code = arm_code(flags[0], flags[1] if coarse else None)
     dev = transformed.device
-    rec = _RECORDER
-    if dev.type == "cuda" and rec is not None and rec.predicated:
+    if dev.type == "cuda" and choices.predicated():
         # every arm launched, each predicated on the device's code: no read
         idx = torch.empty((b, n), dtype=torch.int32, device=dev)
         dist = torch.empty((b, n), dtype=torch.float32, device=dev)
@@ -430,10 +406,8 @@ def nearest_neighbors_hier_batch(
         # the host branch: one read of the code, only the branch taken
         taken = int(code)
         idx, dist = runs[taken]()
-    if rec is not None:
-        rec.codes.append(code)
-    else:
-        ARM_TRACE.append(ARMS[taken])
+    # inside a recording the device's code, which the chunk's report reads
+    choices.book(ARM_TRACE, ARMS, code if choices.is_recording() else taken)
     # both arms already give the oracle's (0, BIG) on no match; kept, as
     # in the JAX package, so idx stays in range whatever a kernel does
     idx = torch.where(dist >= BIG, torch.zeros_like(idx), idx)

@@ -16,8 +16,7 @@ from __future__ import annotations
 import torch
 
 from tpuslam_torch.algorithms.batch import icp_register_batch
-from tpuslam_torch.algorithms.icp import RegistrationResult
-from tpuslam_torch.core.types import Cloud, RigidTransform
+from tpuslam_torch.core.types import Cloud, RegistrationResult, RigidTransform
 from tpuslam_torch.parallel.collectives import all_gather
 from tpuslam_torch.parallel.mesh import Mesh
 

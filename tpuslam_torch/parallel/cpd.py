@@ -35,7 +35,7 @@ the GLOBAL padded sizes.
 
 The EM loop is the solo port's (``algorithms/cpd.py::_em_loop``), with
 this module's E-step and M-step as its hooks (``ShardedEM``): its state
-on the device, one host read a chunk of ``cpd.LOOP_CHUNK`` iterations,
+on the device, one host read a chunk of ``device_loop.LOOP_CHUNK`` iterations,
 an iteration frozen after the stop test fails, after ``max_iterations``
 or (Hybrid with the FGT, one phase a chunk) in the other phase.  On CUDA
 under NCCL a chunk is captured as a CUDA graph with its collectives and
@@ -68,9 +68,8 @@ from tpuslam_torch.algorithms.cpd import (
     uniform_constant,
 )
 from tpuslam_torch.algorithms.device_loop import graph_scope
-from tpuslam_torch.algorithms.icp import RegistrationResult
 from tpuslam_torch.config.configuration import ApproximationType
-from tpuslam_torch.core.types import Cloud, RigidTransform
+from tpuslam_torch.core.types import Cloud, RegistrationResult, RigidTransform
 from tpuslam_torch.kernels.cpd_dense import device_scalar
 from tpuslam_torch.ops.fgt import (
     FGTModel,

@@ -13,7 +13,7 @@ size.
 
 The loop runs in the solo loop's chunks (``algorithms/device_loop.py``),
 with one host read a chunk, on every rank.  On CUDA under NCCL a chunk
-of ``icp.LOOP_CHUNK`` iterations is captured as a CUDA graph, its
+of ``device_loop.LOOP_CHUNK`` iterations is captured as a CUDA graph, its
 collectives with it, and replayed (kept in the open ``graph_scope``,
 keyed on the process group too); the hierarchical search then chooses
 its arm on the device.  Under gloo, which stages each collective through
@@ -49,11 +49,10 @@ from tpuslam_torch.algorithms.icp import (
     Arm,
     ICPResume,
     ICPState,
-    RegistrationResult,
     _icp_loop,
     full_f32,
 )
-from tpuslam_torch.core.types import Cloud, RigidTransform, round_up
+from tpuslam_torch.core.types import Cloud, RegistrationResult, RigidTransform, round_up
 from tpuslam_torch.ops.nn_hier import (
     HierState,
     HierTarget,

@@ -321,15 +321,15 @@ def _loop(eager: bool):
     """The sharded loops as asked: with ``eager``, the eager loop of one
     iteration a chunk on any device (no CUDA graph), the loop a captured
     or chunked run is held to."""
-    from tpuslam_torch.algorithms import cpd, icp
+    from tpuslam_torch.algorithms import device_loop
 
-    saved = icp.CUDA_GRAPHS, icp.LOOP_CHUNK, cpd.LOOP_CHUNK
+    saved = device_loop.CUDA_GRAPHS, device_loop.LOOP_CHUNK
     if eager:
-        icp.CUDA_GRAPHS, icp.LOOP_CHUNK, cpd.LOOP_CHUNK = False, 1, 1
+        device_loop.CUDA_GRAPHS, device_loop.LOOP_CHUNK = False, 1
     try:
         yield
     finally:
-        icp.CUDA_GRAPHS, icp.LOOP_CHUNK, cpd.LOOP_CHUNK = saved
+        device_loop.CUDA_GRAPHS, device_loop.LOOP_CHUNK = saved
 
 
 def run_cases(mesh, cases) -> List[dict]:

@@ -21,14 +21,13 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from tpuslam_torch.algorithms.icp import RegistrationResult
 from tpuslam_torch.algorithms.nicp import (
     MAX_DISTANCE_FOR_COMPARISON,
     _enumerate_candidates,
     masked_centroid,
     principal_axes,
 )
-from tpuslam_torch.core.types import Cloud, RigidTransform
+from tpuslam_torch.core.types import Cloud, RegistrationResult, RigidTransform
 from tpuslam_torch.ops.geometry import transform_points
 from tpuslam_torch.parallel.collectives import psum
 from tpuslam_torch.parallel.mesh import Mesh, shard_mask
